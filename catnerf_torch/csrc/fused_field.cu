@@ -1,0 +1,667 @@
+// Fused positional encoding + field MLP, forward and backward, for Hopper
+// (sm_90a), float32 throughout.
+//
+// Replaces the Pallas TPU kernels of catnerf_tpu/experimental/fused_field.py:
+//   cn_fwd_kernel  <- _codenerf_fwd_kernel (:124)  CodeNeRF ensemble forward
+//   cn_bwd_kernel  <- _codenerf_bwd_kernel (:135)  its backward
+//   oc_fwd_kernel  <- _occ_fwd_kernel (:435)       OccupancyMap forward
+//   oc_bwd_kernel  <- _occ_bwd_kernel (:445)       its backward
+// reduce_tiles sums the backward's per-block weight-gradient partials.
+//
+// What bounds them on an H100 is the operations: per sample point the
+// CodeNeRF forward does 13,648 multiply-adds against 55.6 KB of weights
+// shared by every point, the background 93,696 against 377 KB. So:
+//   * one thread per sample point runs the whole layer chain; its
+//     activations stay in registers and local memory, never device memory;
+//   * every lane of a warp reads the same weight at the same time (a
+//     broadcast), four at a time (float4): from shared memory for CodeNeRF
+//     (13,892 floats, dynamic shared memory), through L1 for the
+//     background, whose weights do not fit in shared memory;
+//   * the backward recomputes the forward (as the TPU kernel does), stages
+//     each layer's inputs and deltas for the block's rows in shared memory,
+//     and sums x^T d over the rows into one partial per block; reduce_tiles
+//     then adds the partials in a fixed order, so the result is bitwise
+//     repeatable (no atomics).
+// Ragged rows are masked: a row past N reads zeros and writes nothing.
+// No fast math: sinf/cosf/expf are the accurate versions (the arguments
+// reach 32*pi*|proj|), and the PE projection is rounded as written.
+//
+// Every entry point launches on the caller's stream, allocates nothing,
+// and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr float kPi = 3.14159265358979323846f;
+constexpr int kDirs = 21;
+constexpr int kE1 = 87;  // [t (3), sin f0..f3 (4 x 21)]
+constexpr int kE2 = 42;  // [sin f4, f5]
+constexpr int kBSize = kDirs * 3;
+
+// Flat parameter layout: every weight [in, out] row-major in kernel order,
+// then every bias (kernels/fused_field.py CN_LAYERS / OC_LAYERS).
+namespace cn {
+constexpr int W = 32;
+constexpr int e_w = 0;
+constexpr int s0_w = e_w + kE1 * W;
+constexpr int c_w = s0_w + W * W;
+constexpr int s1_w = c_w + (W + kE1) * W;
+constexpr int en_w = s1_w + W * W;
+constexpr int sg_w = en_w + W * W;
+constexpr int vd_w = sg_w + W;
+constexpr int t0_w = vd_w + (W + kE2) * W;
+constexpr int r0_w = t0_w + W * W;
+constexpr int r1_w = r0_w + W * (W / 2);
+constexpr int e_b = r1_w + (W / 2) * 3;
+constexpr int s0_b = e_b + W;
+constexpr int c_b = s0_b + W;
+constexpr int s1_b = c_b + W;
+constexpr int en_b = s1_b + W;
+constexpr int sg_b = en_b + W;
+constexpr int vd_b = sg_b + 1;
+constexpr int t0_b = vd_b + W;
+constexpr int r0_b = t0_b + W;
+constexpr int r1_b = r0_b + W / 2;
+constexpr int P = r1_b + 3;  // 13,892
+constexpr int PP = P + kBSize;  // partial row: params then dB
+constexpr int kFwdT = 64;
+constexpr int kBwdT = 64;
+}  // namespace cn
+
+namespace oc {
+constexpr int H = 128;
+constexpr int in_w = 0;
+constexpr int m1_w = in_w + kE1 * H;
+constexpr int c_w = m1_w + H * H;
+constexpr int m2_w = c_w + (H + kE1) * H;
+constexpr int oa_w = m2_w + H * H;
+constexpr int cl_w = oa_w + H;
+constexpr int oc_w = cl_w + (H + kE2) * H;
+constexpr int in_b = oc_w + H * 3;
+constexpr int m1_b = in_b + H;
+constexpr int c_b = m1_b + H;
+constexpr int m2_b = c_b + H;
+constexpr int oa_b = m2_b + H;
+constexpr int cl_b = oa_b + 1;
+constexpr int oc_b = cl_b + H;
+constexpr int P = oc_b + 3;  // 94,340
+constexpr int PP = P + kBSize;
+constexpr int kFwdT = 64;
+constexpr int kBwdT = 128;  // 132 blocks at 16,800 rows: one wave, and
+                            // the partials stay at 132 x 377 KB
+}  // namespace oc
+
+static_assert(cn::P == 13892 && oc::P == 94340, "layout");
+
+// ---------------------------------------------------------------------------
+// Per-thread building blocks
+// ---------------------------------------------------------------------------
+
+// t = p * inv_scale; proj = t @ B^T; emb1 = [t, sin(pi 2^f proj), f<4];
+// emb2 = [sin(pi 2^f proj), f=4,5].
+__device__ __forceinline__ void embed(const float p[3], const float* B,
+                                      float inv_scale, float t[3],
+                                      float proj[kDirs], float* emb1,
+                                      float* emb2) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) t[j] = p[j] * inv_scale;
+#pragma unroll
+  for (int k = 0; k < kDirs; ++k) {
+    proj[k] = __fadd_rn(__fadd_rn(__fmul_rn(t[0], B[3 * k]),
+                                  __fmul_rn(t[1], B[3 * k + 1])),
+                        __fmul_rn(t[2], B[3 * k + 2]));
+  }
+  emb1[0] = t[0];
+  emb1[1] = t[1];
+  emb1[2] = t[2];
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    const float w = kPi * static_cast<float>(1 << f);
+    float* dst = f < 4 ? emb1 + 3 + kDirs * f : emb2 + kDirs * (f - 4);
+    for (int k = 0; k < kDirs; ++k) dst[k] = sinf(w * proj[k]);
+  }
+}
+
+// dproj = sum_f ds_f * (w_f cos(w_f proj)); dt = demb1[:3] + dproj @ B.
+__device__ __forceinline__ void embed_bwd(const float* demb1,
+                                          const float* demb2,
+                                          const float proj[kDirs],
+                                          const float* B, float dproj[kDirs],
+                                          float dt[3]) {
+  for (int k = 0; k < kDirs; ++k) dproj[k] = 0.f;
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    const float w = kPi * static_cast<float>(1 << f);
+    const float* ds = f < 4 ? demb1 + 3 + kDirs * f : demb2 + kDirs * (f - 4);
+    for (int k = 0; k < kDirs; ++k)
+      dproj[k] = dproj[k] + ds[k] * (w * cosf(w * proj[k]));
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    float acc = 0.f;
+    for (int k = 0; k < kDirs; ++k) acc = fmaf(dproj[k], B[3 * k + j], acc);
+    dt[j] = demb1[j] + acc;
+  }
+}
+
+// acc[o] = sum_i x[i] W[i, oc + o] for o < CH, over the IN rows from W.
+template <int IN, int OUT, int CH>
+__device__ __forceinline__ void accumulate(const float* __restrict__ W,
+                                           const float* x, int oc,
+                                           float (&acc)[CH]) {
+#pragma unroll
+  for (int o = 0; o < CH; ++o) acc[o] = 0.f;
+#pragma unroll 2
+  for (int i = 0; i < IN; ++i) {
+    const float xi = x[i];
+    const float* w = W + i * OUT + oc;
+    if constexpr (CH % 4 == 0) {
+#pragma unroll
+      for (int o = 0; o < CH; o += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(w + o);
+        acc[o] = fmaf(xi, v.x, acc[o]);
+        acc[o + 1] = fmaf(xi, v.y, acc[o + 1]);
+        acc[o + 2] = fmaf(xi, v.z, acc[o + 2]);
+        acc[o + 3] = fmaf(xi, v.w, acc[o + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int o = 0; o < CH; ++o) acc[o] = fmaf(xi, w[o], acc[o]);
+    }
+  }
+}
+
+// y[o] = act((x1 @ W[:IN1] + x2 @ W[IN1:]) + b), W [IN1+IN2, OUT] row-major.
+// W and b are the same for every lane of the warp (broadcast reads).
+template <int IN1, int IN2, int OUT, bool RELU>
+__device__ __forceinline__ void dense(const float* __restrict__ W,
+                                      const float* __restrict__ bias,
+                                      const float* x1, const float* x2,
+                                      float* y) {
+  constexpr int CH = OUT < 32 ? OUT : 32;
+  static_assert(OUT % CH == 0, "output chunking");
+  for (int oc = 0; oc < OUT; oc += CH) {
+    float acc1[CH], acc2[CH];
+    accumulate<IN1, OUT, CH>(W, x1, oc, acc1);
+    if constexpr (IN2 > 0) {
+      accumulate<IN2, OUT, CH>(W + IN1 * OUT, x2, oc, acc2);
+    } else {
+#pragma unroll
+      for (int o = 0; o < CH; ++o) acc2[o] = 0.f;
+    }
+#pragma unroll
+    for (int o = 0; o < CH; ++o) {
+      const float v = (acc1[o] + acc2[o]) + bias[oc + o];
+      y[oc + o] = RELU ? fmaxf(v, 0.f) : v;
+    }
+  }
+}
+
+// dx[i] = sum_o d[o] W[i, o] for the IN rows of W starting at W.
+template <int IN, int OUT>
+__device__ __forceinline__ void dense_dx(const float* __restrict__ W,
+                                         const float* d, float* dx) {
+  for (int i = 0; i < IN; ++i) {
+    const float* w = W + i * OUT;
+    float acc = 0.f;
+    if constexpr (OUT % 4 == 0) {
+#pragma unroll 8
+      for (int o = 0; o < OUT; o += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(w + o);
+        acc = fmaf(d[o], v.x, acc);
+        acc = fmaf(d[o + 1], v.y, acc);
+        acc = fmaf(d[o + 2], v.z, acc);
+        acc = fmaf(d[o + 3], v.w, acc);
+      }
+    } else {
+#pragma unroll
+      for (int o = 0; o < OUT; ++o) acc = fmaf(d[o], w[o], acc);
+    }
+    dx[i] = acc;
+  }
+}
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+// Block-level weight gradient of one layer. Each thread stages its row's
+// input [x1, x2] and delta d into shared memory (odd row strides: no bank
+// conflicts), then the block computes
+//   part_w[i*OUT + o] = sum_r x[r][i] d[r][o],  part_b[o] = sum_r d[r][o]
+// over its T rows in row order, with thread e owning elements e, e+T, ...
+template <int T, int IN1, int IN2, int OUT>
+__device__ __forceinline__ void layer_grad(float* stage, const float* x1,
+                                           const float* x2, const float* d,
+                                           float* __restrict__ part_w,
+                                           float* __restrict__ part_b) {
+  constexpr int IN = IN1 + IN2;
+  constexpr int SX = IN | 1;
+  constexpr int SD = OUT | 1;
+  float* sx = stage;
+  float* sd = stage + T * SX;
+  float* mx = sx + threadIdx.x * SX;
+  float* md = sd + threadIdx.x * SD;
+  for (int i = 0; i < IN1; ++i) mx[i] = x1[i];
+  for (int i = 0; i < IN2; ++i) mx[IN1 + i] = x2[i];
+  for (int o = 0; o < OUT; ++o) md[o] = d[o];
+  __syncthreads();
+  for (int e = threadIdx.x; e < IN * OUT; e += T) {
+    const int i = e / OUT;
+    const int o = e - i * OUT;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < T; ++r) acc = fmaf(sx[r * SX + i], sd[r * SD + o], acc);
+    part_w[e] = acc;
+  }
+  if (part_b != nullptr) {
+    for (int o = threadIdx.x; o < OUT; o += T) {
+      float acc = 0.f;
+      for (int r = 0; r < T; ++r) acc += sd[r * SD + o];
+      part_b[o] = acc;
+    }
+  }
+  __syncthreads();
+}
+
+template <int N>
+__device__ __forceinline__ void load_row(const float* __restrict__ src,
+                                         bool valid, float* dst) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) dst[k] = valid ? src[k] : 0.f;
+}
+
+// Copies n floats (n % 4 == 0, both 16-byte aligned) with the whole block.
+template <int T>
+__device__ __forceinline__ void block_copy(float* dst,
+                                           const float* __restrict__ src,
+                                           int n) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int k = threadIdx.x; k < n / 4; k += T) d4[k] = s4[k];
+}
+
+// ---------------------------------------------------------------------------
+// CodeNeRF ensemble: grid (row tiles, C), one thread per row
+// ---------------------------------------------------------------------------
+
+template <int T>
+__global__ void __launch_bounds__(T)
+    cn_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ zs0,
+                  const float* __restrict__ zc, const float* __restrict__ zs1,
+                  const float* __restrict__ zt0,
+                  const float* __restrict__ params,
+                  const float* __restrict__ Bg, float* __restrict__ out, int N,
+                  float inv_scale) {
+  extern __shared__ float4 smem4[];
+  float* sW = reinterpret_cast<float*>(smem4);
+  float* sB = sW + cn::P;
+  const int c = blockIdx.y;
+  block_copy<T>(sW, params + static_cast<size_t>(c) * cn::P, cn::P);
+  for (int k = threadIdx.x; k < kBSize; k += T) sB[k] = Bg[c * kBSize + k];
+  __syncthreads();
+  const int row = blockIdx.x * T + threadIdx.x;
+  if (row >= N) return;
+  const size_t g = static_cast<size_t>(c) * N + row;
+  constexpr int W = cn::W;
+
+  float p[3], t[3], proj[kDirs], emb1[kE1], emb2[kE2];
+  load_row<3>(pts + g * 3, true, p);
+  embed(p, sB, inv_scale, t, proj, emb1, emb2);
+  float x[W], y[W], h[W];
+  dense<kE1, 0, W, true>(sW + cn::e_w, sW + cn::e_b, emb1, nullptr, y);
+  for (int k = 0; k < W; ++k) x[k] = y[k] + zs0[g * W + k];
+  dense<W, 0, W, true>(sW + cn::s0_w, sW + cn::s0_b, x, nullptr, y);
+  for (int k = 0; k < W; ++k) x[k] = y[k] + zc[g * W + k];
+  dense<W, kE1, W, true>(sW + cn::c_w, sW + cn::c_b, x, emb1, y);
+  for (int k = 0; k < W; ++k) x[k] = y[k] + zs1[g * W + k];
+  dense<W, 0, W, true>(sW + cn::s1_w, sW + cn::s1_b, x, nullptr, y);
+  dense<W, 0, W, false>(sW + cn::en_w, sW + cn::en_b, y, nullptr, h);
+  float sg;
+  dense<W, 0, 1, false>(sW + cn::sg_w, sW + cn::sg_b, h, nullptr, &sg);
+  dense<W, kE2, W, true>(sW + cn::vd_w, sW + cn::vd_b, h, emb2, y);
+  for (int k = 0; k < W; ++k) x[k] = y[k] + zt0[g * W + k];
+  dense<W, 0, W, true>(sW + cn::t0_w, sW + cn::t0_b, x, nullptr, y);
+  dense<W, 0, W / 2, true>(sW + cn::r0_w, sW + cn::r0_b, y, nullptr, x);
+  float a7[3];
+  dense<W / 2, 0, 3, false>(sW + cn::r1_w, sW + cn::r1_b, x, nullptr, a7);
+  float4 o;
+  o.x = sg * 10.f;
+  o.y = sigmoidf(a7[0]);
+  o.z = sigmoidf(a7[1]);
+  o.w = sigmoidf(a7[2]);
+  reinterpret_cast<float4*>(out)[g] = o;
+}
+
+template <int T>
+__global__ void __launch_bounds__(T)
+    cn_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ zs0,
+                  const float* __restrict__ zc, const float* __restrict__ zs1,
+                  const float* __restrict__ zt0,
+                  const float* __restrict__ params,
+                  const float* __restrict__ Bg,
+                  const float* __restrict__ dout, float* __restrict__ dpts,
+                  float* __restrict__ dzs0, float* __restrict__ dzc,
+                  float* __restrict__ dzs1, float* __restrict__ dzt0,
+                  float* __restrict__ partial, int N, float inv_scale) {
+  extern __shared__ float4 smem4[];
+  float* sW = reinterpret_cast<float*>(smem4);
+  float* sB = sW + cn::P;
+  float* stage = sB + 64;
+  const int c = blockIdx.y;
+  block_copy<T>(sW, params + static_cast<size_t>(c) * cn::P, cn::P);
+  for (int k = threadIdx.x; k < kBSize; k += T) sB[k] = Bg[c * kBSize + k];
+  __syncthreads();
+  const int row = blockIdx.x * T + threadIdx.x;
+  const bool valid = row < N;
+  const size_t g = static_cast<size_t>(c) * N + (valid ? row : 0);
+  float* part = partial + (static_cast<size_t>(c) * gridDim.x + blockIdx.x) *
+                              static_cast<size_t>(cn::PP);
+  constexpr int W = cn::W;
+
+  // recompute the forward, keeping what the backward reads
+  float p[3], t[3], proj[kDirs], emb1[kE1], emb2[kE2];
+  load_row<3>(pts + g * 3, valid, p);
+  embed(p, sB, inv_scale, t, proj, emb1, emb2);
+  float r0[W], g0[W], r1[W], g1[W], r2[W], g2[W], r3[W], h[W], r4[W], g4[W],
+      r5[W], r6[W / 2], a7[3];
+  float z[W];
+  dense<kE1, 0, W, true>(sW + cn::e_w, sW + cn::e_b, emb1, nullptr, r0);
+  load_row<W>(zs0 + g * W, valid, z);
+  for (int k = 0; k < W; ++k) g0[k] = r0[k] + z[k];
+  dense<W, 0, W, true>(sW + cn::s0_w, sW + cn::s0_b, g0, nullptr, r1);
+  load_row<W>(zc + g * W, valid, z);
+  for (int k = 0; k < W; ++k) g1[k] = r1[k] + z[k];
+  dense<W, kE1, W, true>(sW + cn::c_w, sW + cn::c_b, g1, emb1, r2);
+  load_row<W>(zs1 + g * W, valid, z);
+  for (int k = 0; k < W; ++k) g2[k] = r2[k] + z[k];
+  dense<W, 0, W, true>(sW + cn::s1_w, sW + cn::s1_b, g2, nullptr, r3);
+  dense<W, 0, W, false>(sW + cn::en_w, sW + cn::en_b, r3, nullptr, h);
+  dense<W, kE2, W, true>(sW + cn::vd_w, sW + cn::vd_b, h, emb2, r4);
+  load_row<W>(zt0 + g * W, valid, z);
+  for (int k = 0; k < W; ++k) g4[k] = r4[k] + z[k];
+  dense<W, 0, W, true>(sW + cn::t0_w, sW + cn::t0_b, g4, nullptr, r5);
+  dense<W, 0, W / 2, true>(sW + cn::r0_w, sW + cn::r0_b, r5, nullptr, r6);
+  dense<W / 2, 0, 3, false>(sW + cn::r1_w, sW + cn::r1_b, r6, nullptr, a7);
+
+  // backward; a row past N has dout = 0, so it adds nothing
+  float dd[4];
+  load_row<4>(dout + g * 4, valid, dd);
+  float dsg = dd[0] * 10.f;
+  float da7[3];
+  for (int k = 0; k < 3; ++k) {
+    const float col = sigmoidf(a7[k]);
+    da7[k] = dd[1 + k] * col * (1.f - col);
+  }
+  float da[W], dx[W], demb1[kE1], demb2[kE2], tmp1[kE1];
+  layer_grad<T, W / 2, 0, 3>(stage, r6, nullptr, da7, part + cn::r1_w,
+                             part + cn::r1_b);
+  dense_dx<W / 2, 3>(sW + cn::r1_w, da7, dx);
+  for (int k = 0; k < W / 2; ++k) da[k] = r6[k] > 0.f ? dx[k] : 0.f;
+  layer_grad<T, W, 0, W / 2>(stage, r5, nullptr, da, part + cn::r0_w,
+                             part + cn::r0_b);
+  dense_dx<W, W / 2>(sW + cn::r0_w, da, dx);
+  for (int k = 0; k < W; ++k) da[k] = r5[k] > 0.f ? dx[k] : 0.f;
+  layer_grad<T, W, 0, W>(stage, g4, nullptr, da, part + cn::t0_w,
+                         part + cn::t0_b);
+  dense_dx<W, W>(sW + cn::t0_w, da, dx);  // dg4
+  if (valid)
+    for (int k = 0; k < W; ++k) dzt0[g * W + k] = dx[k];
+  for (int k = 0; k < W; ++k) da[k] = r4[k] > 0.f ? dx[k] : 0.f;  // da4
+  layer_grad<T, W, kE2, W>(stage, h, emb2, da, part + cn::vd_w,
+                           part + cn::vd_b);
+  dense_dx<W, W>(sW + cn::vd_w, da, dx);  // dh
+  dense_dx<kE2, W>(sW + cn::vd_w + W * W, da, demb2);
+  layer_grad<T, W, 0, 1>(stage, h, nullptr, &dsg, part + cn::sg_w,
+                         part + cn::sg_b);
+  for (int k = 0; k < W; ++k) dx[k] = dx[k] + dsg * sW[cn::sg_w + k];
+  layer_grad<T, W, 0, W>(stage, r3, nullptr, dx, part + cn::en_w,
+                         part + cn::en_b);
+  dense_dx<W, W>(sW + cn::en_w, dx, da);
+  for (int k = 0; k < W; ++k) da[k] = r3[k] > 0.f ? da[k] : 0.f;  // da3
+  layer_grad<T, W, 0, W>(stage, g2, nullptr, da, part + cn::s1_w,
+                         part + cn::s1_b);
+  dense_dx<W, W>(sW + cn::s1_w, da, dx);  // dg2
+  if (valid)
+    for (int k = 0; k < W; ++k) dzs1[g * W + k] = dx[k];
+  for (int k = 0; k < W; ++k) da[k] = r2[k] > 0.f ? dx[k] : 0.f;  // da2
+  layer_grad<T, W, kE1, W>(stage, g1, emb1, da, part + cn::c_w,
+                           part + cn::c_b);
+  dense_dx<W, W>(sW + cn::c_w, da, dx);  // dg1
+  dense_dx<kE1, W>(sW + cn::c_w + W * W, da, demb1);
+  if (valid)
+    for (int k = 0; k < W; ++k) dzc[g * W + k] = dx[k];
+  for (int k = 0; k < W; ++k) da[k] = r1[k] > 0.f ? dx[k] : 0.f;  // da1
+  layer_grad<T, W, 0, W>(stage, g0, nullptr, da, part + cn::s0_w,
+                         part + cn::s0_b);
+  dense_dx<W, W>(sW + cn::s0_w, da, dx);  // dg0
+  if (valid)
+    for (int k = 0; k < W; ++k) dzs0[g * W + k] = dx[k];
+  for (int k = 0; k < W; ++k) da[k] = r0[k] > 0.f ? dx[k] : 0.f;  // da0
+  layer_grad<T, kE1, 0, W>(stage, emb1, nullptr, da, part + cn::e_w,
+                           part + cn::e_b);
+  dense_dx<kE1, W>(sW + cn::e_w, da, tmp1);
+  for (int k = 0; k < kE1; ++k) demb1[k] = demb1[k] + tmp1[k];
+
+  float dproj[kDirs], dt[3];
+  embed_bwd(demb1, demb2, proj, sB, dproj, dt);
+  layer_grad<T, kDirs, 0, 3>(stage, dproj, nullptr, t, part + cn::P,
+                             nullptr);
+  if (valid)
+    for (int j = 0; j < 3; ++j) dpts[g * 3 + j] = dt[j] * inv_scale;
+}
+
+// ---------------------------------------------------------------------------
+// OccupancyMap background (hidden 128): grid (row tiles), one thread per row;
+// weights through L1 (377 KB do not fit in shared memory)
+// ---------------------------------------------------------------------------
+
+template <int T>
+__global__ void __launch_bounds__(T)
+    oc_fwd_kernel(const float* __restrict__ pts,
+                  const float* __restrict__ prm, const float* __restrict__ B,
+                  float* __restrict__ out, int N, float inv_scale) {
+  const int row = blockIdx.x * T + threadIdx.x;
+  if (row >= N) return;
+  constexpr int H = oc::H;
+  float p[3], t[3], proj[kDirs], emb1[kE1], emb2[kE2];
+  load_row<3>(pts + static_cast<size_t>(row) * 3, true, p);
+  embed(p, B, inv_scale, t, proj, emb1, emb2);
+  float x[H], y[H];
+  dense<kE1, 0, H, true>(prm + oc::in_w, prm + oc::in_b, emb1, nullptr, x);
+  dense<H, 0, H, true>(prm + oc::m1_w, prm + oc::m1_b, x, nullptr, y);
+  dense<H, kE1, H, true>(prm + oc::c_w, prm + oc::c_b, y, emb1, x);
+  dense<H, 0, H, true>(prm + oc::m2_w, prm + oc::m2_b, x, nullptr, y);
+  float alpha;
+  dense<H, 0, 1, false>(prm + oc::oa_w, prm + oc::oa_b, y, nullptr, &alpha);
+  dense<H, kE2, H, true>(prm + oc::cl_w, prm + oc::cl_b, y, emb2, x);
+  float a5[3];
+  dense<H, 0, 3, false>(prm + oc::oc_w, prm + oc::oc_b, x, nullptr, a5);
+  float4 o;
+  o.x = alpha * 10.f;
+  o.y = sigmoidf(a5[0]);
+  o.z = sigmoidf(a5[1]);
+  o.w = sigmoidf(a5[2]);
+  reinterpret_cast<float4*>(out)[row] = o;
+}
+
+template <int T>
+__global__ void __launch_bounds__(T)
+    oc_bwd_kernel(const float* __restrict__ pts,
+                  const float* __restrict__ prm, const float* __restrict__ B,
+                  const float* __restrict__ dout, float* __restrict__ dpts,
+                  float* __restrict__ partial, int N, float inv_scale) {
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  const int row = blockIdx.x * T + threadIdx.x;
+  const bool valid = row < N;
+  const size_t g = valid ? row : 0;
+  float* part = partial + static_cast<size_t>(blockIdx.x) * oc::PP;
+  constexpr int H = oc::H;
+
+  float p[3], t[3], proj[kDirs], emb1[kE1], emb2[kE2];
+  load_row<3>(pts + g * 3, valid, p);
+  embed(p, B, inv_scale, t, proj, emb1, emb2);
+  float r0[H], r1[H], r2[H], r3[H], r4[H], a5[3];
+  dense<kE1, 0, H, true>(prm + oc::in_w, prm + oc::in_b, emb1, nullptr, r0);
+  dense<H, 0, H, true>(prm + oc::m1_w, prm + oc::m1_b, r0, nullptr, r1);
+  dense<H, kE1, H, true>(prm + oc::c_w, prm + oc::c_b, r1, emb1, r2);
+  dense<H, 0, H, true>(prm + oc::m2_w, prm + oc::m2_b, r2, nullptr, r3);
+  dense<H, kE2, H, true>(prm + oc::cl_w, prm + oc::cl_b, r3, emb2, r4);
+  dense<H, 0, 3, false>(prm + oc::oc_w, prm + oc::oc_b, r4, nullptr, a5);
+
+  float dd[4];
+  load_row<4>(dout + g * 4, valid, dd);
+  float dalpha = dd[0] * 10.f;
+  float da5[3];
+  for (int k = 0; k < 3; ++k) {
+    const float col = sigmoidf(a5[k]);
+    da5[k] = dd[1 + k] * col * (1.f - col);
+  }
+  float da[H], dx[H], demb1[kE1], demb2[kE2], tmp1[kE1];
+  layer_grad<T, H, 0, 3>(stage, r4, nullptr, da5, part + oc::oc_w,
+                         part + oc::oc_b);
+  dense_dx<H, 3>(prm + oc::oc_w, da5, dx);
+  for (int k = 0; k < H; ++k) da[k] = r4[k] > 0.f ? dx[k] : 0.f;  // da4
+  layer_grad<T, H, kE2, H>(stage, r3, emb2, da, part + oc::cl_w,
+                           part + oc::cl_b);
+  dense_dx<H, H>(prm + oc::cl_w, da, dx);  // dr3
+  dense_dx<kE2, H>(prm + oc::cl_w + H * H, da, demb2);
+  layer_grad<T, H, 0, 1>(stage, r3, nullptr, &dalpha, part + oc::oa_w,
+                         part + oc::oa_b);
+  for (int k = 0; k < H; ++k)
+    da[k] = r3[k] > 0.f ? dx[k] + dalpha * prm[oc::oa_w + k] : 0.f;  // da3
+  layer_grad<T, H, 0, H>(stage, r2, nullptr, da, part + oc::m2_w,
+                         part + oc::m2_b);
+  dense_dx<H, H>(prm + oc::m2_w, da, dx);
+  for (int k = 0; k < H; ++k) da[k] = r2[k] > 0.f ? dx[k] : 0.f;  // da2
+  layer_grad<T, H, kE1, H>(stage, r1, emb1, da, part + oc::c_w,
+                           part + oc::c_b);
+  dense_dx<H, H>(prm + oc::c_w, da, dx);  // dr1
+  dense_dx<kE1, H>(prm + oc::c_w + H * H, da, demb1);
+  for (int k = 0; k < H; ++k) da[k] = r1[k] > 0.f ? dx[k] : 0.f;  // da1
+  layer_grad<T, H, 0, H>(stage, r0, nullptr, da, part + oc::m1_w,
+                         part + oc::m1_b);
+  dense_dx<H, H>(prm + oc::m1_w, da, dx);
+  for (int k = 0; k < H; ++k) da[k] = r0[k] > 0.f ? dx[k] : 0.f;  // da0
+  layer_grad<T, kE1, 0, H>(stage, emb1, nullptr, da, part + oc::in_w,
+                           part + oc::in_b);
+  dense_dx<kE1, H>(prm + oc::in_w, da, tmp1);
+  for (int k = 0; k < kE1; ++k) demb1[k] = demb1[k] + tmp1[k];
+
+  float dproj[kDirs], dt[3];
+  embed_bwd(demb1, demb2, proj, B, dproj, dt);
+  layer_grad<T, kDirs, 0, 3>(stage, dproj, nullptr, t, part + oc::P, nullptr);
+  if (valid)
+    for (int j = 0; j < 3; ++j) dpts[g * 3 + j] = dt[j] * inv_scale;
+}
+
+// out[c][p] = sum over tiles k (in order) of partial[c][k][p].
+__global__ void reduce_tiles(const float* __restrict__ partial,
+                             float* __restrict__ out, int nt, int pp) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= pp) return;
+  const size_t c = blockIdx.y;
+  const float* src = partial + c * nt * static_cast<size_t>(pp) + p;
+  float acc = 0.f;
+  for (int k = 0; k < nt; ++k) acc += src[static_cast<size_t>(k) * pp];
+  out[c * pp + p] = acc;
+}
+
+constexpr int kStageCn = (((cn::W + kE1) | 1) + (cn::W | 1)) * cn::kBwdT;
+constexpr int kStageOc = (((oc::H + kE1) | 1) + (oc::H | 1)) * oc::kBwdT;
+constexpr size_t kSmemCnFwd = (cn::P + 64) * sizeof(float);
+constexpr size_t kSmemCnBwd = (cn::P + 64 + kStageCn) * sizeof(float);
+constexpr size_t kSmemOcBwd = kStageOc * sizeof(float);
+static_assert(kSmemCnBwd <= 232448 && kSmemOcBwd <= 232448, "smem");
+
+int launch_reduce(const float* partial, float* out, int C, int nt, int pp,
+                  cudaStream_t s) {
+  dim3 grid((pp + 255) / 256, C);
+  reduce_tiles<<<grid, 256, 0, s>>>(partial, out, nt, pp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// [CodeNeRF P, OccupancyMap P, cn fwd T, cn bwd T, oc fwd T, oc bwd T]
+int catnerf_layout(int* out) {
+  out[0] = cn::P;
+  out[1] = oc::P;
+  out[2] = cn::kFwdT;
+  out[3] = cn::kBwdT;
+  out[4] = oc::kFwdT;
+  out[5] = oc::kBwdT;
+  return 0;
+}
+
+// pts [C,N,3], z* [C,N,32], params [C,P], B [C,21,3] -> out [C,N,4]
+int cn_fwd(const float* pts, const float* zs0, const float* zc,
+           const float* zs1, const float* zt0, const float* params,
+           const float* B, float* out, int C, int N, float inv_scale,
+           void* stream) {
+  constexpr int T = cn::kFwdT;
+  cudaError_t e = cudaFuncSetAttribute(
+      cn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemCnFwd));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((N + T - 1) / T, C);
+  cn_fwd_kernel<T><<<grid, T, kSmemCnFwd, static_cast<cudaStream_t>(stream)>>>(
+      pts, zs0, zc, zs1, zt0, params, B, out, N, inv_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// + dout [C,N,4] -> dpts, dz*, grads [C, P + 63] (via partial [C, nt, P + 63])
+int cn_bwd(const float* pts, const float* zs0, const float* zc,
+           const float* zs1, const float* zt0, const float* params,
+           const float* B, const float* dout, float* dpts, float* dzs0,
+           float* dzc, float* dzs1, float* dzt0, float* partial, float* grads,
+           int C, int N, float inv_scale, void* stream) {
+  constexpr int T = cn::kBwdT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      cn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemCnBwd));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nt = (N + T - 1) / T;
+  cn_bwd_kernel<T><<<dim3(nt, C), T, kSmemCnBwd, s>>>(
+      pts, zs0, zc, zs1, zt0, params, B, dout, dpts, dzs0, dzc, dzs1, dzt0,
+      partial, N, inv_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_reduce(partial, grads, C, nt, cn::PP, s);
+}
+
+// pts [N,3], params [P], B [21,3] -> out [N,4]
+int oc_fwd(const float* pts, const float* params, const float* B, float* out,
+           int N, float inv_scale, void* stream) {
+  constexpr int T = oc::kFwdT;
+  oc_fwd_kernel<T><<<(N + T - 1) / T, T, 0,
+                     static_cast<cudaStream_t>(stream)>>>(pts, params, B, out,
+                                                          N, inv_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// + dout [N,4] -> dpts [N,3], grads [P + 63] (via partial [nt, P + 63])
+int oc_bwd(const float* pts, const float* params, const float* B,
+           const float* dout, float* dpts, float* partial, float* grads,
+           int N, float inv_scale, void* stream) {
+  constexpr int T = oc::kBwdT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      oc_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemOcBwd));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nt = (N + T - 1) / T;
+  oc_bwd_kernel<T><<<nt, T, kSmemOcBwd, s>>>(pts, params, B, dout, dpts,
+                                             partial, N, inv_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_reduce(partial, grads, 1, nt, oc::PP, s);
+}
+
+}  // extern "C"

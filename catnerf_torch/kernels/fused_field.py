@@ -1,0 +1,528 @@
+"""Fused positional encoding + field MLP, forward and backward, for the
+CodeNeRF category ensemble and the OccupancyMap background.
+
+Replaces the Pallas TPU kernels of the JAX package's
+`experimental/fused_field.py`:
+
+  codenerf_fwd   <- _codenerf_fwd_kernel :124 (via _make_codenerf_fused)
+  codenerf_bwd   <- _codenerf_bwd_kernel :135
+  occupancy_fwd  <- _occ_fwd_kernel :435 (via _make_occ_fused)
+  occupancy_bwd  <- _occ_bwd_kernel :445
+
+with CUDA C++ kernels for Hopper (`csrc/fused_field.cu`). Each public
+function keeps the JAX contract (`codenerf_fused_apply` :384,
+`occupancy_fused_apply` :631) and is differentiable through an
+`autograd.Function` whose backward is a kernel too.
+
+What bounds them on an H100: the operations. Per sample point the
+CodeNeRF forward does 13,648 multiply-adds against 55.6 KB of weights that
+every point shares, and the background 93,696 against 377 KB, while a
+point's own data is a few hundred bytes; so the weights must come from
+on-chip memory and the intermediates must never reach device memory.
+The design: one thread per sample point runs the whole chain with its
+activations in registers and local memory; the CodeNeRF weights sit in
+shared memory (every lane of a warp reads the same weight, a broadcast),
+the background's 377 KB, too large for shared memory, are read through
+L1 the same way. The backward recomputes the forward, as the TPU kernel
+does, and sums the weight gradients of a block's rows in shared memory
+into one partial per block; a second launch adds the partials in a fixed
+order, so that two runs are bitwise equal (no atomics).
+
+Numerics: true float32 throughout, the transcendental sin (not the XLA
+path's sinpi polynomial), no fast math and no TF32, as the TPU kernels.
+
+Dispatch: a tensor on the CPU takes the plain PyTorch version below; a
+tensor on a CUDA device launches the kernel or raises. The plain version
+of each backward also serves as the kernel's reference on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+# kernel launches by the wrappers below (one per forward or backward call
+# that reaches the CUDA kernel; the plain versions never count)
+LAUNCHES = {"codenerf_fwd": 0, "codenerf_bwd": 0,
+            "occupancy_fwd": 0, "occupancy_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_N_FREQS = 6  # 2^0..2^5
+N_DIRS = 21
+B_SIZE = N_DIRS * 3
+
+# (key, fan_in, fan_out) in kernel order; the flat parameter buffer holds
+# every weight [in, out] row-major in this order, then every bias.
+CN_LAYERS = (("e", 87, 32), ("s0", 32, 32), ("c", 119, 32), ("s1", 32, 32),
+             ("en", 32, 32), ("sg", 32, 1), ("vd", 74, 32), ("t0", 32, 32),
+             ("r0", 32, 16), ("r1", 16, 3))
+OC_LAYERS = (("in", 87, 128), ("m1", 128, 128), ("c", 215, 128),
+             ("m2", 128, 128), ("oa", 128, 1), ("cl", 170, 128),
+             ("oc", 128, 3))
+
+
+def n_params(layers) -> int:
+    return sum(i * o + o for _, i, o in layers)
+
+
+CN_P = n_params(CN_LAYERS)  # 13,892
+OC_P = n_params(OC_LAYERS)  # 94,340
+
+
+def _cn_modules(fc):
+    """CodeNeRF layers in kernel order (module attribute -> kernel key)."""
+    return (fc.encoding_xyz, fc.shape_layers[0], fc.cat_layer,
+            fc.shape_layers[1], fc.encoding_shape, fc.sigma,
+            fc.encoding_viewdir, fc.texture_layers[0], fc.rgb_0, fc.rgb_1)
+
+
+def _oc_modules(fc):
+    return (fc.in_layer, fc.mid1[0], fc.cat_layer, fc.mid2[0],
+            fc.out_alpha, fc.color_linear, fc.out_color)
+
+
+def pack(modules) -> torch.Tensor:
+    """Flat [*lead, P] buffer: all weights, then all biases. Autograd
+    routes the kernel's [*lead, P] gradient back through the cat."""
+    lead = modules[0].b.shape[:-1]
+    return torch.cat([m.w.reshape(*lead, -1) for m in modules]
+                     + [m.b for m in modules], dim=-1)
+
+
+def _unpack(flat: torch.Tensor, layers):
+    lead = flat.shape[:-1]
+    W, b, off = {}, {}, 0
+    for k, i, o in layers:
+        W[k] = flat[..., off:off + i * o].reshape(*lead, i, o)
+        off += i * o
+    for k, _, o in layers:
+        b[k] = flat[..., off:off + o].unsqueeze(-2)
+        off += o
+    return W, b
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the kernels' arithmetic, batched over leading dims)
+# ---------------------------------------------------------------------------
+
+
+def _embed(pts, B, inv_scale):
+    """pts [..., N, 3], B [..., 21, 3] -> (t, proj [..., N, 21], emb1 [87],
+    emb2 [42]); proj = t @ B^T summed in the kernel's order."""
+    t = pts * inv_scale
+    Bt = B.transpose(-1, -2).unsqueeze(-3)  # [..., 1, 3, 21]
+    proj = (t[..., 0:1] * Bt[..., 0, :] + t[..., 1:2] * Bt[..., 1, :]
+            + t[..., 2:3] * Bt[..., 2, :])
+    sins = [torch.sin((math.pi * 2.0 ** f) * proj) for f in range(_N_FREQS)]
+    emb1 = torch.cat([t] + sins[:4], dim=-1)
+    emb2 = torch.cat(sins[4:], dim=-1)
+    return t, proj, emb1, emb2
+
+
+def _embed_bwd(demb1, demb2, t, proj, B, inv_scale):
+    dproj = torch.zeros_like(proj)
+    for f in range(_N_FREQS):
+        ds = (demb1[..., 3 + N_DIRS * f: 3 + N_DIRS * (f + 1)] if f < 4
+              else demb2[..., N_DIRS * (f - 4): N_DIRS * (f - 3)])
+        w = math.pi * 2.0 ** f
+        dproj = dproj + ds * (w * torch.cos(w * proj))
+    dB = dproj.transpose(-1, -2) @ t
+    dt = demb1[..., :3] + dproj @ B
+    return dt * inv_scale, dB
+
+
+def _codenerf_chain(emb1, emb2, zs0, zc, zs1, zt0, W, b):
+    """ref: _codenerf_chain (fused_field.py:81). W=32 splits the concat
+    layers' weights into their two input blocks."""
+    r0 = torch.relu(emb1 @ W["e"] + b["e"])
+    g0 = r0 + zs0
+    r1 = torch.relu(g0 @ W["s0"] + b["s0"])
+    g1 = r1 + zc
+    r2 = torch.relu(g1 @ W["c"][..., :32, :] + emb1 @ W["c"][..., 32:, :]
+                    + b["c"])
+    g2 = r2 + zs1
+    r3 = torch.relu(g2 @ W["s1"] + b["s1"])
+    h = r3 @ W["en"] + b["en"]
+    sg = (h @ W["sg"] + b["sg"]) * 10.0
+    r4 = torch.relu(h @ W["vd"][..., :32, :] + emb2 @ W["vd"][..., 32:, :]
+                    + b["vd"])
+    g4 = r4 + zt0
+    r5 = torch.relu(g4 @ W["t0"] + b["t0"])
+    r6 = torch.relu(r5 @ W["r0"] + b["r0"])
+    color = torch.sigmoid(r6 @ W["r1"] + b["r1"])
+    iv = dict(r0=r0, g0=g0, r1=r1, g1=g1, r2=r2, g2=g2, r3=r3, h=h, r4=r4,
+              g4=g4, r5=r5, r6=r6, color=color)
+    return sg, color, iv
+
+
+def codenerf_fwd_plain(flat, B, pts, zs, inv_scale):
+    """flat [C, P], B [C, 21, 3], pts [C, N, 3], zs 4x [C, N, 32]
+    -> out [C, N, 4] = [sigma x10 | rgb]."""
+    W, b = _unpack(flat, CN_LAYERS)
+    _, _, emb1, emb2 = _embed(pts, B, inv_scale)
+    sg, color, _ = _codenerf_chain(emb1, emb2, *zs, W, b)
+    return torch.cat([sg, color], dim=-1)
+
+
+def _grads_flat(dW, db, layers):
+    return torch.cat([dW[k].flatten(-2) for k, _, _ in layers]
+                     + [db[k] for k, _, _ in layers], dim=-1)
+
+
+def codenerf_bwd_plain(flat, B, pts, zs, dout, inv_scale):
+    """Hand-derived backward (ref: _codenerf_bwd_kernel :135).
+    Returns (dflat [C, P], dB [C, 21, 3], dpts, (dzs0, dzc, dzs1, dzt0))."""
+    W, b = _unpack(flat, CN_LAYERS)
+    t, proj, emb1, emb2 = _embed(pts, B, inv_scale)
+    _, _, iv = _codenerf_chain(emb1, emb2, *zs, W, b)
+    dsg = dout[..., 0:1] * 10.0
+    dcol = dout[..., 1:4]
+    dW, db = {}, {}
+
+    def acc(k, x, d):
+        dW[k] = x.transpose(-1, -2) @ d
+        db[k] = d.sum(-2)
+
+    def mT(d, w):
+        return d @ w.transpose(-1, -2)
+
+    da7 = dcol * iv["color"] * (1.0 - iv["color"])
+    acc("r1", iv["r6"], da7)
+    da6 = mT(da7, W["r1"]) * (iv["r6"] > 0)
+    acc("r0", iv["r5"], da6)
+    da5 = mT(da6, W["r0"]) * (iv["r5"] > 0)
+    acc("t0", iv["g4"], da5)
+    dg4 = mT(da5, W["t0"])
+    da4 = dg4 * (iv["r4"] > 0)
+    acc("vd", torch.cat([iv["h"], emb2], dim=-1), da4)
+    dh = mT(da4, W["vd"][..., :32, :])
+    demb2 = mT(da4, W["vd"][..., 32:, :])
+    acc("sg", iv["h"], dsg)
+    dh = dh + mT(dsg, W["sg"])
+    acc("en", iv["r3"], dh)
+    da3 = mT(dh, W["en"]) * (iv["r3"] > 0)
+    acc("s1", iv["g2"], da3)
+    dg2 = mT(da3, W["s1"])
+    da2 = dg2 * (iv["r2"] > 0)
+    acc("c", torch.cat([iv["g1"], emb1], dim=-1), da2)
+    dg1 = mT(da2, W["c"][..., :32, :])
+    demb1 = mT(da2, W["c"][..., 32:, :])
+    da1 = dg1 * (iv["r1"] > 0)
+    acc("s0", iv["g0"], da1)
+    dg0 = mT(da1, W["s0"])
+    da0 = dg0 * (iv["r0"] > 0)
+    acc("e", emb1, da0)
+    demb1 = demb1 + mT(da0, W["e"])
+    dpts, dB = _embed_bwd(demb1, demb2, t, proj, B, inv_scale)
+    return _grads_flat(dW, db, CN_LAYERS), dB, dpts, (dg0, dg1, dg2, dg4)
+
+
+def _occ_chain(emb1, emb2, W, b, hidden=128):
+    """ref: _occ_chain (fused_field.py:409)."""
+    r0 = torch.relu(emb1 @ W["in"] + b["in"])
+    r1 = torch.relu(r0 @ W["m1"] + b["m1"])
+    r2 = torch.relu(r1 @ W["c"][..., :hidden, :]
+                    + emb1 @ W["c"][..., hidden:, :] + b["c"])
+    r3 = torch.relu(r2 @ W["m2"] + b["m2"])
+    alpha = (r3 @ W["oa"] + b["oa"]) * 10.0
+    r4 = torch.relu(r3 @ W["cl"][..., :hidden, :]
+                    + emb2 @ W["cl"][..., hidden:, :] + b["cl"])
+    color = torch.sigmoid(r4 @ W["oc"] + b["oc"])
+    return alpha, color, dict(r0=r0, r1=r1, r2=r2, r3=r3, r4=r4, color=color)
+
+
+def occupancy_fwd_plain(flat, B, pts, inv_scale):
+    """flat [P], B [21, 3], pts [N, 3] -> out [N, 4] = [alpha x10 | rgb]."""
+    W, b = _unpack(flat, OC_LAYERS)
+    _, _, emb1, emb2 = _embed(pts, B, inv_scale)
+    alpha, color, _ = _occ_chain(emb1, emb2, W, b)
+    return torch.cat([alpha, color], dim=-1)
+
+
+def occupancy_bwd_plain(flat, B, pts, dout, inv_scale, hidden=128):
+    """ref: _occ_bwd_kernel :445. Returns (dflat [P], dB [21, 3], dpts)."""
+    W, b = _unpack(flat, OC_LAYERS)
+    t, proj, emb1, emb2 = _embed(pts, B, inv_scale)
+    _, _, iv = _occ_chain(emb1, emb2, W, b, hidden)
+    dalpha = dout[..., 0:1] * 10.0
+    dcol = dout[..., 1:4]
+    dW, db = {}, {}
+
+    def acc(k, x, d):
+        dW[k] = x.transpose(-1, -2) @ d
+        db[k] = d.sum(-2)
+
+    def mT(d, w):
+        return d @ w.transpose(-1, -2)
+
+    da5 = dcol * iv["color"] * (1.0 - iv["color"])
+    acc("oc", iv["r4"], da5)
+    da4 = mT(da5, W["oc"]) * (iv["r4"] > 0)
+    acc("cl", torch.cat([iv["r3"], emb2], dim=-1), da4)
+    dr3 = mT(da4, W["cl"][..., :hidden, :])
+    demb2 = mT(da4, W["cl"][..., hidden:, :])
+    acc("oa", iv["r3"], dalpha)
+    dr3 = dr3 + mT(dalpha, W["oa"])
+    da3 = dr3 * (iv["r3"] > 0)
+    acc("m2", iv["r2"], da3)
+    da2 = mT(da3, W["m2"]) * (iv["r2"] > 0)
+    acc("c", torch.cat([iv["r1"], emb1], dim=-1), da2)
+    dr1 = mT(da2, W["c"][..., :hidden, :])
+    demb1 = mT(da2, W["c"][..., hidden:, :])
+    da1 = dr1 * (iv["r1"] > 0)
+    acc("m1", iv["r0"], da1)
+    da0 = mT(da1, W["m1"]) * (iv["r0"] > 0)
+    acc("in", emb1, da0)
+    demb1 = demb1 + mT(da0, W["in"])
+    dpts, dB = _embed_bwd(demb1, demb2, t, proj, B, inv_scale)
+    return _grads_flat(dW, db, OC_LAYERS), dB, dpts
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/fused_field.cu)
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "cn_fwd": [_P] * 8 + [_I, _I, _F, _P],
+    "cn_bwd": [_P] * 15 + [_I, _I, _F, _P],
+    "oc_fwd": [_P] * 4 + [_I, _F, _P],
+    "oc_bwd": [_P] * 7 + [_I, _F, _P],
+    "catnerf_layout": [ctypes.POINTER(ctypes.c_int)],
+}
+# tile sizes (rows per block) and layout, read from the library
+_LAYOUT: dict[str, int] = {}
+
+
+def _lib() -> ctypes.CDLL:
+    from catnerf_torch.kernels import build
+
+    lib = build.load("fused_field")
+    if not _LAYOUT:
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 6)()
+        lib.catnerf_layout(out)
+        _LAYOUT.update(zip(("cn_p", "oc_p", "cn_fwd_t", "cn_bwd_t",
+                            "oc_fwd_t", "oc_bwd_t"), out))
+        if (_LAYOUT["cn_p"], _LAYOUT["oc_p"]) != (CN_P, OC_P):
+            raise RuntimeError(f"fused_field.cu layout {_LAYOUT} does not "
+                               f"match the wrapper's ({CN_P}, {OC_P})")
+    return lib
+
+
+def layout() -> dict[str, int]:
+    """The kernels' tile sizes and parameter counts (builds the library)."""
+    _lib()
+    return dict(_LAYOUT)
+
+
+def _ptr(x: torch.Tensor) -> int:
+    return x.data_ptr()
+
+
+def _check(device, shapes: dict):
+    """Every kernel argument: float32, contiguous, on `device`, with the
+    given shape; the flat parameters 16-byte aligned (float4 loads)."""
+    for name, (x, shape) in shapes.items():
+        if x.device != device or x.dtype != torch.float32:
+            raise ValueError(f"{name}: need float32 on {device}, got "
+                             f"{x.dtype} on {x.device}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(x.shape)} != {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+    if shapes["params"][0].data_ptr() % 16:
+        raise ValueError("params: not 16-byte aligned")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def codenerf_fwd_cuda(flat, B, pts, zs, inv_scale):
+    lib = _lib()
+    C, N, _ = pts.shape
+    _check(pts.device, {"pts": (pts, (C, N, 3)), "params": (flat, (C, CN_P)),
+                        "B": (B, (C, N_DIRS, 3)),
+                        **{f"z{i}": (z, (C, N, 32)) for i, z in enumerate(zs)}})
+    out = torch.empty(C, N, 4, device=pts.device, dtype=torch.float32)
+    if N == 0:
+        return out
+    err = lib.cn_fwd(_ptr(pts), *(_ptr(z) for z in zs), _ptr(flat), _ptr(B),
+                     _ptr(out), C, N, inv_scale, _stream(pts.device))
+    _raise_on(err, "cn_fwd")
+    LAUNCHES["codenerf_fwd"] += 1
+    return out
+
+
+def codenerf_bwd_cuda(flat, B, pts, zs, dout, inv_scale):
+    lib = _lib()
+    C, N, _ = pts.shape
+    _check(pts.device, {"pts": (pts, (C, N, 3)), "params": (flat, (C, CN_P)),
+                        "B": (B, (C, N_DIRS, 3)), "dout": (dout, (C, N, 4)),
+                        **{f"z{i}": (z, (C, N, 32)) for i, z in enumerate(zs)}})
+    dev = pts.device
+    dpts = torch.empty_like(pts)
+    dzs = [torch.empty_like(z) for z in zs]
+    grads = torch.empty(C, CN_P + B_SIZE, device=dev, dtype=torch.float32)
+    if N == 0:
+        grads.zero_()
+    else:
+        nt = -(-N // _LAYOUT["cn_bwd_t"])
+        partial = torch.empty(C, nt, CN_P + B_SIZE, device=dev,
+                              dtype=torch.float32)
+        err = lib.cn_bwd(_ptr(pts), *(_ptr(z) for z in zs), _ptr(flat),
+                         _ptr(B), _ptr(dout), _ptr(dpts),
+                         *(_ptr(z) for z in dzs), _ptr(partial), _ptr(grads),
+                         C, N, inv_scale, _stream(dev))
+        _raise_on(err, "cn_bwd")
+        LAUNCHES["codenerf_bwd"] += 1
+    return (grads[:, :CN_P], grads[:, CN_P:].reshape(C, N_DIRS, 3), dpts,
+            tuple(dzs))
+
+
+def occupancy_fwd_cuda(flat, B, pts, inv_scale):
+    lib = _lib()
+    N = pts.shape[0]
+    _check(pts.device, {"pts": (pts, (N, 3)), "params": (flat, (OC_P,)),
+                        "B": (B, (N_DIRS, 3))})
+    out = torch.empty(N, 4, device=pts.device, dtype=torch.float32)
+    if N == 0:
+        return out
+    err = lib.oc_fwd(_ptr(pts), _ptr(flat), _ptr(B), _ptr(out), N,
+                     inv_scale, _stream(pts.device))
+    _raise_on(err, "oc_fwd")
+    LAUNCHES["occupancy_fwd"] += 1
+    return out
+
+
+def occupancy_bwd_cuda(flat, B, pts, dout, inv_scale):
+    lib = _lib()
+    N = pts.shape[0]
+    _check(pts.device, {"pts": (pts, (N, 3)), "params": (flat, (OC_P,)),
+                        "B": (B, (N_DIRS, 3)), "dout": (dout, (N, 4))})
+    dev = pts.device
+    dpts = torch.empty_like(pts)
+    grads = torch.empty(OC_P + B_SIZE, device=dev, dtype=torch.float32)
+    if N == 0:
+        grads.zero_()
+    else:
+        nt = -(-N // _LAYOUT["oc_bwd_t"])
+        partial = torch.empty(nt, OC_P + B_SIZE, device=dev,
+                              dtype=torch.float32)
+        err = lib.oc_bwd(_ptr(pts), _ptr(flat), _ptr(B), _ptr(dout),
+                         _ptr(dpts), _ptr(partial), _ptr(grads), N,
+                         inv_scale, _stream(dev))
+        _raise_on(err, "oc_bwd")
+        LAUNCHES["occupancy_bwd"] += 1
+    return grads[:OC_P], grads[OC_P:].reshape(N_DIRS, 3), dpts
+
+
+# ---------------------------------------------------------------------------
+# Dispatch and autograd
+# ---------------------------------------------------------------------------
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; any other device
+    raises (the plain version is taken only for CPU tensors)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_field: unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def codenerf_fwd(flat, B, pts, zs, inv_scale):
+    if _on_cuda(pts):
+        return codenerf_fwd_cuda(flat, B, pts, zs, inv_scale)
+    return codenerf_fwd_plain(flat, B, pts, zs, inv_scale)
+
+
+def codenerf_bwd(flat, B, pts, zs, dout, inv_scale):
+    if _on_cuda(pts):
+        return codenerf_bwd_cuda(flat, B, pts, zs, dout, inv_scale)
+    return codenerf_bwd_plain(flat, B, pts, zs, dout, inv_scale)
+
+
+def occupancy_fwd(flat, B, pts, inv_scale):
+    if _on_cuda(pts):
+        return occupancy_fwd_cuda(flat, B, pts, inv_scale)
+    return occupancy_fwd_plain(flat, B, pts, inv_scale)
+
+
+def occupancy_bwd(flat, B, pts, dout, inv_scale):
+    if _on_cuda(pts):
+        return occupancy_bwd_cuda(flat, B, pts, dout, inv_scale)
+    return occupancy_bwd_plain(flat, B, pts, dout, inv_scale)
+
+
+class _CodeNeRFFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, B, pts, zs0, zc, zs1, zt0, inv_scale):
+        ctx.inv_scale = inv_scale
+        ctx.save_for_backward(flat, B, pts, zs0, zc, zs1, zt0)
+        return codenerf_fwd(flat, B, pts, (zs0, zc, zs1, zt0), inv_scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        flat, B, pts, *zs = ctx.saved_tensors
+        dflat, dB, dpts, dzs = codenerf_bwd(flat, B, pts, zs,
+                                            dout.contiguous(), ctx.inv_scale)
+        return (dflat, dB, dpts, *dzs, None)
+
+
+class _OccupancyFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, B, pts, inv_scale):
+        ctx.inv_scale = inv_scale
+        ctx.save_for_backward(flat, B, pts)
+        return occupancy_fwd(flat, B, pts, inv_scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        flat, B, pts = ctx.saved_tensors
+        dflat, dB, dpts = occupancy_bwd(flat, B, pts, dout.contiguous(),
+                                        ctx.inv_scale)
+        return dflat, dB, dpts, None
+
+
+def codenerf_fused_apply(fc, pe, pts, zs0, zc, zs1, zt0, *, scale: float):
+    """Fused category-ensemble forward (ref: codenerf_fused_apply :384).
+
+    fc: the stacked CodeNeRF (models/codenerf.py); pe: its stacked basis
+    (pe.B [C, 21, 3]); pts: [C, N, 3] object-frame sample points;
+    zs0/zc/zs1/zt0: [C, N, 32] pre-broadcast ReLU'd latent injections.
+    Returns (sigma [C, N], rgb [C, N, 3]); differentiable w.r.t. the
+    field's layers, the basis, the points and the injections (the latent
+    layers get their gradients through the injections)."""
+    flat = pack(_cn_modules(fc))
+    out = _CodeNeRFFused.apply(flat, pe.B.contiguous(), pts.contiguous(),
+                               zs0.contiguous(), zc.contiguous(),
+                               zs1.contiguous(), zt0.contiguous(),
+                               1.0 / float(scale))
+    return out[..., 0], out[..., 1:4]
+
+
+def occupancy_fused_apply(fc, pe, pts, *, scale: float):
+    """Fused background forward (ref: occupancy_fused_apply :631):
+    pts [N, 3] -> (alpha [N], rgb [N, 3]); hidden=128, one block."""
+    flat = pack(_oc_modules(fc))
+    out = _OccupancyFused.apply(flat, pe.B.contiguous(), pts.contiguous(),
+                                1.0 / float(scale))
+    return out[..., 0], out[..., 1:4]

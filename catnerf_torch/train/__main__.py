@@ -1,0 +1,62 @@
+"""Train the port on the synthetic scene.
+
+    python -m catnerf_torch.train --synthetic --max-iter 200 --log-iter 50
+    python -m catnerf_torch.train --synthetic --max-iter 20 --log-iter 5 \\
+        --device cpu
+
+The scene and config are the JAX package's `--synthetic` ones (ref:
+loaders.py:24-33): 3 categories x 2 instances, 8 frames of 160x120,
+latent_dim 32, seeded by `Config.seed`; the port runs them with the fused
+kernels (use_fused_kernels=True, bf16_activations=False). Prints one JSON
+line of metrics per log step. The device is cuda unless --device names
+another. Dataset configs and meshing are not ported yet (ROADMAP.md
+Queue 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+from catnerf_torch.config import Config
+from catnerf_torch.data.synthetic import make_scene
+from catnerf_torch.train.loop import TrainingSession
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m catnerf_torch.train",
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("--synthetic", action="store_true",
+                    help="train on the synthetic scene")
+    ap.add_argument("--max-iter", type=int, default=200)
+    ap.add_argument("--log-iter", type=int, default=50)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if not args.synthetic:
+        ap.error("only --synthetic is ported so far (dataset configs: "
+                 "ROADMAP.md Queue 1, item 4)")
+
+    cfg = Config()
+    cfg.net_hyperparams.latent_dim = 32
+    cfg.use_fused_kernels = True
+    cfg.bf16_activations = False
+    scene = make_scene(n_frames=8, width=160, height=120, n_categories=3,
+                       insts_per_cat=2, seed=cfg.seed)
+    sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
+                           cam=scene.cam, device=args.device)
+    t0 = time.time()
+    for it in range(1, args.max_iter + 1):
+        metrics = sess.step_once()
+        if it % args.log_iter == 0 or it == args.max_iter:
+            row = sess.metrics_to_dict(metrics)
+            row["elapsed_s"] = time.time() - t0
+            row["device"] = str(sess.device)
+            print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,220 @@
+"""The training step: 3D point sampling, latent injections, the fused
+CodeNeRF ensemble and background kernels, loss assembly, code
+regularisation, and the AdamW update.
+
+Parity target: the JAX package's `train/step.py` (ref: train.py:98-201),
+fused branch only (`category_forward` :96-153, `background_forward`
+:164-182, `loss_fn` and `train_step` :200-252). The stacked parameters
+are the single source of truth, as there.
+
+Randomness: the step draws its sampling uniforms from a torch generator.
+`StepDraws` lets a caller inject them instead (the tests inject the JAX
+package's draws, which follow its key schedule: fold_in(key, step), a
+split into category and background keys, a split per category).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from catnerf_torch.config import Config
+from catnerf_torch.kernels import fused_field
+from catnerf_torch.models import codenerf
+from catnerf_torch.ops import losses, sampling
+from catnerf_torch.train.state import FieldParams, TrainState
+
+
+class CategoryBatch(NamedTuple):
+    """Per-step ray batch for all object categories ([c]=n_cls,
+    [r]=rays/category): rgbs [c, r, 3] in [0, 1]; states [c, r] int pixel
+    states; depth [c, r]; origins/dirs [c, r, 3] canonical-object-frame
+    rays; obj_indices [c, r] code-slot indices."""
+
+    rgbs: torch.Tensor
+    states: torch.Tensor
+    depth: torch.Tensor
+    origins: torch.Tensor
+    dirs: torch.Tensor
+    obj_indices: torch.Tensor
+
+
+class BackgroundBatch(NamedTuple):
+    """Per-step background ray batch (world-frame rays), shapes [r, ...]."""
+
+    rgbs: torch.Tensor
+    states: torch.Tensor
+    depth: torch.Tensor
+    origins: torch.Tensor
+    dirs: torch.Tensor
+
+
+class StepMetrics(NamedTuple):
+    total: torch.Tensor
+    cat_depth: torch.Tensor    # [n_cls]
+    cat_color: torch.Tensor    # [n_cls]
+    cat_opacity: torch.Tensor  # [n_cls]
+    cat_psnr: torch.Tensor     # [n_cls]
+    reg_shape: torch.Tensor    # [n_cls]
+    reg_texture: torch.Tensor  # [n_cls]
+    bg_depth: torch.Tensor
+    bg_color: torch.Tensor
+    bg_opacity: torch.Tensor
+    bg_psnr: torch.Tensor
+
+
+class StepDraws(NamedTuple):
+    """The step's sampling uniforms: cat [c, r, n_u], bg [r_bg, n_u_bg]
+    (n_u from sampling.n_uniforms), bg None without a background."""
+
+    cat: torch.Tensor
+    bg: torch.Tensor | None
+
+
+def check_supported(cfg: Config) -> None:
+    """The port runs the fused-kernel path only, for the shipped
+    architecture (ref: step.py:68-74 `_fused_eligible`)."""
+    nh = cfg.net_hyperparams
+    if not cfg.use_fused_kernels:
+        raise NotImplementedError(
+            "use_fused_kernels=False (the XLA-path field modules) is not "
+            "ported yet: ROADMAP.md Queue 1, item 1")
+    if not (nh.shape_blocks == 2 and nh.texture_blocks == 1 and nh.W == 32
+            and cfg.n_unidir_funcs == 5 and cfg.hidden_feature_size_bg == 128):
+        raise NotImplementedError(
+            "the fused kernels need shape_blocks=2, texture_blocks=1, W=32, "
+            "n_unidir_funcs=5 and a 128-wide background; other "
+            "architectures run the XLA-path modules: ROADMAP.md Queue 1, "
+            "item 1")
+    if cfg.bf16_activations:
+        raise NotImplementedError(
+            "bf16_activations=True is not ported yet: ROADMAP.md Queue 1, "
+            "item 1 (set cfg.bf16_activations = False)")
+
+
+def draw_uniforms(cfg: Config, n_cls: int, n_rays: int, n_bg: int | None,
+                  gen: torch.Generator, device) -> StepDraws:
+    n_u = sampling.n_uniforms(cfg.n_bins_cam2surface, cfg.n_bins)
+    cat = torch.rand(n_cls, n_rays, n_u, generator=gen, device=device)
+    bg = None
+    if n_bg is not None:
+        n_u_bg = sampling.n_uniforms(cfg.n_bins_cam2surface_bg, cfg.n_bins)
+        bg = torch.rand(n_bg, n_u_bg, generator=gen, device=device)
+    return StepDraws(cat, bg)
+
+
+def gather_injections(inj_s_inst: torch.Tensor, inj_t_inst: torch.Tensor,
+                      obj_indices: torch.Tensor):
+    """Per-ray injection lookup [c, max_obj, w] -> [c, r, w] as a one-hot
+    batched matmul (ref: step.py:77-93): exactly one 1.0 per row, so the
+    values equal a gather's (in full f32: TF32 must be off), and the
+    backward is a deterministic contraction instead of a scatter-add. The
+    one-hot is a comparison, which needs no range check on the host (and
+    so no device sync)."""
+    slots = torch.arange(inj_s_inst.shape[1], device=obj_indices.device)
+    onehot = (obj_indices.long()[..., None] == slots).to(inj_s_inst.dtype)
+    return onehot @ inj_s_inst, onehot @ inj_t_inst
+
+
+def category_forward(params: FieldParams, batch: CategoryBatch,
+                     u: torch.Tensor, cfg: Config):
+    """Sample 3D points and run the fused category ensemble.
+    Returns (alpha [c, r, b], color [c, r, b, 3], ray_samples)."""
+    rays = sampling.sample_3d_points(
+        u, batch.rgbs, batch.states, batch.depth, batch.origins, batch.dirs,
+        n_bins_cam2surface=cfg.n_bins_cam2surface, n_bins=cfg.n_bins,
+        min_depth=cfg.min_depth, surface_eps=cfg.surface_eps,
+        stop_eps=cfg.stop_eps)
+    # project-then-gather (ref: train.py:136-137 gathers the codes per ray)
+    inj_s_inst, inj_t_inst = codenerf.project_codes(
+        params.cat_fc, params.codes.shape, params.codes.texture)
+    inj_s, inj_t = gather_injections(inj_s_inst, inj_t_inst,
+                                     batch.obj_indices)
+    C, R, Bt, _ = rays.input_pcs.shape
+    N = R * Bt
+    W = cfg.net_hyperparams.W
+    # injection layout (project_codes): [shape0, shape1, cat | tex0]
+    zs0, zs1, zc = inj_s[..., :W], inj_s[..., W:2 * W], inj_s[..., 2 * W:]
+    zt0 = inj_t[..., :W]
+
+    def per_point(z):
+        return z[:, :, None, :].expand(C, R, Bt, W).reshape(C, N, W)
+
+    sigma, rgb = fused_field.codenerf_fused_apply(
+        params.cat_fc, params.cat_pe, rays.input_pcs.reshape(C, N, 3),
+        per_point(zs0), per_point(zc), per_point(zs1), per_point(zt0),
+        scale=cfg.obj_scale)
+    return sigma.reshape(C, R, Bt), rgb.reshape(C, R, Bt, 3), rays
+
+
+def background_forward(params: FieldParams, batch: BackgroundBatch,
+                       u: torch.Tensor, cfg: Config):
+    """Background sampling + fused OccupancyMap (ref: train.py:172-178)."""
+    rays = sampling.sample_3d_points(
+        u, batch.rgbs, batch.states, batch.depth, batch.origins, batch.dirs,
+        n_bins_cam2surface=cfg.n_bins_cam2surface_bg, n_bins=cfg.n_bins,
+        min_depth=cfg.min_depth, surface_eps=cfg.surface_eps,
+        stop_eps=cfg.stop_eps)
+    if len(params.bg_fc.mid1) != 1 or len(params.bg_fc.mid2) != 1:
+        raise NotImplementedError(
+            "the background kernel takes one hidden block: ROADMAP.md "
+            "Queue 1, item 1")
+    R, Bt, _ = rays.input_pcs.shape
+    alpha, color = fused_field.occupancy_fused_apply(
+        params.bg_fc, params.bg_pe, rays.input_pcs.reshape(R * Bt, 3),
+        scale=cfg.bg_scale)
+    return alpha.reshape(R, Bt), color.reshape(R, Bt, 3), rays
+
+
+def loss_fn(params: FieldParams, cat_batch: CategoryBatch,
+            bg_batch: BackgroundBatch | None, draws: StepDraws, cfg: Config,
+            obj_mask: torch.Tensor, reg_scaling: float = 5e-4):
+    """Total loss and metrics (ref: step.py:200-240); reg_scaling is the
+    reference constant (ref: train.py:165)."""
+    alpha, color, rays = category_forward(params, cat_batch, draws.cat, cfg)
+    cat_loss = losses.step_batch_loss(
+        alpha, color, rays.gt_depth, rays.gt_rgb, rays.obj_labels,
+        rays.valid_depth_mask, rays.z_vals,
+        color_scaling=cfg.color_scaling, opacity_scaling=cfg.opacity_scaling)
+    reg_s, reg_t = losses.code_reg_loss(params.codes.shape,
+                                        params.codes.texture, obj_mask)
+    total = cat_loss.total + reg_scaling * (reg_s + reg_t).sum()
+    if bg_batch is not None and params.bg_fc is not None:
+        bg_alpha, bg_color, bg_rays = background_forward(params, bg_batch,
+                                                         draws.bg, cfg)
+        bg_loss = losses.step_batch_loss(
+            bg_alpha[None], bg_color[None], bg_rays.gt_depth[None],
+            bg_rays.gt_rgb[None], bg_rays.obj_labels[None],
+            bg_rays.valid_depth_mask[None], bg_rays.z_vals[None],
+            color_scaling=cfg.color_scaling,
+            opacity_scaling=cfg.opacity_scaling)
+        total = total + bg_loss.total
+    else:
+        z = torch.zeros(1, device=total.device)
+        bg_loss = losses.LossBreakdown(z[0], z, z, z, z)
+    metrics = StepMetrics(
+        total=total,
+        cat_depth=cat_loss.depth, cat_color=cat_loss.color,
+        cat_opacity=cat_loss.opacity,
+        cat_psnr=losses.psnr_from_l1(cat_loss.psnr_color),
+        reg_shape=reg_s, reg_texture=reg_t,
+        bg_depth=bg_loss.depth[0], bg_color=bg_loss.color[0],
+        bg_opacity=bg_loss.opacity[0],
+        bg_psnr=losses.psnr_from_l1(bg_loss.psnr_color[0]),
+    )
+    return total, metrics
+
+
+def train_step(state: TrainState, cat_batch: CategoryBatch,
+               bg_batch: BackgroundBatch | None, draws: StepDraws,
+               cfg: Config, obj_mask: torch.Tensor) -> StepMetrics:
+    """One optimizer step in place on `state` (ref: step.py:242-252).
+    Returns the step's metrics, detached."""
+    state.optimizer.zero_grad(set_to_none=True)
+    total, metrics = loss_fn(state.params, cat_batch, bg_batch, draws, cfg,
+                             obj_mask)
+    total.backward()
+    state.optimizer.step()
+    state.step += 1
+    return StepMetrics(*(m.detach() for m in metrics))

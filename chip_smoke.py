@@ -1,0 +1,450 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one or more lines:
+
+1. the card's name and power limit (nvidia-smi);
+2. the build of the port's CUDA kernels from `catnerf_torch/csrc/`
+   (nvcc, at first use);
+3. each kernel against its plain PyTorch version on the card at the
+   training step's shapes (forward within 1e-5, gradients within 2e-4,
+   the backward run twice and bitwise equal), then timed beside its plain
+   version and its bound;
+4. one training step on the card against the same step on the CPU (plain
+   versions), on a small scene: every metric within 1e-5 relative, those
+   weighted by the depth variance within 1e-4;
+5. the trainer's main path: a `TrainingSession` on the bench scene (8
+   categories x 3 instances, 360 rays x 10 bins per category and 1,200
+   background rays x 14 bins, 45,600 ray samples a step), 5 host-staged
+   steps, then 300 steps on the device ray store. The loss must be
+   finite, its colour and opacity terms must fall, and every kernel must
+   have run once per step;
+6. 100 more steps under torch.profiler: the device's busy share and its
+   time by kernel, and the host's operators per step.
+
+Then a `{"kernels": [...]}` line, the card line again, and as the last
+line `{"ok": true, "device": {...}}`. Exits non-zero, with no result,
+when there is no CUDA device, when the port cannot be imported, or when
+any check fails. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+FWD_TOL = 1e-5
+GRAD_TOL = 2e-4
+# one step's metrics, float32 on the card against float32 on the CPU (two
+# summation orders; the step check prints each difference): relative, and
+# looser for the terms weighted by 1/sqrt(var) of the rendered depth, a
+# difference of nearly equal numbers on rays that saturate at init (1e-6
+# and 2e-6 measured on an H100)
+STEP_TOL = 1e-5
+DEPTH_STEP_TOL = 1e-4
+DEPTH_WEIGHTED = ("total", "cat_depth", "bg_depth")
+
+# the bench scene (bench.py:43-44): 8 categories x 3 instances
+SCENE = dict(n_frames=4, width=96, height=72, n_categories=8, insts_per_cat=3,
+             seed=0)
+# the step check's scene and config (tests/test_torch_step.py)
+SMALL_SCENE = dict(n_frames=2, width=48, height=36, n_categories=2,
+                   insts_per_cat=2, seed=0)
+N_STEP_ONCE = 5
+N_INNER = 100
+N_FAST = 300
+# torch.cuda.set_sync_debug_mode while run_fast runs: the steps must not
+# wait on the device, so that the host queues ahead of it
+SYNC_DEBUG = "error"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    """Median time of one call, from CUDA events around each of n calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def max_err(xs, ys) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(xs, ys))
+
+
+def assert_close(name, xs, ys, tol):
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{name}[{i}]: kernel output not finite")
+        torch.testing.assert_close(x, y, rtol=tol, atol=tol,
+                                   msg=lambda m: f"{name}[{i}]: {m}")
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_config():
+    from catnerf_torch.config import Config
+
+    cfg = Config()
+    cfg.use_fused_kernels = True
+    cfg.bf16_activations = False
+    return cfg
+
+
+def kernel_inputs(dev):
+    """Random parameters and inputs at the main path's shapes: C=8
+    categories x 360 rays x 10 bins, 1,200 background rays x 14 bins."""
+    from catnerf_torch.kernels import fused_field as ff
+    from catnerf_torch.models.codenerf import CodeNeRF
+    from catnerf_torch.models.embedding import UniDirsEmbed
+    from catnerf_torch.models.occupancy import OccupancyMap
+
+    gen = torch.Generator().manual_seed(0)
+    C, N, NB = 8, 360 * 10, 1200 * 14
+    cn_flat = ff.pack(ff._cn_modules(CodeNeRF.init(gen, C))).detach()
+    oc_flat = ff.pack(ff._oc_modules(OccupancyMap.init(gen))).detach()
+    cn_B = (UniDirsEmbed.init((C,)).B.detach()
+            + 0.05 * torch.randn(C, 21, 3, generator=gen))
+    oc_B = UniDirsEmbed.init().B.detach() + 0.05 * torch.randn(21, 3,
+                                                                generator=gen)
+    cn = dict(
+        flat=cn_flat, B=cn_B,
+        pts=torch.randn(C, N, 3, generator=gen) * 0.8,
+        zs=tuple(torch.relu(torch.randn(C, N, 32, generator=gen))
+                 for _ in range(4)),
+        dout=torch.randn(C, N, 4, generator=gen))
+    oc = dict(flat=oc_flat, B=oc_B,
+              pts=torch.randn(NB, 3, generator=gen) * 2.0,
+              dout=torch.randn(NB, 4, generator=gen))
+    move = lambda v: (tuple(x.to(dev) for x in v) if isinstance(v, tuple)
+                      else v.to(dev))
+    return ({k: move(v) for k, v in cn.items()},
+            {k: move(v) for k, v in oc.items()})
+
+
+def _flatten(res):
+    out = []
+    for x in res:
+        out.extend(x if isinstance(x, tuple) else (x,))
+    return tuple(out)
+
+
+def check_kernels(dev) -> list[dict]:
+    """Each kernel against its plain version on the card, then timed."""
+    from catnerf_torch.kernels import fused_field as ff
+
+    cn, oc = kernel_inputs(dev)
+    inv_cn, inv_oc = 1.0 / 2.0, 1.0 / 5.0
+    C, N, _ = cn["pts"].shape
+    NB = oc["pts"].shape[0]
+    f = 4  # bytes per float32
+    cn_rows, oc_rows = C * N, NB
+    cn_prm, oc_prm = C * (ff.CN_P + ff.B_SIZE), ff.OC_P + ff.B_SIZE
+    cn_row_io = 3 + 4 * 32  # pts + injections
+    specs = {
+        "codenerf_fwd": dict(
+            replaces="catnerf_tpu/experimental/fused_field.py:124",
+            kernel=lambda: (ff.codenerf_fwd_cuda(
+                cn["flat"], cn["B"], cn["pts"], cn["zs"], inv_cn),),
+            plain=lambda: (ff.codenerf_fwd_plain(
+                cn["flat"], cn["B"], cn["pts"], cn["zs"], inv_cn),),
+            tol=FWD_TOL, bwd=False,
+            nbytes=f * (cn_rows * (cn_row_io + 4) + cn_prm),
+            flops=2 * 13648 * cn_rows),
+        "codenerf_bwd": dict(
+            replaces="catnerf_tpu/experimental/fused_field.py:135",
+            kernel=lambda: _flatten(ff.codenerf_bwd_cuda(
+                cn["flat"], cn["B"], cn["pts"], cn["zs"], cn["dout"], inv_cn)),
+            plain=lambda: _flatten(ff.codenerf_bwd_plain(
+                cn["flat"], cn["B"], cn["pts"], cn["zs"], cn["dout"], inv_cn)),
+            tol=GRAD_TOL, bwd=True,
+            nbytes=f * (cn_rows * (2 * cn_row_io + 4) + 2 * cn_prm),
+            flops=4 * 13648 * cn_rows),
+        "occupancy_fwd": dict(
+            replaces="catnerf_tpu/experimental/fused_field.py:435",
+            kernel=lambda: (ff.occupancy_fwd_cuda(
+                oc["flat"], oc["B"], oc["pts"], inv_oc),),
+            plain=lambda: (ff.occupancy_fwd_plain(
+                oc["flat"], oc["B"], oc["pts"], inv_oc),),
+            tol=FWD_TOL, bwd=False,
+            nbytes=f * (oc_rows * (3 + 4) + oc_prm),
+            flops=2 * 93696 * oc_rows),
+        "occupancy_bwd": dict(
+            replaces="catnerf_tpu/experimental/fused_field.py:445",
+            kernel=lambda: _flatten(ff.occupancy_bwd_cuda(
+                oc["flat"], oc["B"], oc["pts"], oc["dout"], inv_oc)),
+            plain=lambda: _flatten(ff.occupancy_bwd_plain(
+                oc["flat"], oc["B"], oc["pts"], oc["dout"], inv_oc)),
+            tol=GRAD_TOL, bwd=True,
+            nbytes=f * (oc_rows * (2 * 3 + 4) + 2 * oc_prm),
+            flops=4 * 93696 * oc_rows),
+    }
+    rows = []
+    for name, s in specs.items():
+        got = s["kernel"]()
+        torch.cuda.synchronize()
+        want = s["plain"]()
+        assert_close(name, got, want, s["tol"])
+        if s["bwd"]:
+            again = s["kernel"]()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: two runs differ bitwise")
+        err = max_err(got, want)
+        ms = cuda_ms(s["kernel"])
+        plain_ms = cuda_ms(s["plain"])
+        bound_ms, bound_by = bound(s["nbytes"], s["flops"])
+        log(f"kernel {name}: max_abs_err {err:.3e} (tol {s['tol']:g})"
+            f"{', backward bitwise repeatable' if s['bwd'] else ''}; "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        rows.append(dict(name=name, route="cuda",
+                         source="catnerf_torch/csrc/fused_field.cu",
+                         replaces=s["replaces"], launches=None,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None))
+    return rows
+
+
+def check_step(dev) -> None:
+    """One training step's loss and metrics on the card (kernels) against
+    the same step on the CPU (plain versions): same weights, batch and
+    draws, on the small scene of tests/test_torch_step.py. This holds the
+    step's other operators on the card (sampling, injections, render,
+    loss) to the CPU path that the tests hold against the JAX package; the
+    kernel phase checks only the kernels."""
+    from catnerf_torch import convert
+    from catnerf_torch.data.synthetic import make_scene
+    from catnerf_torch.train import step as step_mod
+    from catnerf_torch.train.loop import TrainingSession
+
+    cfg = fused_config()
+    cfg.net_hyperparams.latent_dim = 32
+    cfg.n_per_optim_bg = 240
+    cfg.seed = 2
+    scene = make_scene(**SMALL_SCENE)
+    sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
+                           cam=scene.cam, device="cpu")
+    cat, bg = sess._device_batch()
+    draws = sess._draws()
+    weights = convert.params_to_numpy(sess.state.params)
+    out = {}
+    for d in ("cpu", dev):
+        params = convert.params_from_jax(weights, device=d)
+        mv = lambda b: type(b)(*(x.to(d) for x in b))
+        with torch.no_grad():
+            _, m = step_mod.loss_fn(params, mv(cat), mv(bg), mv(draws), cfg,
+                                    sess.obj_mask.to(d))
+        out[str(d)] = {k: v.detach().cpu() for k, v in m._asdict().items()}
+    want, got = out["cpu"], out[str(dev)]
+    worst = {}
+    for k in want:
+        if not torch.isfinite(got[k]).all():
+            raise AssertionError(f"step metric {k} not finite on the card")
+        rel = float(((got[k] - want[k]).abs()
+                     / want[k].abs().clamp_min(1e-12)).max())
+        worst[k] = rel
+        tol = DEPTH_STEP_TOL if k in DEPTH_WEIGHTED else STEP_TOL
+        if rel > tol:
+            raise AssertionError(f"step metric {k}: card vs CPU relative "
+                                 f"difference {rel:.3e} > {tol:g}")
+    log("step check (card vs CPU, relative): " + ", ".join(
+        f"{k} {v:.2e}" for k, v in worst.items()))
+
+
+def main_path(dev, scene, n_step_once=N_STEP_ONCE, n_inner=N_INNER,
+              n_fast=N_FAST):
+    """The trainer's main path on `scene` (the bench scene), through the
+    session's own device choice on the card. Returns the session and the
+    kernel launches of the run."""
+    from catnerf_torch.kernels import fused_field as ff
+    from catnerf_torch.train.loop import TrainingSession
+    from catnerf_torch.utils import phase_timings
+
+    cfg = fused_config()
+    t0 = time.time()
+    sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
+                           cam=scene.cam,
+                           device=None if dev.type == "cuda" else dev)
+    log(f"main path: session on {sess.device} in {time.time() - t0:.2f} s, "
+        f"{len(sess.cls_ids)} categories, {sess.n_per_cls} rays per "
+        f"category, {cfg.n_per_optim_bg} background rays")
+    samples = (len(sess.cls_ids) * sess.n_per_cls * cfg.bins_per_ray_obj
+               + cfg.n_per_optim_bg * cfg.bins_per_ray_bg)
+
+    def fit(m):
+        """The colour and opacity terms of the loss: the fit to the images
+        without the depth term, whose weight 1/sqrt(var) grows as the
+        field sharpens, so that the total is not monotone in training (the
+        JAX package's tests/golden/loss_curve_fast_seed0.json falls from
+        59 to 13, then ends at 566)."""
+        return float((m.cat_color.sum() + m.bg_color) * cfg.color_scaling
+                     + (m.cat_opacity.sum() + m.bg_opacity)
+                     * cfg.opacity_scaling)
+
+    ff.reset_launch_counts()
+    t0 = time.time()
+    history = [sess.step_once() for _ in range(n_step_once)]
+    totals = [float(m.total) for m in history]
+    t_once = time.time() - t0
+    sess.enable_fast_path(n_inner)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    if dev.type == "cuda":  # a step that waits on the device fails
+        torch.cuda.set_sync_debug_mode(SYNC_DEBUG)
+    try:
+        last = sess.run_fast(n_fast)
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("default")
+    totals.append(float(last.total))  # waits for the last step
+    t_fast = time.time() - t0
+    launches = dict(ff.LAUNCHES)
+    n_steps = n_step_once + n_fast
+    first = history[0]
+    log(f"main path: {n_steps} steps; total loss {totals[0]:.4f} -> "
+        f"{totals[-1]:.4f}, colour+opacity {fit(first):.4f} -> "
+        f"{fit(last):.4f}, mean category PSNR "
+        f"{float(first.cat_psnr.mean()):.3f} -> "
+        f"{float(last.cat_psnr.mean()):.3f}; step_once "
+        f"{n_step_once / t_once:.2f} steps/s; run_fast "
+        f"{n_fast / t_fast:.2f} steps/s, "
+        f"{n_fast * samples / t_fast:.6g} ray-samples/s "
+        f"({samples} samples/step)")
+    if not all(math.isfinite(x) for x in totals):
+        raise AssertionError(f"main path: loss not finite: {totals}")
+    if not fit(last) < fit(first):
+        raise AssertionError(f"main path: the colour and opacity loss did "
+                             f"not fall: {fit(first)} -> {fit(last)}")
+    if dev.type == "cuda":
+        wrong = {k: v for k, v in launches.items() if v != n_steps}
+        if wrong:
+            raise AssertionError(f"main path: launches {launches}, want "
+                                 f"{n_steps} of each")
+    log(f"main path: launches {json.dumps(launches)}; set-up seconds "
+        f"{json.dumps(phase_timings('session') | phase_timings('fast_path'))}")
+    return sess, launches
+
+
+def trace_steps(sess, n_steps: int = N_INNER) -> None:
+    """n_steps more run_fast steps under torch.profiler: the device's busy
+    share of the window and its time by kernel, per step, and the host's
+    operators by their own time (inflated by the profiler). Prints "not
+    measured" for the device when the profiler records no device
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        float(sess.run_fast(n_steps).total)
+        wall_us = (time.time() - t0) * 1e6
+    dev_us: dict[str, float] = {}
+    host_us: dict[str, float] = {}
+    n_launch = n_ops = 0
+    for e in prof.events():
+        if getattr(e, "is_user_annotation", False):
+            continue
+        if e.device_type == DeviceType.CUDA:
+            n_launch += 1
+            us = e.time_range.elapsed_us()
+            dev_us[e.name] = dev_us.get(e.name, 0.0) + us
+        elif e.device_type == DeviceType.CPU:
+            n_ops += 1
+            host_us[e.name] = host_us.get(e.name, 0.0) + e.self_cpu_time_total
+    log(f"trace: host, under the profiler: {wall_us / n_steps / 1e3:.3f} "
+        f"ms/step, {n_ops / n_steps:.0f} events/step (nested operators "
+        f"included); ms/step by own time: "
+        + ", ".join(f"{k} {v / n_steps / 1e3:.3f}" for k, v in sorted(
+            host_us.items(), key=lambda kv: -kv[1])[:8]))
+    if not dev_us:
+        log("trace: the profiler recorded no device activity; device busy "
+            "share not measured")
+        return
+    busy = sum(dev_us.values())
+    log(f"trace: device busy {busy / n_steps / 1e3:.3f} ms/step "
+        f"({100 * busy / wall_us:.1f}% of the profiled window), "
+        f"{n_launch / n_steps:.0f} device activities/step, "
+        f"{len(dev_us)} distinct")
+    for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"trace:   {us / n_steps / 1e3:8.4f} ms/step "
+            f"{100 * us / busy:5.1f}%  {name[:110]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    try:
+        from catnerf_torch.data.synthetic import make_scene
+        from catnerf_torch.kernels import build, fused_field as ff
+    except ImportError as e:
+        print(f"chip_smoke: cannot import the port: {e}", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = gpu_line()
+    log(f"card: {card}")
+
+    t0 = time.time()
+    build.load("fused_field")
+    log(f"build: fused_field.cu in {time.time() - t0:.1f} s; layout "
+        f"{json.dumps(ff.layout())}")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "ptxas.txt"), "w") as fh:
+        fh.write(build.build_log("fused_field"))
+
+    rows = check_kernels(dev)
+    check_step(dev)
+    sess, launches = main_path(dev, make_scene(**SCENE))
+    trace_steps(sess)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

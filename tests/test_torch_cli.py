@@ -1,0 +1,33 @@
+"""The port's training CLI, `python -m catnerf_torch.train`, on the CPU."""
+
+from __future__ import annotations
+
+import json
+import math
+
+import pytest
+import torch
+
+from catnerf_torch.train.__main__ import main
+
+torch.set_num_threads(1)
+
+
+def test_synthetic_run_prints_one_json_line_per_log_step(capsys):
+    assert main(["--synthetic", "--max-iter", "2", "--log-iter", "1",
+                 "--device", "cpu"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["iteration"] for r in rows] == [1, 2]
+    for r in rows:
+        assert r["device"] == "cpu"
+        assert {"total", "bg_psnr", "background/depth"} <= r.keys()
+        assert sum(k.endswith("/psnr") for k in r) == 3  # 3 categories
+        assert all(math.isfinite(v) for k, v in r.items()
+                   if k != "device")
+
+
+def test_without_synthetic_it_exits_with_a_usage_error(capsys):
+    with pytest.raises(SystemExit) as e:
+        main(["--max-iter", "1", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "only --synthetic" in capsys.readouterr().err

@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: they skip where there is no GPU (a CUDA kernel has no CPU
+mode). This file imports neither jax nor the JAX package, so it also runs on
+a machine with only PyTorch; tests/conftest.py imports jax, so there run it
+without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
+
+Forward within 1e-5, every gradient within 2e-4, and the backward run twice
+bitwise equal (the weight gradients are reduced in a fixed order).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from catnerf_torch.kernels import fused_field as tff
+from catnerf_torch.models.codenerf import CodeNeRF
+from catnerf_torch.models.embedding import UniDirsEmbed
+from catnerf_torch.models.occupancy import OccupancyMap
+
+torch.set_num_threads(1)
+
+FWD_TOL = 1e-5
+GRAD_TOL = 2e-4
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [100, 3600])
+def test_cuda_codenerf_kernel_matches_plain(cuda_device, N):
+    gen = torch.Generator().manual_seed(N)
+    C = 3
+    flat = tff.pack(tff._cn_modules(CodeNeRF.init(gen, C))).detach()
+    B = UniDirsEmbed.init((C,)).B.detach()
+    pts = torch.randn(C, N, 3, generator=gen)
+    zs = tuple(torch.relu(torch.randn(C, N, 32, generator=gen))
+               for _ in range(4))
+    dout = torch.randn(C, N, 4, generator=gen)
+    args = [x.to(cuda_device) for x in (flat, B, pts)]
+    zd = tuple(z.to(cuda_device) for z in zs)
+    dd = dout.to(cuda_device)
+    before = tff.LAUNCHES["codenerf_fwd"]
+    out = tff.codenerf_fwd(*args, zd, 0.5)
+    assert tff.LAUNCHES["codenerf_fwd"] == before + 1
+    _close(out, tff.codenerf_fwd_plain(*args, zd, 0.5), FWD_TOL)
+    got = tff.codenerf_bwd(*args, zd, dd, 0.5)
+    want = tff.codenerf_bwd_plain(*args, zd, dd, 0.5)
+    again = tff.codenerf_bwd_cuda(*args, zd, dd, 0.5)
+    for x, y, z in zip(got[:3] + got[3], want[:3] + want[3],
+                       again[:3] + again[3]):
+        _close(x, y, GRAD_TOL)
+        assert torch.equal(x, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [77, 16800])
+def test_cuda_occupancy_kernel_matches_plain(cuda_device, N):
+    gen = torch.Generator().manual_seed(N)
+    flat = tff.pack(tff._oc_modules(OccupancyMap.init(gen))).detach()
+    B = UniDirsEmbed.init().B.detach()
+    pts = torch.randn(N, 3, generator=gen) * 2.0
+    dout = torch.randn(N, 4, generator=gen)
+    args = [x.to(cuda_device) for x in (flat, B, pts)]
+    dd = dout.to(cuda_device)
+    before = tff.LAUNCHES["occupancy_fwd"]
+    out = tff.occupancy_fwd(*args, 0.2)
+    assert tff.LAUNCHES["occupancy_fwd"] == before + 1
+    _close(out, tff.occupancy_fwd_plain(*args, 0.2), FWD_TOL)
+    got = tff.occupancy_bwd(*args, dd, 0.2)
+    want = tff.occupancy_bwd_plain(*args, dd, 0.2)
+    again = tff.occupancy_bwd_cuda(*args, dd, 0.2)
+    for x, y, z in zip(got, want, again):
+        _close(x, y, GRAD_TOL)
+        assert torch.equal(x, z)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_apply_gradients_reach_the_modules(cuda_device):
+    """Through autograd on the card: the packed-parameter gradient from the
+    backward kernel lands on every field layer, as the plain path's does."""
+    gen = torch.Generator().manual_seed(0)
+    fc = CodeNeRF.init(gen, 2).to(cuda_device)
+    pe = UniDirsEmbed.init((2,)).to(cuda_device)
+    pts = torch.randn(2, 50, 3, generator=gen).to(cuda_device)
+    zs = [torch.relu(torch.randn(2, 50, 32, generator=gen)).to(cuda_device)
+          for _ in range(4)]
+    s, r = tff.codenerf_fused_apply(fc, pe, pts, *zs, scale=2.0)
+    (s.sum() + r.sum()).backward()
+    for m in tff._cn_modules(fc):
+        assert m.w.grad is not None and torch.isfinite(m.w.grad).all()
+    assert pe.B.grad is not None
