@@ -188,8 +188,8 @@ class Config:
     # The port does not support it yet (ROADMAP.md Queue 1) and raises.
     bf16_activations: bool = True
     # Fused PE+MLP kernels for the training hot path, specialised for the
-    # shipped hyperparams (train/step.py::_fused_eligible). The port runs
-    # only this path so far and raises when it is off (ROADMAP.md Queue 1).
+    # shipped hyperparams (train/step.py::fused_eligible); every other
+    # config runs the XLA-path field modules.
     use_fused_kernels: bool = False
 
     @property

@@ -6,7 +6,10 @@
 //   cn_bwd_kernel  <- _codenerf_bwd_kernel (:135)  its backward
 //   oc_fwd_kernel  <- _occ_fwd_kernel (:435)       OccupancyMap forward
 //   oc_bwd_kernel  <- _occ_bwd_kernel (:445)       its backward
-// reduce_tiles sums the backward's per-block weight-gradient partials.
+//   mlp_fwd_kernel <- scripts/exp_kernel2.py mlp_kernel (:73)  the CodeNeRF
+//                     chain alone, on an embedding computed outside
+// reduce_tiles (field_common.cuh) sums the backward's per-block
+// weight-gradient partials; the building blocks are in field_common.cuh.
 //
 // What bounds them on an H100 is the operations: per sample point the
 // CodeNeRF forward does 13,648 multiply-adds against 55.6 KB of weights
@@ -29,75 +32,9 @@
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "field_common.cuh"
 
 namespace {
-
-constexpr float kPi = 3.14159265358979323846f;
-constexpr int kDirs = 21;
-constexpr int kE1 = 87;  // [t (3), sin f0..f3 (4 x 21)]
-constexpr int kE2 = 42;  // [sin f4, f5]
-constexpr int kBSize = kDirs * 3;
-
-// Flat parameter layout: every weight [in, out] row-major in kernel order,
-// then every bias (kernels/fused_field.py CN_LAYERS / OC_LAYERS).
-namespace cn {
-constexpr int W = 32;
-constexpr int e_w = 0;
-constexpr int s0_w = e_w + kE1 * W;
-constexpr int c_w = s0_w + W * W;
-constexpr int s1_w = c_w + (W + kE1) * W;
-constexpr int en_w = s1_w + W * W;
-constexpr int sg_w = en_w + W * W;
-constexpr int vd_w = sg_w + W;
-constexpr int t0_w = vd_w + (W + kE2) * W;
-constexpr int r0_w = t0_w + W * W;
-constexpr int r1_w = r0_w + W * (W / 2);
-constexpr int e_b = r1_w + (W / 2) * 3;
-constexpr int s0_b = e_b + W;
-constexpr int c_b = s0_b + W;
-constexpr int s1_b = c_b + W;
-constexpr int en_b = s1_b + W;
-constexpr int sg_b = en_b + W;
-constexpr int vd_b = sg_b + 1;
-constexpr int t0_b = vd_b + W;
-constexpr int r0_b = t0_b + W;
-constexpr int r1_b = r0_b + W / 2;
-constexpr int P = r1_b + 3;  // 13,892
-constexpr int PP = P + kBSize;  // partial row: params then dB
-constexpr int kFwdT = 64;
-constexpr int kBwdT = 64;
-}  // namespace cn
-
-namespace oc {
-constexpr int H = 128;
-constexpr int in_w = 0;
-constexpr int m1_w = in_w + kE1 * H;
-constexpr int c_w = m1_w + H * H;
-constexpr int m2_w = c_w + (H + kE1) * H;
-constexpr int oa_w = m2_w + H * H;
-constexpr int cl_w = oa_w + H;
-constexpr int oc_w = cl_w + (H + kE2) * H;
-constexpr int in_b = oc_w + H * 3;
-constexpr int m1_b = in_b + H;
-constexpr int c_b = m1_b + H;
-constexpr int m2_b = c_b + H;
-constexpr int oa_b = m2_b + H;
-constexpr int cl_b = oa_b + 1;
-constexpr int oc_b = cl_b + H;
-constexpr int P = oc_b + 3;  // 94,340
-constexpr int PP = P + kBSize;
-constexpr int kFwdT = 64;
-constexpr int kBwdT = 128;  // 132 blocks at 16,800 rows: one wave, and
-                            // the partials stay at 132 x 377 KB
-}  // namespace oc
-
-static_assert(cn::P == 13892 && oc::P == 94340, "layout");
-
-// ---------------------------------------------------------------------------
-// Per-thread building blocks
-// ---------------------------------------------------------------------------
 
 // t = p * inv_scale; proj = t @ B^T; emb1 = [t, sin(pi 2^f proj), f<4];
 // emb2 = [sin(pi 2^f proj), f=4,5].
@@ -146,143 +83,6 @@ __device__ __forceinline__ void embed_bwd(const float* demb1,
   }
 }
 
-// acc[o] = sum_i x[i] W[i, oc + o] for o < CH, over the IN rows from W.
-template <int IN, int OUT, int CH>
-__device__ __forceinline__ void accumulate(const float* __restrict__ W,
-                                           const float* x, int oc,
-                                           float (&acc)[CH]) {
-#pragma unroll
-  for (int o = 0; o < CH; ++o) acc[o] = 0.f;
-#pragma unroll 2
-  for (int i = 0; i < IN; ++i) {
-    const float xi = x[i];
-    const float* w = W + i * OUT + oc;
-    if constexpr (CH % 4 == 0) {
-#pragma unroll
-      for (int o = 0; o < CH; o += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(w + o);
-        acc[o] = fmaf(xi, v.x, acc[o]);
-        acc[o + 1] = fmaf(xi, v.y, acc[o + 1]);
-        acc[o + 2] = fmaf(xi, v.z, acc[o + 2]);
-        acc[o + 3] = fmaf(xi, v.w, acc[o + 3]);
-      }
-    } else {
-#pragma unroll
-      for (int o = 0; o < CH; ++o) acc[o] = fmaf(xi, w[o], acc[o]);
-    }
-  }
-}
-
-// y[o] = act((x1 @ W[:IN1] + x2 @ W[IN1:]) + b), W [IN1+IN2, OUT] row-major.
-// W and b are the same for every lane of the warp (broadcast reads).
-template <int IN1, int IN2, int OUT, bool RELU>
-__device__ __forceinline__ void dense(const float* __restrict__ W,
-                                      const float* __restrict__ bias,
-                                      const float* x1, const float* x2,
-                                      float* y) {
-  constexpr int CH = OUT < 32 ? OUT : 32;
-  static_assert(OUT % CH == 0, "output chunking");
-  for (int oc = 0; oc < OUT; oc += CH) {
-    float acc1[CH], acc2[CH];
-    accumulate<IN1, OUT, CH>(W, x1, oc, acc1);
-    if constexpr (IN2 > 0) {
-      accumulate<IN2, OUT, CH>(W + IN1 * OUT, x2, oc, acc2);
-    } else {
-#pragma unroll
-      for (int o = 0; o < CH; ++o) acc2[o] = 0.f;
-    }
-#pragma unroll
-    for (int o = 0; o < CH; ++o) {
-      const float v = (acc1[o] + acc2[o]) + bias[oc + o];
-      y[oc + o] = RELU ? fmaxf(v, 0.f) : v;
-    }
-  }
-}
-
-// dx[i] = sum_o d[o] W[i, o] for the IN rows of W starting at W.
-template <int IN, int OUT>
-__device__ __forceinline__ void dense_dx(const float* __restrict__ W,
-                                         const float* d, float* dx) {
-  for (int i = 0; i < IN; ++i) {
-    const float* w = W + i * OUT;
-    float acc = 0.f;
-    if constexpr (OUT % 4 == 0) {
-#pragma unroll 8
-      for (int o = 0; o < OUT; o += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(w + o);
-        acc = fmaf(d[o], v.x, acc);
-        acc = fmaf(d[o + 1], v.y, acc);
-        acc = fmaf(d[o + 2], v.z, acc);
-        acc = fmaf(d[o + 3], v.w, acc);
-      }
-    } else {
-#pragma unroll
-      for (int o = 0; o < OUT; ++o) acc = fmaf(d[o], w[o], acc);
-    }
-    dx[i] = acc;
-  }
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// Block-level weight gradient of one layer. Each thread stages its row's
-// input [x1, x2] and delta d into shared memory (odd row strides: no bank
-// conflicts), then the block computes
-//   part_w[i*OUT + o] = sum_r x[r][i] d[r][o],  part_b[o] = sum_r d[r][o]
-// over its T rows in row order, with thread e owning elements e, e+T, ...
-template <int T, int IN1, int IN2, int OUT>
-__device__ __forceinline__ void layer_grad(float* stage, const float* x1,
-                                           const float* x2, const float* d,
-                                           float* __restrict__ part_w,
-                                           float* __restrict__ part_b) {
-  constexpr int IN = IN1 + IN2;
-  constexpr int SX = IN | 1;
-  constexpr int SD = OUT | 1;
-  float* sx = stage;
-  float* sd = stage + T * SX;
-  float* mx = sx + threadIdx.x * SX;
-  float* md = sd + threadIdx.x * SD;
-  for (int i = 0; i < IN1; ++i) mx[i] = x1[i];
-  for (int i = 0; i < IN2; ++i) mx[IN1 + i] = x2[i];
-  for (int o = 0; o < OUT; ++o) md[o] = d[o];
-  __syncthreads();
-  for (int e = threadIdx.x; e < IN * OUT; e += T) {
-    const int i = e / OUT;
-    const int o = e - i * OUT;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int r = 0; r < T; ++r) acc = fmaf(sx[r * SX + i], sd[r * SD + o], acc);
-    part_w[e] = acc;
-  }
-  if (part_b != nullptr) {
-    for (int o = threadIdx.x; o < OUT; o += T) {
-      float acc = 0.f;
-      for (int r = 0; r < T; ++r) acc += sd[r * SD + o];
-      part_b[o] = acc;
-    }
-  }
-  __syncthreads();
-}
-
-template <int N>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         bool valid, float* dst) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) dst[k] = valid ? src[k] : 0.f;
-}
-
-// Copies n floats (n % 4 == 0, both 16-byte aligned) with the whole block.
-template <int T>
-__device__ __forceinline__ void block_copy(float* dst,
-                                           const float* __restrict__ src,
-                                           int n) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int k = threadIdx.x; k < n / 4; k += T) d4[k] = s4[k];
-}
-
 // ---------------------------------------------------------------------------
 // CodeNeRF ensemble: grid (row tiles, C), one thread per row
 // ---------------------------------------------------------------------------
@@ -299,7 +99,7 @@ __global__ void __launch_bounds__(T)
   float* sW = reinterpret_cast<float*>(smem4);
   float* sB = sW + cn::P;
   const int c = blockIdx.y;
-  block_copy<T>(sW, params + static_cast<size_t>(c) * cn::P, cn::P);
+  block_copy(sW, params + static_cast<size_t>(c) * cn::P, cn::P);
   for (int k = threadIdx.x; k < kBSize; k += T) sB[k] = Bg[c * kBSize + k];
   __syncthreads();
   const int row = blockIdx.x * T + threadIdx.x;
@@ -310,23 +110,44 @@ __global__ void __launch_bounds__(T)
   float p[3], t[3], proj[kDirs], emb1[kE1], emb2[kE2];
   load_row<3>(pts + g * 3, true, p);
   embed(p, sB, inv_scale, t, proj, emb1, emb2);
-  float x[W], y[W], h[W];
-  dense<kE1, 0, W, true>(sW + cn::e_w, sW + cn::e_b, emb1, nullptr, y);
-  for (int k = 0; k < W; ++k) x[k] = y[k] + zs0[g * W + k];
-  dense<W, 0, W, true>(sW + cn::s0_w, sW + cn::s0_b, x, nullptr, y);
-  for (int k = 0; k < W; ++k) x[k] = y[k] + zc[g * W + k];
-  dense<W, kE1, W, true>(sW + cn::c_w, sW + cn::c_b, x, emb1, y);
-  for (int k = 0; k < W; ++k) x[k] = y[k] + zs1[g * W + k];
-  dense<W, 0, W, true>(sW + cn::s1_w, sW + cn::s1_b, x, nullptr, y);
-  dense<W, 0, W, false>(sW + cn::en_w, sW + cn::en_b, y, nullptr, h);
-  float sg;
-  dense<W, 0, 1, false>(sW + cn::sg_w, sW + cn::sg_b, h, nullptr, &sg);
-  dense<W, kE2, W, true>(sW + cn::vd_w, sW + cn::vd_b, h, emb2, y);
-  for (int k = 0; k < W; ++k) x[k] = y[k] + zt0[g * W + k];
-  dense<W, 0, W, true>(sW + cn::t0_w, sW + cn::t0_b, x, nullptr, y);
-  dense<W, 0, W / 2, true>(sW + cn::r0_w, sW + cn::r0_b, y, nullptr, x);
-  float a7[3];
-  dense<W / 2, 0, 3, false>(sW + cn::r1_w, sW + cn::r1_b, x, nullptr, a7);
+  float sg, a7[3];
+  cn_chain<false>(sW, emb1, emb2, zs0 + g * W, zc + g * W, zs1 + g * W,
+                  zt0 + g * W, sg, a7);
+  float4 o;
+  o.x = sg * 10.f;
+  o.y = sigmoidf(a7[0]);
+  o.z = sigmoidf(a7[1]);
+  o.w = sigmoidf(a7[2]);
+  reinterpret_cast<float4*>(out)[g] = o;
+}
+
+// The chain alone over a precomputed embedding (kernel 7): emb1 [C,N,87],
+// emb2 [C,N,42], z* [C,N,32] -> out [C,N,4]; the same grid and weights as
+// cn_fwd_kernel.
+template <int T>
+__global__ void __launch_bounds__(T)
+    mlp_fwd_kernel(const float* __restrict__ e1, const float* __restrict__ e2,
+                   const float* __restrict__ zs0, const float* __restrict__ zc,
+                   const float* __restrict__ zs1,
+                   const float* __restrict__ zt0,
+                   const float* __restrict__ params, float* __restrict__ out,
+                   int N) {
+  extern __shared__ float4 smem4[];
+  float* sW = reinterpret_cast<float*>(smem4);
+  const int c = blockIdx.y;
+  block_copy(sW, params + static_cast<size_t>(c) * cn::P, cn::P);
+  __syncthreads();
+  const int row = blockIdx.x * T + threadIdx.x;
+  if (row >= N) return;
+  const size_t g = static_cast<size_t>(c) * N + row;
+  constexpr int W = cn::W;
+
+  float emb1[kE1], emb2[kE2];
+  load_row<kE1>(e1 + g * kE1, true, emb1);
+  load_row<kE2>(e2 + g * kE2, true, emb2);
+  float sg, a7[3];
+  cn_chain<false>(sW, emb1, emb2, zs0 + g * W, zc + g * W, zs1 + g * W,
+                  zt0 + g * W, sg, a7);
   float4 o;
   o.x = sg * 10.f;
   o.y = sigmoidf(a7[0]);
@@ -351,7 +172,7 @@ __global__ void __launch_bounds__(T)
   float* sB = sW + cn::P;
   float* stage = sB + 64;
   const int c = blockIdx.y;
-  block_copy<T>(sW, params + static_cast<size_t>(c) * cn::P, cn::P);
+  block_copy(sW, params + static_cast<size_t>(c) * cn::P, cn::P);
   for (int k = threadIdx.x; k < kBSize; k += T) sB[k] = Bg[c * kBSize + k];
   __syncthreads();
   const int row = blockIdx.x * T + threadIdx.x;
@@ -558,31 +379,12 @@ __global__ void __launch_bounds__(T)
     for (int j = 0; j < 3; ++j) dpts[g * 3 + j] = dt[j] * inv_scale;
 }
 
-// out[c][p] = sum over tiles k (in order) of partial[c][k][p].
-__global__ void reduce_tiles(const float* __restrict__ partial,
-                             float* __restrict__ out, int nt, int pp) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= pp) return;
-  const size_t c = blockIdx.y;
-  const float* src = partial + c * nt * static_cast<size_t>(pp) + p;
-  float acc = 0.f;
-  for (int k = 0; k < nt; ++k) acc += src[static_cast<size_t>(k) * pp];
-  out[c * pp + p] = acc;
-}
-
 constexpr int kStageCn = (((cn::W + kE1) | 1) + (cn::W | 1)) * cn::kBwdT;
 constexpr int kStageOc = (((oc::H + kE1) | 1) + (oc::H | 1)) * oc::kBwdT;
 constexpr size_t kSmemCnFwd = (cn::P + 64) * sizeof(float);
 constexpr size_t kSmemCnBwd = (cn::P + 64 + kStageCn) * sizeof(float);
 constexpr size_t kSmemOcBwd = kStageOc * sizeof(float);
 static_assert(kSmemCnBwd <= 232448 && kSmemOcBwd <= 232448, "smem");
-
-int launch_reduce(const float* partial, float* out, int C, int nt, int pp,
-                  cudaStream_t s) {
-  dim3 grid((pp + 255) / 256, C);
-  reduce_tiles<<<grid, 256, 0, s>>>(partial, out, nt, pp);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace
 
@@ -612,6 +414,21 @@ int cn_fwd(const float* pts, const float* zs0, const float* zc,
   dim3 grid((N + T - 1) / T, C);
   cn_fwd_kernel<T><<<grid, T, kSmemCnFwd, static_cast<cudaStream_t>(stream)>>>(
       pts, zs0, zc, zs1, zt0, params, B, out, N, inv_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// emb1 [C,N,87], emb2 [C,N,42], z* [C,N,32], params [C,P] -> out [C,N,4]
+int cn_mlp_fwd(const float* emb1, const float* emb2, const float* zs0,
+               const float* zc, const float* zs1, const float* zt0,
+               const float* params, float* out, int C, int N, void* stream) {
+  constexpr int T = cn::kFwdT;
+  cudaError_t e = cudaFuncSetAttribute(
+      mlp_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemCnFwd));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((N + T - 1) / T, C);
+  mlp_fwd_kernel<T><<<grid, T, kSmemCnFwd, static_cast<cudaStream_t>(stream)>>>(
+      emb1, emb2, zs0, zc, zs1, zt0, params, out, N);
   return static_cast<int>(cudaGetLastError());
 }
 

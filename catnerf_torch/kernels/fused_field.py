@@ -2,17 +2,22 @@
 CodeNeRF category ensemble and the OccupancyMap background.
 
 Replaces the Pallas TPU kernels of the JAX package's
-`experimental/fused_field.py`:
+`experimental/fused_field.py` (and one of `scripts/exp_kernel2.py`):
 
-  codenerf_fwd   <- _codenerf_fwd_kernel :124 (via _make_codenerf_fused)
-  codenerf_bwd   <- _codenerf_bwd_kernel :135
-  occupancy_fwd  <- _occ_fwd_kernel :435 (via _make_occ_fused)
-  occupancy_bwd  <- _occ_bwd_kernel :445
+  codenerf_fwd         <- _codenerf_fwd_kernel :124 (_make_codenerf_fused)
+  codenerf_bwd         <- _codenerf_bwd_kernel :135
+  occupancy_fwd        <- _occ_fwd_kernel :435 (via _make_occ_fused)
+  occupancy_bwd        <- _occ_bwd_kernel :445
+  codenerf_packed_fwd  <- _cn2_fwd_kernel :773 (_make_codenerf_packed)
+  codenerf_packed_bwd  <- _cn2_bwd_kernel :786
+  codenerf_mlp_fwd     <- exp_kernel2.py mlp_kernel :73 (main.mlp_only)
 
-with CUDA C++ kernels for Hopper (`csrc/fused_field.cu`). Each public
-function keeps the JAX contract (`codenerf_fused_apply` :384,
-`occupancy_fused_apply` :631) and is differentiable through an
-`autograd.Function` whose backward is a kernel too.
+with CUDA C++ kernels for Hopper (`csrc/fused_field.cu`,
+`csrc/codenerf_packed.cu`). Each public function keeps the JAX contract
+(`codenerf_fused_apply` :384, `occupancy_fused_apply` :631,
+`codenerf_packed_apply` :958) and is differentiable through an
+`autograd.Function` whose backward is a kernel too; the MLP-only kernel
+has no backward, as in the JAX script.
 
 What bounds them on an H100: the operations. Per sample point the
 CodeNeRF forward does 13,648 multiply-adds against 55.6 KB of weights that
@@ -46,7 +51,9 @@ import torch
 # kernel launches by the wrappers below (one per forward or backward call
 # that reaches the CUDA kernel; the plain versions never count)
 LAUNCHES = {"codenerf_fwd": 0, "codenerf_bwd": 0,
-            "occupancy_fwd": 0, "occupancy_bwd": 0}
+            "occupancy_fwd": 0, "occupancy_bwd": 0,
+            "codenerf_packed_fwd": 0, "codenerf_packed_bwd": 0,
+            "codenerf_mlp_fwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -57,6 +64,13 @@ def reset_launch_counts() -> None:
 _N_FREQS = 6  # 2^0..2^5
 N_DIRS = 21
 B_SIZE = N_DIRS * 3
+N_SLOTS = _N_FREQS * N_DIRS  # 126 folded PE slots of the packed kernel
+B2_SIZE = 3 * N_SLOTS
+_LOW = 4 * N_DIRS  # 84: the slots of frequencies 2^0..2^3
+# the packed kernel's rows per block (`tile`): a multiple of PACKED_ROWS
+# (the rows its backward stages at a time), at most PACKED_MAX_TILE
+PACKED_ROWS = 32
+PACKED_MAX_TILE = 384
 
 # (key, fan_in, fan_out) in kernel order; the flat parameter buffer holds
 # every weight [in, out] row-major in this order, then every bias.
@@ -285,46 +299,228 @@ def occupancy_bwd_plain(flat, B, pts, dout, inv_scale, hidden=128):
     return _grads_flat(dW, db, OC_LAYERS), dB, dpts
 
 
+def codenerf_mlp_fwd_plain(flat, emb1, emb2, zs):
+    """The chain alone on a precomputed embedding (ref: exp_kernel2.py
+    mlp_kernel :73, `_codenerf_chain` :81): flat [C, P], emb1 [C, N, 87],
+    emb2 [C, N, 42], zs 4x [C, N, 32] -> out [C, N, 4]."""
+    W, b = _unpack(flat, CN_LAYERS)
+    sg, color, _ = _codenerf_chain(emb1, emb2, *zs, W, b)
+    return torch.cat([sg, color], dim=-1)
+
+
+# --- the packed ensemble ("categories in lanes", ref: fused_field.py:640) ---
+
+
+def fold_b2(B: torch.Tensor) -> torch.Tensor:
+    """PE basis [C, 21, 3] -> B2 [C, 3, 126], B2[k, f*21+d] = B[d, k] *
+    f32(pi 2^f), slots [f0..f3 | f4..f5] (ref: _pack_b2 :676-687; its two
+    pad slots, zero, are left out)."""
+    Bt = B.transpose(-1, -2)
+    scaled = torch.stack([Bt * (math.pi * 2.0 ** f) for f in range(_N_FREQS)],
+                         dim=-2)  # [C, 3, 6, 21]
+    return scaled.reshape(*B.shape[:-2], 3, N_SLOTS)
+
+
+def unfold_db2(dB2: torch.Tensor) -> torch.Tensor:
+    """The gradient of fold_b2: dB[d, k] = sum_f f32(pi 2^f) dB2[k, f*21+d]."""
+    w = math.pi * 2.0 ** torch.arange(_N_FREQS, dtype=dB2.dtype,
+                                      device=dB2.device)
+    split = dB2.reshape(*dB2.shape[:-1], _N_FREQS, N_DIRS)
+    return (split * w[:, None]).sum(-2).transpose(-1, -2)
+
+
+def _to_cat_major(x: torch.Tensor, C: int) -> torch.Tensor:
+    """Point-major [N, C*k] -> [C, N, k]."""
+    return x.reshape(x.shape[0], C, -1).transpose(0, 1)
+
+
+def to_point_major(x: torch.Tensor) -> torch.Tensor:
+    """[C, N, k] -> point-major [N, C*k]."""
+    return x.transpose(0, 1).reshape(x.shape[1], -1)
+
+
+def _cn2_chain(t, S, zs0, zc, zs1, zt0, W, b):
+    """ref: _cn2_chain :739-770, per category: the concat layers are split
+    products over [y | t | S] (We_t / We_s = We[:3] / We[3:87]; Wc_y / Wc_t
+    / Wc_s = Wc[:32] / Wc[32:35] / Wc[35:119]; Wvd_h / Wvd_s = Wvd[:32] /
+    Wvd[32:74], the last over S's slots 84..125)."""
+    S_lo, S_hi = S[..., :_LOW], S[..., _LOW:]
+    We, Wc, Wvd = W["e"], W["c"], W["vd"]
+    a0 = t @ We[..., :3, :] + S_lo @ We[..., 3:, :] + b["e"]
+    r0 = torch.relu(a0)
+    g0 = r0 + zs0
+    r1 = torch.relu(g0 @ W["s0"] + b["s0"])
+    g1 = r1 + zc
+    a2 = (g1 @ Wc[..., :32, :] + t @ Wc[..., 32:35, :]
+          + S_lo @ Wc[..., 35:, :] + b["c"])
+    r2 = torch.relu(a2)
+    g2 = r2 + zs1
+    r3 = torch.relu(g2 @ W["s1"] + b["s1"])
+    h = r3 @ W["en"] + b["en"]
+    sg = (h @ W["sg"] + b["sg"]) * 10.0
+    r4 = torch.relu(h @ Wvd[..., :32, :] + S_hi @ Wvd[..., 32:, :] + b["vd"])
+    g4 = r4 + zt0
+    r5 = torch.relu(g4 @ W["t0"] + b["t0"])
+    r6 = torch.relu(r5 @ W["r0"] + b["r0"])
+    color = torch.sigmoid(r6 @ W["r1"] + b["r1"])
+    iv = dict(r0=r0, g0=g0, r1=r1, g1=g1, r2=r2, g2=g2, r3=r3, h=h, r4=r4,
+              g4=g4, r5=r5, r6=r6, color=color)
+    return sg, color, iv
+
+
+def _packed_inputs(flat, B, pts, zs, inv_scale):
+    C = flat.shape[0]
+    t = _to_cat_major(pts, C) * inv_scale
+    B2 = fold_b2(B)
+    sinarg = t @ B2  # [C, N, 126]
+    return (C, t, B2, sinarg, torch.sin(sinarg),
+            [_to_cat_major(z, C) for z in zs])
+
+
+def codenerf_packed_fwd_plain(flat, B, pts, zs, inv_scale):
+    """flat [C, P], B [C, 21, 3], pts [N, 3C], zs 4x [N, 32C] ->
+    (sigma [N, C], rgb [N, 3C]) (ref: _cn2_fwd_kernel :773)."""
+    W, b = _unpack(flat, CN_LAYERS)
+    _, t, _, _, S, zc = _packed_inputs(flat, B, pts, zs, inv_scale)
+    sg, color, _ = _cn2_chain(t, S, *zc, W, b)
+    return to_point_major(sg), to_point_major(color)
+
+
+def codenerf_packed_bwd_plain(flat, B, pts, zs, dsg, dcol, inv_scale):
+    """Hand-derived backward, operation for operation as _cn2_bwd_kernel
+    :786-858 but per category (the block diagonal's off-diagonal cotangents
+    are dropped by the JAX caller's autodiff). Returns (dflat [C, P],
+    dB2 [C, 3, 126], dpts [N, 3C], (dzs0, dzc, dzs1, dzt0) [N, 32C])."""
+    W, b = _unpack(flat, CN_LAYERS)
+    C, t, B2, sinarg, S, zc = _packed_inputs(flat, B, pts, zs, inv_scale)
+    _, _, iv = _cn2_chain(t, S, *zc, W, b)
+    S_lo, S_hi = S[..., :_LOW], S[..., _LOW:]
+    We, Wc, Wvd = W["e"], W["c"], W["vd"]
+    dsg = _to_cat_major(dsg, C) * 10.0
+    dcol = _to_cat_major(dcol, C)
+
+    def xTd(x, d):
+        return x.transpose(-1, -2) @ d
+
+    def mT(d, w):
+        return d @ w.transpose(-1, -2)
+
+    dW, db = {}, {}
+    da7 = dcol * iv["color"] * (1.0 - iv["color"])
+    dW["r1"], db["r1"] = xTd(iv["r6"], da7), da7.sum(-2)
+    da6 = mT(da7, W["r1"]) * (iv["r6"] > 0)
+    dW["r0"], db["r0"] = xTd(iv["r5"], da6), da6.sum(-2)
+    da5 = mT(da6, W["r0"]) * (iv["r5"] > 0)
+    dW["t0"], db["t0"] = xTd(iv["g4"], da5), da5.sum(-2)
+    dg4 = mT(da5, W["t0"])
+    da4 = dg4 * (iv["r4"] > 0)
+    dW["vd"] = torch.cat([xTd(iv["h"], da4), xTd(S_hi, da4)], dim=-2)
+    db["vd"] = da4.sum(-2)
+    dW["sg"], db["sg"] = xTd(iv["h"], dsg), dsg.sum(-2)
+    dh = mT(da4, Wvd[..., :32, :]) + mT(dsg, W["sg"])
+    dW["en"], db["en"] = xTd(iv["r3"], dh), dh.sum(-2)
+    da3 = mT(dh, W["en"]) * (iv["r3"] > 0)
+    dW["s1"], db["s1"] = xTd(iv["g2"], da3), da3.sum(-2)
+    dg2 = mT(da3, W["s1"])
+    da2 = dg2 * (iv["r2"] > 0)
+    dW["c"] = torch.cat([xTd(iv["g1"], da2), xTd(t, da2), xTd(S_lo, da2)],
+                        dim=-2)
+    db["c"] = da2.sum(-2)
+    dg1 = mT(da2, Wc[..., :32, :])
+    da1 = dg1 * (iv["r1"] > 0)
+    dW["s0"], db["s0"] = xTd(iv["g0"], da1), da1.sum(-2)
+    dg0 = mT(da1, W["s0"])
+    da0 = dg0 * (iv["r0"] > 0)
+    dW["e"] = torch.cat([xTd(t, da0), xTd(S_lo, da0)], dim=-2)
+    db["e"] = da0.sum(-2)
+
+    dS = torch.cat([mT(da0, We[..., 3:, :]) + mT(da2, Wc[..., 35:, :]),
+                    mT(da4, Wvd[..., 32:, :])], dim=-1)
+    dsinarg = dS * torch.cos(sinarg)
+    dB2 = xTd(t, dsinarg)
+    dt = (mT(dsinarg, B2) + mT(da0, We[..., :3, :])) + mT(da2, Wc[..., 32:35, :])
+    return (_grads_flat(dW, db, CN_LAYERS), dB2,
+            to_point_major(dt * inv_scale),
+            tuple(to_point_major(d) for d in (dg0, dg1, dg2, dg4)))
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/fused_field.cu)
+# CUDA kernels (csrc/fused_field.cu, csrc/codenerf_packed.cu)
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "cn_fwd": [_P] * 8 + [_I, _I, _F, _P],
-    "cn_bwd": [_P] * 15 + [_I, _I, _F, _P],
-    "oc_fwd": [_P] * 4 + [_I, _F, _P],
-    "oc_bwd": [_P] * 7 + [_I, _F, _P],
-    "catnerf_layout": [ctypes.POINTER(ctypes.c_int)],
+    "fused_field": {
+        "cn_fwd": [_P] * 8 + [_I, _I, _F, _P],
+        "cn_bwd": [_P] * 15 + [_I, _I, _F, _P],
+        "oc_fwd": [_P] * 4 + [_I, _F, _P],
+        "oc_bwd": [_P] * 7 + [_I, _F, _P],
+        "cn_mlp_fwd": [_P] * 8 + [_I, _I, _P],
+        "catnerf_layout": [ctypes.POINTER(ctypes.c_int)],
+    },
+    "codenerf_packed": {
+        "cn2_fwd": [_P] * 9 + [_I, _I, _I, _F, _P],
+        "cn2_bwd": [_P] * 16 + [_I, _I, _I, _F, _P],
+        "packed_layout": [ctypes.POINTER(ctypes.c_int)],
+    },
 }
-# tile sizes (rows per block) and layout, read from the library
+LIBRARIES = tuple(_SIGNATURES)
+# tile sizes (rows per block) and layouts, read from the libraries
 _LAYOUT: dict[str, int] = {}
 
 
-def _lib() -> ctypes.CDLL:
-    from catnerf_torch.kernels import build
-
-    lib = build.load("fused_field")
-    if not _LAYOUT:
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    for fn_name, args in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    if name == "fused_field":
         out = (ctypes.c_int * 6)()
         lib.catnerf_layout(out)
-        _LAYOUT.update(zip(("cn_p", "oc_p", "cn_fwd_t", "cn_bwd_t",
-                            "oc_fwd_t", "oc_bwd_t"), out))
-        if (_LAYOUT["cn_p"], _LAYOUT["oc_p"]) != (CN_P, OC_P):
-            raise RuntimeError(f"fused_field.cu layout {_LAYOUT} does not "
-                               f"match the wrapper's ({CN_P}, {OC_P})")
+        got = dict(zip(("cn_p", "oc_p", "cn_fwd_t", "cn_bwd_t", "oc_fwd_t",
+                        "oc_bwd_t"), out))
+        want = {"cn_p": CN_P, "oc_p": OC_P}
+    else:
+        out = (ctypes.c_int * 4)()
+        lib.packed_layout(out)
+        got = dict(zip(("packed_p", "packed_b2", "packed_max_tile",
+                        "packed_rows"), out))
+        want = {"packed_p": CN_P, "packed_b2": B2_SIZE,
+                "packed_max_tile": PACKED_MAX_TILE,
+                "packed_rows": PACKED_ROWS}
+    if {k: got[k] for k in want} != want:
+        raise RuntimeError(f"{name}.cu layout {got} does not match the "
+                           f"wrapper's {want}")
+    _LAYOUT.update(got)
+
+
+_BOUND: set[str] = set()
+
+
+def _lib(name: str = "fused_field") -> ctypes.CDLL:
+    from catnerf_torch.kernels import build
+
+    lib = build.load(name)
+    if name not in _BOUND:
+        _bind(name, lib)
+        _BOUND.add(name)
     return lib
 
 
+def load_libraries() -> None:
+    """Build every kernel library (one nvcc each, all at once) and bind."""
+    from catnerf_torch.kernels import build
+
+    build.load_all(LIBRARIES)
+    for name in LIBRARIES:
+        _lib(name)
+
+
 def layout() -> dict[str, int]:
-    """The kernels' tile sizes and parameter counts (builds the library)."""
-    _lib()
+    """The kernels' tile sizes and parameter counts (builds the libraries)."""
+    load_libraries()
     return dict(_LAYOUT)
 
 
@@ -435,6 +631,83 @@ def occupancy_bwd_cuda(flat, B, pts, dout, inv_scale):
     return grads[:OC_P], grads[OC_P:].reshape(N_DIRS, 3), dpts
 
 
+def codenerf_mlp_fwd_cuda(flat, emb1, emb2, zs):
+    lib = _lib()
+    C, N, _ = emb1.shape
+    _check(emb1.device, {"emb1": (emb1, (C, N, 87)),
+                         "emb2": (emb2, (C, N, 42)),
+                         "params": (flat, (C, CN_P)),
+                         **{f"z{i}": (z, (C, N, 32)) for i, z in enumerate(zs)}})
+    out = torch.empty(C, N, 4, device=emb1.device, dtype=torch.float32)
+    if N == 0:
+        return out
+    err = lib.cn_mlp_fwd(_ptr(emb1), _ptr(emb2), *(_ptr(z) for z in zs),
+                         _ptr(flat), _ptr(out), C, N, _stream(emb1.device))
+    _raise_on(err, "cn_mlp_fwd")
+    LAUNCHES["codenerf_mlp_fwd"] += 1
+    return out
+
+
+def check_tile(tile) -> int:
+    """The packed kernel's rows per block: a multiple of PACKED_ROWS, at
+    most PACKED_MAX_TILE; anything else raises."""
+    if (not isinstance(tile, int) or tile <= 0 or tile > PACKED_MAX_TILE
+            or tile % PACKED_ROWS):
+        raise ValueError(f"tile={tile!r}: the packed kernel takes a multiple "
+                         f"of {PACKED_ROWS} up to {PACKED_MAX_TILE}")
+    return tile
+
+
+def _packed_shapes(flat, B, pts, zs):
+    C = flat.shape[0]
+    N = pts.shape[0]
+    return C, N, {"pts": (pts, (N, 3 * C)), "params": (flat, (C, CN_P)),
+                  "B": (B, (C, N_DIRS, 3)),
+                  **{f"z{i}": (z, (N, 32 * C)) for i, z in enumerate(zs)}}
+
+
+def codenerf_packed_fwd_cuda(flat, B, pts, zs, inv_scale, tile):
+    lib = _lib("codenerf_packed")
+    C, N, shapes = _packed_shapes(flat, B, pts, zs)
+    _check(pts.device, shapes)
+    dev = pts.device
+    sg = torch.empty(N, C, device=dev, dtype=torch.float32)
+    col = torch.empty(N, 3 * C, device=dev, dtype=torch.float32)
+    if N == 0:
+        return sg, col
+    err = lib.cn2_fwd(_ptr(pts), *(_ptr(z) for z in zs), _ptr(flat), _ptr(B),
+                      _ptr(sg), _ptr(col), C, N, check_tile(tile), inv_scale,
+                      _stream(dev))
+    _raise_on(err, "cn2_fwd")
+    LAUNCHES["codenerf_packed_fwd"] += 1
+    return sg, col
+
+
+def codenerf_packed_bwd_cuda(flat, B, pts, zs, dsg, dcol, inv_scale, tile):
+    lib = _lib("codenerf_packed")
+    C, N, shapes = _packed_shapes(flat, B, pts, zs)
+    _check(pts.device, {**shapes, "dsg": (dsg, (N, C)),
+                        "dcol": (dcol, (N, 3 * C))})
+    dev = pts.device
+    dpts = torch.empty_like(pts)
+    dzs = [torch.empty_like(z) for z in zs]
+    grads = torch.empty(C, CN_P + B2_SIZE, device=dev, dtype=torch.float32)
+    if N == 0:
+        grads.zero_()
+    else:
+        nt = -(-N // check_tile(tile))
+        partial = torch.empty(C, nt, CN_P + B2_SIZE, device=dev,
+                              dtype=torch.float32)
+        err = lib.cn2_bwd(_ptr(pts), *(_ptr(z) for z in zs), _ptr(flat),
+                          _ptr(B), _ptr(dsg), _ptr(dcol), _ptr(dpts),
+                          *(_ptr(z) for z in dzs), _ptr(partial), _ptr(grads),
+                          C, N, tile, inv_scale, _stream(dev))
+        _raise_on(err, "cn2_bwd")
+        LAUNCHES["codenerf_packed_bwd"] += 1
+    return (grads[:, :CN_P], grads[:, CN_P:].reshape(C, 3, N_SLOTS), dpts,
+            tuple(dzs))
+
+
 # ---------------------------------------------------------------------------
 # Dispatch and autograd
 # ---------------------------------------------------------------------------
@@ -470,6 +743,28 @@ def occupancy_bwd(flat, B, pts, dout, inv_scale):
     if _on_cuda(pts):
         return occupancy_bwd_cuda(flat, B, pts, dout, inv_scale)
     return occupancy_bwd_plain(flat, B, pts, dout, inv_scale)
+
+
+def codenerf_packed_fwd(flat, B, pts, zs, inv_scale, tile):
+    if _on_cuda(pts):
+        return codenerf_packed_fwd_cuda(flat, B, pts, zs, inv_scale, tile)
+    return codenerf_packed_fwd_plain(flat, B, pts, zs, inv_scale)
+
+
+def codenerf_packed_bwd(flat, B, pts, zs, dsg, dcol, inv_scale, tile):
+    if _on_cuda(pts):
+        return codenerf_packed_bwd_cuda(flat, B, pts, zs, dsg, dcol,
+                                        inv_scale, tile)
+    return codenerf_packed_bwd_plain(flat, B, pts, zs, dsg, dcol, inv_scale)
+
+
+def codenerf_mlp_fwd(flat, emb1, emb2, zs):
+    """Kernel 7: the CodeNeRF chain on a precomputed embedding, forward
+    only. flat [C, P] (`pack`), emb1 [C, N, 87], emb2 [C, N, 42], zs 4x
+    [C, N, 32] -> out [C, N, 4] = [sigma x10 | rgb]."""
+    if _on_cuda(emb1):
+        return codenerf_mlp_fwd_cuda(flat, emb1, emb2, zs)
+    return codenerf_mlp_fwd_plain(flat, emb1, emb2, zs)
 
 
 class _CodeNeRFFused(torch.autograd.Function):
@@ -526,3 +821,42 @@ def occupancy_fused_apply(fc, pe, pts, *, scale: float):
     out = _OccupancyFused.apply(flat, pe.B.contiguous(), pts.contiguous(),
                                 1.0 / float(scale))
     return out[..., 0], out[..., 1:4]
+
+
+class _CodeNeRFPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, B, pts, zs0, zc, zs1, zt0, inv_scale, tile):
+        ctx.inv_scale, ctx.tile = inv_scale, tile
+        ctx.save_for_backward(flat, B, pts, zs0, zc, zs1, zt0)
+        return codenerf_packed_fwd(flat, B, pts, (zs0, zc, zs1, zt0),
+                                   inv_scale, tile)
+
+    @staticmethod
+    def backward(ctx, dsg, dcol):
+        flat, B, pts, *zs = ctx.saved_tensors
+        dflat, dB2, dpts, dzs = codenerf_packed_bwd(
+            flat, B, pts, zs, dsg.contiguous(), dcol.contiguous(),
+            ctx.inv_scale, ctx.tile)
+        return (dflat, unfold_db2(dB2), dpts, *dzs, None, None)
+
+
+def codenerf_packed_apply(fc, pe, pts_packed, zs0, zc, zs1, zt0, *,
+                          scale: float, tile: int = 256):
+    """Packed-ensemble forward (ref: codenerf_packed_apply :958-977).
+
+    pts_packed [N, 3C] (point-major, categories in lanes); z* [N, 32C].
+    Returns (sigma [N, C], rgb [N, C, 3]); differentiable w.r.t. the field's
+    layers, pe.B, the points and the injections. `tile` is the kernel's
+    rows per block (check_tile)."""
+    check_tile(tile)
+    flat = pack(_cn_modules(fc))
+    C = flat.shape[0]
+    N = pts_packed.shape[0]
+    if pts_packed.shape[-1] != 3 * C:
+        raise ValueError(f"pts_packed: {tuple(pts_packed.shape)} is not "
+                         f"[N, 3C] for C={C}")
+    sg, col = _CodeNeRFPacked.apply(
+        flat, pe.B.contiguous(), pts_packed.contiguous(), zs0.contiguous(),
+        zc.contiguous(), zs1.contiguous(), zt0.contiguous(),
+        1.0 / float(scale), tile)
+    return sg, col.reshape(N, C, 3)

@@ -6,9 +6,9 @@ Parity target: `CodeNeRF` (ref: src/model.py:22-84) and the JAX package's
 conditioned on per-instance shape/texture latent codes via additive
 (Linear+ReLU)-projected injections; at shape block j==1 the xyz embedding
 is re-concatenated through `cat_layer`. Every parameter is stacked
-[C, ...] over the categories. On the training path the field itself runs
-in the fused kernel (kernels/fused_field.py); this module holds the
-parameters and the latent projection.
+[C, ...] over the categories. On the fused training path the field itself
+runs in the kernel (kernels/fused_field.py); `apply_with_injections` and
+`apply` are the XLA path's, for any architecture.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from catnerf_torch.models.embedding import EMB_SIZE1, EMB_SIZE2
-from catnerf_torch.models.layers import Linear
+from catnerf_torch.models.layers import Linear, affine, linear, linear_relu
 
 
 class CodeNeRF(nn.Module):
@@ -59,9 +59,9 @@ class CodeNeRF(nn.Module):
 
 
 def project_codes(fc: CodeNeRF, shape_latent: torch.Tensor,
-                  texture_latent: torch.Tensor):
+                  texture_latent: torch.Tensor, *, do_cat: bool = True):
     """Latent-code injections for rows of codes (ref: the JAX package's
-    codenerf.project_codes :55, do_cat=True).
+    codenerf.project_codes :55).
 
     All shape-side injections (and the cat-layer one) share the same input,
     so their projections run as ONE batched matmul; likewise for the
@@ -69,13 +69,69 @@ def project_codes(fc: CodeNeRF, shape_latent: torch.Tensor,
     step calls this on the [C, n_obj, latent_dim] code tables and gathers
     the W-wide results per ray (project-then-gather).
 
-    Returns (shape_inj [C, n, (shape_blocks+1)*W] laid out
-    [shape0, shape1, cat], texture_inj [C, n, texture_blocks*W])."""
-    shape_layers = list(fc.shape_latent_layers) + [fc.cat_latent_layer]
+    Returns (shape_inj [C, n, (shape_blocks+do_cat)*W] laid out
+    [shape0, shape1, .., cat], texture_inj [C, n, texture_blocks*W])."""
+    shape_layers = (list(fc.shape_latent_layers)
+                    + ([fc.cat_latent_layer] if do_cat else []))
     w_s = torch.cat([p.w for p in shape_layers], dim=-1)
     b_s = torch.cat([p.b for p in shape_layers], dim=-1)
     w_t = torch.cat([p.w for p in fc.texture_latent_layers], dim=-1)
     b_t = torch.cat([p.b for p in fc.texture_latent_layers], dim=-1)
-    shape_inj = torch.relu(shape_latent @ w_s + b_s.unsqueeze(-2))
-    texture_inj = torch.relu(texture_latent @ w_t + b_t.unsqueeze(-2))
-    return shape_inj, texture_inj
+    return (torch.relu(affine(shape_latent, w_s, b_s)),
+            torch.relu(affine(texture_latent, w_t, b_t)))
+
+
+def _concat(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """[y, x] along the features, x broadcast to y's leading dims."""
+    return torch.cat([y, x.expand(*y.shape[:-1], x.shape[-1])], dim=-1)
+
+
+def apply_with_injections(fc: CodeNeRF, emb: torch.Tensor,
+                          shape_inj: torch.Tensor, texture_inj: torch.Tensor,
+                          *, emb_size1: int = EMB_SIZE1, do_cat: bool = True,
+                          act_dtype=None):
+    """Forward pass given precomputed latent injections (ref:
+    codenerf.py:104-149), stacked over the leading category axis.
+
+    emb [C, ..., 129]; shape_inj / texture_inj broadcastable against emb's
+    leading dims. Returns (sigma [C, ..., 1], rgb [C, ..., 3])."""
+    if act_dtype is not None:
+        raise NotImplementedError(
+            "act_dtype (bf16_activations=True) is not ported yet: ROADMAP.md "
+            "Queue 1, item 1")
+    x1 = emb[..., :emb_size1]
+    x2 = emb[..., emb_size1:]
+    shape_blocks = len(fc.shape_layers)
+    W = fc.shape_layers[0].w.shape[-1]
+
+    y = linear_relu(fc.encoding_xyz, x1)
+    for j in range(shape_blocks):
+        if do_cat and j == 1:
+            y = y + shape_inj[..., shape_blocks * W:]
+            y = linear_relu(fc.cat_layer, _concat(y, x1))
+        y = y + shape_inj[..., j * W:(j + 1) * W]
+        y = linear_relu(fc.shape_layers[j], y)
+
+    y = linear(fc.encoding_shape, y)
+    sigma = linear(fc.sigma, y) * 10.0  # UniSurf logit scale
+
+    y = linear_relu(fc.encoding_viewdir, _concat(y, x2))
+    for j, layer in enumerate(fc.texture_layers):
+        y = y + texture_inj[..., j * W:(j + 1) * W]
+        y = linear_relu(layer, y)
+    rgb = torch.sigmoid(linear(fc.rgb_1, torch.relu(linear(fc.rgb_0, y))))
+    return sigma, rgb
+
+
+def apply(fc: CodeNeRF, emb: torch.Tensor, shape_latent: torch.Tensor,
+          texture_latent: torch.Tensor, *, emb_size1: int = EMB_SIZE1,
+          do_cat: bool = True):
+    """Forward pass (ref: codenerf.py:152-164, src/model.py:56-84).
+
+    emb [C, ..., 129]; shape/texture_latent [C, ..., latent_dim]
+    broadcastable against emb's leading dims. Returns (sigma [C, ..., 1],
+    rgb [C, ..., 3])."""
+    shape_inj, texture_inj = project_codes(fc, shape_latent, texture_latent,
+                                           do_cat=do_cat)
+    return apply_with_injections(fc, emb, shape_inj, texture_inj,
+                                 emb_size1=emb_size1, do_cat=do_cat)

@@ -4,7 +4,8 @@ initialisation.
 A weight is `w` [*lead, in, out] plus `b` [*lead, out], as in the JAX
 package's `models/layers.py`, so that conversion and the kernels need no
 transposes. `lead` is () for one model and (C,) for the stacked category
-ensemble, whose layers then run as batched matmuls in place of `jax.vmap`.
+ensemble, whose layers then run as batched matmuls in place of `jax.vmap`
+(`linear`, `linear_relu`: the XLA-path field modules).
 
 The reference initialises Linear weights with xavier_normal_ (applied via
 model.init_weights, ref: src/model.py:4-6) and leaves biases at the torch
@@ -37,4 +38,31 @@ class Linear(nn.Module):
         return cls(w, b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w + self.b.unsqueeze(-2)
+        return linear(self, x)
+
+
+def lead_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [*lead, *mid, k] @ w [*lead, k, n] -> [*lead, *mid, n]: one matrix
+    per stacked model, applied to all of its rows (in place of jax.vmap)."""
+    n_lead = w.dim() - 2
+    if n_lead == 0:
+        return x @ w
+    rows = x.reshape(*x.shape[:n_lead], -1, x.shape[-1]) @ w
+    return rows.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x @ w + b for x [*lead, *mid, in], w [*lead, in, out], b [*lead, out]."""
+    for _ in range(x.dim() - b.dim()):
+        b = b.unsqueeze(-2)
+    return lead_matmul(x, w) + b
+
+
+def linear(layer: Linear, x: torch.Tensor) -> torch.Tensor:
+    """x @ w + b (ref: the JAX package's models/layers.py:33), with x's
+    leading dims starting with the layer's stacked ones."""
+    return affine(x, layer.w, layer.b)
+
+
+def linear_relu(layer: Linear, x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(linear(layer, x))

@@ -1,14 +1,16 @@
 """OccupancyMap — the unconditional background field (ref:
-src/model.py:86-155, hidden=128). On the training path the field runs in
-the fused kernel (kernels/fused_field.py); this module holds its
-parameters, named as the JAX pytree's keys."""
+src/model.py:86-155, hidden=128). On the fused training path the field
+runs in the kernel (kernels/fused_field.py); `apply` is the XLA path's
+(the JAX package's models/occupancy.py:43), for any hidden size and
+number of hidden blocks. Parameters are named as the JAX pytree's keys."""
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from catnerf_torch.models.embedding import EMB_SIZE1, EMB_SIZE2
-from catnerf_torch.models.layers import Linear
+from catnerf_torch.models.layers import Linear, linear, linear_relu
 
 
 class OccupancyMap(nn.Module):
@@ -34,3 +36,32 @@ class OccupancyMap(nn.Module):
             "color_linear": Linear.init(gen, emb_size2 + h, h),
             "out_color": Linear.init(gen, h, 3),
         })
+
+
+def apply(fc: OccupancyMap, emb: torch.Tensor, *, emb_size1: int = EMB_SIZE1,
+          do_alpha: bool = True, do_color: bool = True, do_cat: bool = True,
+          act_dtype=None):
+    """Forward pass (ref: occupancy.py:43-76). emb [..., 129]. Returns
+    (alpha [..., 1] | None, color [..., 3] | None); alpha carries the x10
+    UniSurf logit scale."""
+    if act_dtype is not None:
+        raise NotImplementedError(
+            "act_dtype (bf16_activations=True) is not ported yet: ROADMAP.md "
+            "Queue 1, item 1")
+    x1 = emb[..., :emb_size1]
+    x2 = emb[..., emb_size1:]
+
+    h = linear_relu(fc.in_layer, x1)
+    for layer in fc.mid1:
+        h = linear_relu(layer, h)
+    if do_cat:
+        h = linear_relu(fc.cat_layer, torch.cat([h, x1], dim=-1))
+    for layer in fc.mid2:
+        h = linear_relu(layer, h)
+
+    alpha = linear(fc.out_alpha, h) * 10.0 if do_alpha else None
+    color = None
+    if do_color and hasattr(fc, "out_color"):
+        hc = linear_relu(fc.color_linear, torch.cat([h, x2], dim=-1))
+        color = torch.sigmoid(linear(fc.out_color, hc))
+    return alpha, color

@@ -3,11 +3,15 @@
     python -m catnerf_torch.train --synthetic --max-iter 200 --log-iter 50
     python -m catnerf_torch.train --synthetic --max-iter 20 --log-iter 5 \\
         --device cpu
+    python -m catnerf_torch.train --synthetic --strict-parity
 
 The scene and config are the JAX package's `--synthetic` ones (ref:
 loaders.py:24-33): 3 categories x 2 instances, 8 frames of 160x120,
 latent_dim 32, seeded by `Config.seed`; the port runs them with the fused
-kernels (use_fused_kernels=True, bf16_activations=False). Prints one JSON
+kernels (use_fused_kernels=True, bf16_activations=False), or, with
+--strict-parity, in the JAX package's strict-parity configuration
+(`Config.apply_strict_parity()`, train.py --strict-parity: the XLA-path
+field modules, float32 activations). Prints one JSON
 line of metrics per log step. The device is cuda unless --device names
 another. Dataset configs and meshing are not ported yet (ROADMAP.md
 Queue 1).
@@ -34,6 +38,9 @@ def main(argv=None) -> int:
     ap.add_argument("--log-iter", type=int, default=50)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--strict-parity", action="store_true",
+                    help="Config.apply_strict_parity(): the XLA-path field "
+                    "modules instead of the fused kernels")
     args = ap.parse_args(argv)
     if not args.synthetic:
         ap.error("only --synthetic is ported so far (dataset configs: "
@@ -41,8 +48,11 @@ def main(argv=None) -> int:
 
     cfg = Config()
     cfg.net_hyperparams.latent_dim = 32
-    cfg.use_fused_kernels = True
-    cfg.bf16_activations = False
+    if args.strict_parity:
+        cfg.apply_strict_parity()
+    else:
+        cfg.use_fused_kernels = True
+        cfg.bf16_activations = False
     scene = make_scene(n_frames=8, width=160, height=120, n_categories=3,
                        insts_per_cat=2, seed=cfg.seed)
     sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,

@@ -1,11 +1,12 @@
-"""The training step: 3D point sampling, latent injections, the fused
-CodeNeRF ensemble and background kernels, loss assembly, code
-regularisation, and the AdamW update.
+"""The training step: 3D point sampling, latent injections, the category
+ensemble and the background field (the fused kernels, or the XLA-path
+modules), loss assembly, code regularisation, and the AdamW update.
 
-Parity target: the JAX package's `train/step.py` (ref: train.py:98-201),
-fused branch only (`category_forward` :96-153, `background_forward`
-:164-182, `loss_fn` and `train_step` :200-252). The stacked parameters
-are the single source of truth, as there.
+Parity target: the JAX package's `train/step.py` (ref: train.py:98-201):
+`category_forward` :96-161, `background_forward` :164-187, `loss_fn` and
+`train_step` :200-252. Which field path a config takes is the JAX
+package's own rule (`fused_eligible`, :68-74 and :174). The stacked
+parameters are the single source of truth, as there.
 
 Randomness: the step draws its sampling uniforms from a torch generator.
 `StepDraws` lets a caller inject them instead (the tests inject the JAX
@@ -21,7 +22,7 @@ import torch
 
 from catnerf_torch.config import Config
 from catnerf_torch.kernels import fused_field
-from catnerf_torch.models import codenerf
+from catnerf_torch.models import codenerf, embedding, occupancy
 from catnerf_torch.ops import losses, sampling
 from catnerf_torch.train.state import FieldParams, TrainState
 
@@ -72,25 +73,28 @@ class StepDraws(NamedTuple):
     bg: torch.Tensor | None
 
 
-def check_supported(cfg: Config) -> None:
-    """The port runs the fused-kernel path only, for the shipped
-    architecture (ref: step.py:68-74 `_fused_eligible`)."""
+def fused_eligible(cfg: Config) -> bool:
+    """The fused kernels are specialised for the reference's shipped
+    architecture (ref: step.py:68-74 `_fused_eligible`); every other
+    config runs the XLA-path modules."""
     nh = cfg.net_hyperparams
-    if not cfg.use_fused_kernels:
-        raise NotImplementedError(
-            "use_fused_kernels=False (the XLA-path field modules) is not "
-            "ported yet: ROADMAP.md Queue 1, item 1")
-    if not (nh.shape_blocks == 2 and nh.texture_blocks == 1 and nh.W == 32
-            and cfg.n_unidir_funcs == 5 and cfg.hidden_feature_size_bg == 128):
-        raise NotImplementedError(
-            "the fused kernels need shape_blocks=2, texture_blocks=1, W=32, "
-            "n_unidir_funcs=5 and a 128-wide background; other "
-            "architectures run the XLA-path modules: ROADMAP.md Queue 1, "
-            "item 1")
+    return (cfg.use_fused_kernels and nh.shape_blocks == 2
+            and nh.texture_blocks == 1 and nh.W == 32
+            and cfg.n_unidir_funcs == 5)
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise for the configs the port does not run yet. A rule on the
+    static config: a supported config never falls back at run time."""
     if cfg.bf16_activations:
         raise NotImplementedError(
             "bf16_activations=True is not ported yet: ROADMAP.md Queue 1, "
             "item 1 (set cfg.bf16_activations = False)")
+    if fused_eligible(cfg) and cfg.hidden_feature_size_bg != 128:
+        raise NotImplementedError(
+            "the port's background kernels take hidden_feature_size_bg=128 "
+            "only (the JAX kernel takes any width): ROADMAP.md Queue 1, "
+            "item 1 (or set cfg.use_fused_kernels = False)")
 
 
 def draw_uniforms(cfg: Config, n_cls: int, n_rays: int, n_bg: int | None,
@@ -119,7 +123,8 @@ def gather_injections(inj_s_inst: torch.Tensor, inj_t_inst: torch.Tensor,
 
 def category_forward(params: FieldParams, batch: CategoryBatch,
                      u: torch.Tensor, cfg: Config):
-    """Sample 3D points and run the fused category ensemble.
+    """Sample 3D points and run the category ensemble: the fused kernel
+    for the shipped architecture, else the XLA-path modules.
     Returns (alpha [c, r, b], color [c, r, b, 3], ray_samples)."""
     rays = sampling.sample_3d_points(
         u, batch.rgbs, batch.states, batch.depth, batch.origins, batch.dirs,
@@ -131,6 +136,13 @@ def category_forward(params: FieldParams, batch: CategoryBatch,
         params.cat_fc, params.codes.shape, params.codes.texture)
     inj_s, inj_t = gather_injections(inj_s_inst, inj_t_inst,
                                      batch.obj_indices)
+    if not fused_eligible(cfg):
+        emb = embedding.apply(params.cat_pe, rays.input_pcs,
+                              scale=cfg.obj_scale,
+                              max_deg=cfg.n_unidir_funcs)
+        alpha, color = codenerf.apply_with_injections(
+            params.cat_fc, emb, inj_s[:, :, None, :], inj_t[:, :, None, :])
+        return alpha[..., 0], color, rays
     C, R, Bt, _ = rays.input_pcs.shape
     N = R * Bt
     W = cfg.net_hyperparams.W
@@ -150,19 +162,24 @@ def category_forward(params: FieldParams, batch: CategoryBatch,
 
 def background_forward(params: FieldParams, batch: BackgroundBatch,
                        u: torch.Tensor, cfg: Config):
-    """Background sampling + fused OccupancyMap (ref: train.py:172-178)."""
+    """Background sampling + OccupancyMap (ref: train.py:172-178): the
+    fused kernel for the shipped architecture with one hidden block, else
+    the XLA-path module."""
     rays = sampling.sample_3d_points(
         u, batch.rgbs, batch.states, batch.depth, batch.origins, batch.dirs,
         n_bins_cam2surface=cfg.n_bins_cam2surface_bg, n_bins=cfg.n_bins,
         min_depth=cfg.min_depth, surface_eps=cfg.surface_eps,
         stop_eps=cfg.stop_eps)
-    if len(params.bg_fc.mid1) != 1 or len(params.bg_fc.mid2) != 1:
-        raise NotImplementedError(
-            "the background kernel takes one hidden block: ROADMAP.md "
-            "Queue 1, item 1")
+    fc = params.bg_fc
+    if not (fused_eligible(cfg) and len(fc.mid1) == 1
+            and len(fc.mid2) == 1):
+        emb = embedding.apply(params.bg_pe, rays.input_pcs,
+                              scale=cfg.bg_scale, max_deg=cfg.n_unidir_funcs)
+        alpha, color = occupancy.apply(fc, emb)
+        return alpha[..., 0], color, rays
     R, Bt, _ = rays.input_pcs.shape
     alpha, color = fused_field.occupancy_fused_apply(
-        params.bg_fc, params.bg_pe, rays.input_pcs.reshape(R * Bt, 3),
+        fc, params.bg_pe, rays.input_pcs.reshape(R * Bt, 3),
         scale=cfg.bg_scale)
     return alpha.reshape(R, Bt), color.reshape(R, Bt, 3), rays
 

@@ -6,27 +6,39 @@ Phases, each printing one or more lines:
 
 1. the card's name and power limit (nvidia-smi);
 2. the build of the port's CUDA kernels from `catnerf_torch/csrc/`
-   (nvcc, at first use);
-3. each kernel against its plain PyTorch version on the card at the
-   training step's shapes (forward within 1e-5, gradients within 2e-4,
-   the backward run twice and bitwise equal), then timed beside its plain
-   version and its bound;
+   (one nvcc per source, started together, at first use);
+3. each kernel against its plain PyTorch version on the card (forward
+   within 1e-5, gradients within 2e-4, each backward run twice and
+   bitwise equal), then timed beside its plain version and its bound: the
+   four kernels of the fused trainer at the training step's shapes, the
+   packed-ensemble pair and the MLP-only kernel at the comparison's shape
+   (C=8, N=2,100), at the step's (C=8, N=3,600), and the packed pair at a
+   ragged N (2,101);
 4. one training step on the card against the same step on the CPU (plain
-   versions), on a small scene: every metric within 1e-5 relative, those
-   weighted by the depth variance within 1e-4;
+   versions), on a small scene, for the fused config and for the
+   strict-parity config (the XLA-path modules): every metric within 1e-5
+   relative, those weighted by the depth variance within 1e-4;
 5. the trainer's main path: a `TrainingSession` on the bench scene (8
    categories x 3 instances, 360 rays x 10 bins per category and 1,200
    background rays x 14 bins, 45,600 ray samples a step), 5 host-staged
    steps, then 300 steps on the device ray store. The loss must be
-   finite, its colour and opacity terms must fall, and every kernel must
-   have run once per step;
+   finite, its colour and opacity terms must fall, and every kernel of
+   the path must have run once per step;
 6. 100 more steps under torch.profiler: the device's busy share and its
-   time by kernel, and the host's operators per step.
+   time by kernel, and the host's operators per step;
+7. the field-kernel comparison path (`catnerf_torch.experimental.
+   kernel_compare`): the packed kernels at tiles 128/256/384 and the
+   MLP-only kernel, each checked against the XLA-path CodeNeRF and timed;
+   each of its kernels must have run;
+8. the strict-parity trainer on the bench scene: 2 host-staged steps and
+   50 on the device ray store, the loss finite, its colour and opacity
+   terms falling, no fused kernel launched, then 30 steps traced.
 
-Then a `{"kernels": [...]}` line, the card line again, and as the last
-line `{"ok": true, "device": {...}}`. Exits non-zero, with no result,
-when there is no CUDA device, when the port cannot be imported, or when
-any check fails. Imports nothing of JAX.
+Each path (5, 7, 8) is driven with the launch counts set to 0 just before
+it and read just after. Then a `{"kernels": [...]}` line, the card line
+again, and as the last line `{"ok": true, "device": {...}}`. Exits
+non-zero, with no result, when there is no CUDA device, when the port
+cannot be imported, or when any check fails. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -64,6 +76,15 @@ SMALL_SCENE = dict(n_frames=2, width=48, height=36, n_categories=2,
 N_STEP_ONCE = 5
 N_INNER = 100
 N_FAST = 300
+# the strict-parity trainer's run: host-staged steps, device-store steps,
+# traced steps
+N_STRICT_ONCE = 2
+N_STRICT_FAST = 50
+N_STRICT_TRACE = 30
+# the packed kernels' shapes: the comparison's (exp_kernel3.py:10), the
+# step's, and a ragged one; the comparison's goes into the kernels line
+PACKED_SHAPES = ((8, 2100), (8, 3600), (8, 2101))
+PACKED_TILE = 256
 # torch.cuda.set_sync_debug_mode while run_fast runs: the steps must not
 # wait on the device, so that the host queues ahead of it
 SYNC_DEBUG = "error"
@@ -101,11 +122,15 @@ def max_err(xs, ys) -> float:
     return max(float((x - y).abs().max()) for x, y in zip(xs, ys))
 
 
-def assert_close(name, xs, ys, tol):
+def assert_close(name, xs, ys, tol, scaled=False):
+    """Elementwise within tol (absolute plus relative); with `scaled`, the
+    absolute part is tol times the tensor's largest entry (for sums over
+    thousands of rows, whose float32 rounding follows the terms' size)."""
     for i, (x, y) in enumerate(zip(xs, ys)):
         if not torch.isfinite(x).all():
             raise AssertionError(f"{name}[{i}]: kernel output not finite")
-        torch.testing.assert_close(x, y, rtol=tol, atol=tol,
+        atol = tol * max(1.0, float(y.abs().max())) if scaled else tol
+        torch.testing.assert_close(x, y, rtol=tol, atol=atol,
                                    msg=lambda m: f"{name}[{i}]: {m}")
 
 
@@ -122,6 +147,12 @@ def fused_config():
     cfg.use_fused_kernels = True
     cfg.bf16_activations = False
     return cfg
+
+
+def strict_config():
+    from catnerf_torch.config import Config
+
+    return Config().apply_strict_parity()
 
 
 def kernel_inputs(dev):
@@ -212,47 +243,146 @@ def check_kernels(dev) -> list[dict]:
             nbytes=f * (oc_rows * (2 * 3 + 4) + 2 * oc_prm),
             flops=4 * 93696 * oc_rows),
     }
-    rows = []
-    for name, s in specs.items():
-        got = s["kernel"]()
+    return [dict(name=name, route="cuda",
+                 source="catnerf_torch/csrc/fused_field.cu",
+                 replaces=spec["replaces"], launches=None,
+                 **check_and_time(name, spec))
+            for name, spec in specs.items()]
+
+
+def check_and_time(name, spec, label="") -> dict:
+    """One kernel against its plain version (and, for a backward, against
+    itself a second time, bitwise), then both timed, beside the bound."""
+    got = spec["kernel"]()
+    torch.cuda.synchronize()
+    want = spec["plain"]()
+    assert_close(name + label, got, want, spec["tol"],
+                 spec.get("scaled", False))
+    if spec["bwd"]:
+        again = spec["kernel"]()
         torch.cuda.synchronize()
-        want = s["plain"]()
-        assert_close(name, got, want, s["tol"])
-        if s["bwd"]:
-            again = s["kernel"]()
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"{name}: two runs differ bitwise")
-        err = max_err(got, want)
-        ms = cuda_ms(s["kernel"])
-        plain_ms = cuda_ms(s["plain"])
-        bound_ms, bound_by = bound(s["nbytes"], s["flops"])
-        log(f"kernel {name}: max_abs_err {err:.3e} (tol {s['tol']:g})"
-            f"{', backward bitwise repeatable' if s['bwd'] else ''}; "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by})")
-        rows.append(dict(name=name, route="cuda",
-                         source="catnerf_torch/csrc/fused_field.cu",
-                         replaces=s["replaces"], launches=None,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None))
-    return rows
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}{label}: two runs differ bitwise")
+    err = max_err(got, want)
+    ms = cuda_ms(spec["kernel"])
+    plain_ms = cuda_ms(spec["plain"])
+    bound_ms, bound_by = bound(spec["nbytes"], spec["flops"])
+    log(f"kernel {name}{label}: max_abs_err {err:.3e} (tol {spec['tol']:g}"
+        f"{' of the scale' if spec.get('scaled') else ''})"
+        f"{', backward bitwise repeatable' if spec['bwd'] else ''}; "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
-def check_step(dev) -> None:
-    """One training step's loss and metrics on the card (kernels) against
-    the same step on the CPU (plain versions): same weights, batch and
-    draws, on the small scene of tests/test_torch_step.py. This holds the
-    step's other operators on the card (sampling, injections, render,
-    loss) to the CPU path that the tests hold against the JAX package; the
-    kernel phase checks only the kernels."""
+def packed_inputs(dev, C, N, seed):
+    """Random parameters and inputs for the packed kernels (point-major,
+    categories in lanes) and the MLP-only kernel ([C, N, k])."""
+    from catnerf_torch.kernels import fused_field as ff
+    from catnerf_torch.models import embedding
+    from catnerf_torch.models.codenerf import CodeNeRF
+    from catnerf_torch.models.embedding import UniDirsEmbed
+
+    gen = torch.Generator().manual_seed(seed)
+    flat = ff.pack(ff._cn_modules(CodeNeRF.init(gen, C))).detach()
+    B = (UniDirsEmbed.init((C,)).B.detach()
+         + 0.05 * torch.randn(C, 21, 3, generator=gen))
+    pts = torch.randn(C, N, 3, generator=gen) * 0.8
+    zs = tuple(torch.relu(torch.randn(C, N, 32, generator=gen))
+               for _ in range(4))
+    with torch.no_grad():
+        emb = embedding.apply(UniDirsEmbed(B), pts, scale=2.0)
+    packed = lambda x: ff.to_point_major(x).contiguous()
+    d = dict(flat=flat, B=B, pts=packed(pts), zs=tuple(packed(z) for z in zs),
+             dsg=torch.randn(N, C, generator=gen),
+             dcol=torch.randn(N, 3 * C, generator=gen),
+             emb1=emb[..., :87].contiguous(), emb2=emb[..., 87:].contiguous(),
+             zs_cat=zs)
+    return {k: (tuple(x.to(dev) for x in v) if isinstance(v, tuple)
+                else v.to(dev)) for k, v in d.items()}
+
+
+def check_packed_kernels(dev) -> list[dict]:
+    """Kernels 5-7 against their plain versions on the card at
+    PACKED_SHAPES (the MLP-only kernel at the first two), then timed; the
+    rows of the first shape go into the kernels line."""
+    from catnerf_torch.kernels import fused_field as ff
+
+    inv = 1.0 / 2.0
+    f = 4  # bytes per float32
+    rows = {}
+    for i, (C, N) in enumerate(PACKED_SHAPES):
+        x = packed_inputs(dev, C, N, seed=i)
+        n = C * N  # point-categories
+        prm = C * ff.CN_P
+        row_io = 3 + 4 * 32  # pts + injections
+        # useful per-category work only, never the zeros of a block
+        # diagonal: 13,648 chain + 378 folded-PE multiply-adds forward
+        fwd_flops = 2 * (13648 + 378) * n
+        specs = {
+            "codenerf_packed_fwd": dict(
+                replaces="catnerf_tpu/experimental/fused_field.py:773",
+                source="catnerf_torch/csrc/codenerf_packed.cu",
+                kernel=lambda: ff.codenerf_packed_fwd_cuda(
+                    x["flat"], x["B"], x["pts"], x["zs"], inv, PACKED_TILE),
+                plain=lambda: ff.codenerf_packed_fwd_plain(
+                    x["flat"], x["B"], x["pts"], x["zs"], inv),
+                tol=FWD_TOL, bwd=False,
+                nbytes=f * (n * (row_io + 4) + prm + C * ff.B_SIZE),
+                flops=fwd_flops),
+            "codenerf_packed_bwd": dict(
+                replaces="catnerf_tpu/experimental/fused_field.py:786",
+                source="catnerf_torch/csrc/codenerf_packed.cu",
+                kernel=lambda: _flatten(ff.codenerf_packed_bwd_cuda(
+                    x["flat"], x["B"], x["pts"], x["zs"], x["dsg"],
+                    x["dcol"], inv, PACKED_TILE)),
+                plain=lambda: _flatten(ff.codenerf_packed_bwd_plain(
+                    x["flat"], x["B"], x["pts"], x["zs"], x["dsg"],
+                    x["dcol"], inv)),
+                # each weight gradient sums N rows of O(1-10) terms: two
+                # summation orders differ by ~1e-3 on elements that cancel
+                # (4.7e-4 on one of 0.17 at N=3,600), so the bound is 2e-4
+                # of each tensor's scale
+                tol=GRAD_TOL, bwd=True, scaled=True,
+                nbytes=f * (n * (2 * row_io + 4) + 2 * prm
+                            + C * (ff.B_SIZE + ff.B2_SIZE)),
+                flops=2 * fwd_flops),
+        }
+        if N % 100 == 0:  # the MLP-only kernel at the unragged shapes
+            specs["codenerf_mlp_fwd"] = dict(
+                replaces="scripts/exp_kernel2.py:73",
+                source="catnerf_torch/csrc/fused_field.cu",
+                kernel=lambda: (ff.codenerf_mlp_fwd_cuda(
+                    x["flat"], x["emb1"], x["emb2"], x["zs_cat"]),),
+                plain=lambda: (ff.codenerf_mlp_fwd_plain(
+                    x["flat"], x["emb1"], x["emb2"], x["zs_cat"]),),
+                tol=FWD_TOL, bwd=False,
+                nbytes=f * (n * (87 + 42 + 4 * 32 + 4) + prm),
+                flops=2 * 13648 * n)
+        for name, spec in specs.items():
+            res = check_and_time(name, spec, f" (C={C}, N={N})")
+            if i == 0:
+                rows[name] = dict(name=name, route="cuda",
+                                  source=spec["source"],
+                                  replaces=spec["replaces"], launches=None,
+                                  **res)
+    return list(rows.values())
+
+
+def check_step(dev, cfg, what: str) -> None:
+    """One training step's loss and metrics on the card (kernels, or the
+    XLA-path modules of the strict-parity config) against the same step on
+    the CPU (plain versions): same weights, batch and draws, on the small
+    scene of tests/test_torch_step.py. This holds the step's operators on
+    the card (sampling, injections, fields, render, loss) to the CPU path
+    that the tests hold against the JAX package; the kernel phase checks
+    only the kernels."""
     from catnerf_torch import convert
     from catnerf_torch.data.synthetic import make_scene
     from catnerf_torch.train import step as step_mod
     from catnerf_torch.train.loop import TrainingSession
 
-    cfg = fused_config()
     cfg.net_hyperparams.latent_dim = 32
     cfg.n_per_optim_bg = 240
     cfg.seed = 2
@@ -280,27 +410,32 @@ def check_step(dev) -> None:
         worst[k] = rel
         tol = DEPTH_STEP_TOL if k in DEPTH_WEIGHTED else STEP_TOL
         if rel > tol:
-            raise AssertionError(f"step metric {k}: card vs CPU relative "
-                                 f"difference {rel:.3e} > {tol:g}")
-    log("step check (card vs CPU, relative): " + ", ".join(
+            raise AssertionError(f"{what} step metric {k}: card vs CPU "
+                                 f"relative difference {rel:.3e} > {tol:g}")
+    log(f"{what} step check (card vs CPU, relative): " + ", ".join(
         f"{k} {v:.2e}" for k, v in worst.items()))
 
 
-def main_path(dev, scene, n_step_once=N_STEP_ONCE, n_inner=N_INNER,
-              n_fast=N_FAST):
-    """The trainer's main path on `scene` (the bench scene), through the
-    session's own device choice on the card. Returns the session and the
+FUSED_KERNELS = ("codenerf_fwd", "codenerf_bwd", "occupancy_fwd",
+                 "occupancy_bwd")
+
+
+def main_path(dev, scene, cfg, kernels, what="main path",
+              n_step_once=N_STEP_ONCE, n_inner=N_INNER, n_fast=N_FAST):
+    """A trainer's path on `scene` (the bench scene), through the session's
+    own device choice on the card: `cfg` the fused config (the main path)
+    or the strict-parity one. Every kernel named in `kernels` must launch
+    once a step and no other kernel at all. Returns the session and the
     kernel launches of the run."""
     from catnerf_torch.kernels import fused_field as ff
     from catnerf_torch.train.loop import TrainingSession
     from catnerf_torch.utils import phase_timings
 
-    cfg = fused_config()
     t0 = time.time()
     sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
                            cam=scene.cam,
                            device=None if dev.type == "cuda" else dev)
-    log(f"main path: session on {sess.device} in {time.time() - t0:.2f} s, "
+    log(f"{what}: session on {sess.device} in {time.time() - t0:.2f} s, "
         f"{len(sess.cls_ids)} categories, {sess.n_per_cls} rays per "
         f"category, {cfg.n_per_optim_bg} background rays")
     samples = (len(sess.cls_ids) * sess.n_per_cls * cfg.bins_per_ray_obj
@@ -337,7 +472,7 @@ def main_path(dev, scene, n_step_once=N_STEP_ONCE, n_inner=N_INNER,
     launches = dict(ff.LAUNCHES)
     n_steps = n_step_once + n_fast
     first = history[0]
-    log(f"main path: {n_steps} steps; total loss {totals[0]:.4f} -> "
+    log(f"{what}: {n_steps} steps; total loss {totals[0]:.4f} -> "
         f"{totals[-1]:.4f}, colour+opacity {fit(first):.4f} -> "
         f"{fit(last):.4f}, mean category PSNR "
         f"{float(first.cat_psnr.mean()):.3f} -> "
@@ -347,18 +482,40 @@ def main_path(dev, scene, n_step_once=N_STEP_ONCE, n_inner=N_INNER,
         f"{n_fast * samples / t_fast:.6g} ray-samples/s "
         f"({samples} samples/step)")
     if not all(math.isfinite(x) for x in totals):
-        raise AssertionError(f"main path: loss not finite: {totals}")
+        raise AssertionError(f"{what}: loss not finite: {totals}")
     if not fit(last) < fit(first):
-        raise AssertionError(f"main path: the colour and opacity loss did "
+        raise AssertionError(f"{what}: the colour and opacity loss did "
                              f"not fall: {fit(first)} -> {fit(last)}")
     if dev.type == "cuda":
-        wrong = {k: v for k, v in launches.items() if v != n_steps}
-        if wrong:
-            raise AssertionError(f"main path: launches {launches}, want "
-                                 f"{n_steps} of each")
-    log(f"main path: launches {json.dumps(launches)}; set-up seconds "
+        want = {k: n_steps if k in kernels else 0 for k in launches}
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, want {want}")
+    log(f"{what}: launches {json.dumps(launches)}; set-up seconds "
         f"{json.dumps(phase_timings('session') | phase_timings('fast_path'))}")
     return sess, launches
+
+
+COMPARE_KERNELS = ("codenerf_packed_fwd", "codenerf_packed_bwd",
+                   "codenerf_mlp_fwd")
+
+
+def compare_path(dev) -> dict:
+    """The field-kernel comparison path (catnerf_torch.experimental.
+    kernel_compare) on the card; returns the launches of its kernels, each
+    of which must have run, and no kernel of the trainer."""
+    from catnerf_torch.experimental import kernel_compare
+    from catnerf_torch.kernels import fused_field as ff
+
+    ff.reset_launch_counts()
+    t0 = time.time()
+    kernel_compare.run(dev, log=log)
+    launches = dict(ff.LAUNCHES)
+    log(f"comparison path: {time.time() - t0:.1f} s, launches "
+        f"{json.dumps(launches)}")
+    if any(launches[k] == 0 for k in COMPARE_KERNELS) or any(
+            launches[k] for k in FUSED_KERNELS):
+        raise AssertionError(f"comparison path: launches {launches}")
+    return {k: launches[k] for k in COMPARE_KERNELS}
 
 
 def trace_steps(sess, n_steps: int = N_INNER) -> None:
@@ -425,19 +582,31 @@ def main() -> int:
     log(f"card: {card}")
 
     t0 = time.time()
-    build.load("fused_field")
-    log(f"build: fused_field.cu in {time.time() - t0:.1f} s; layout "
-        f"{json.dumps(ff.layout())}")
+    ff.load_libraries()  # one nvcc per source, all at once
+    log(f"build: {', '.join(n + '.cu' for n in ff.LIBRARIES)} in "
+        f"{time.time() - t0:.1f} s; layout {json.dumps(ff.layout())}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "ptxas.txt"), "w") as fh:
-        fh.write(build.build_log("fused_field"))
+    for name in ff.LIBRARIES:
+        out = "ptxas.txt" if name == "fused_field" else f"ptxas_{name}.txt"
+        with open(os.path.join(ROOT, "chiprun_out", out), "w") as fh:
+            fh.write(build.build_log(name))
 
-    rows = check_kernels(dev)
-    check_step(dev)
-    sess, launches = main_path(dev, make_scene(**SCENE))
+    rows = check_kernels(dev) + check_packed_kernels(dev)
+    check_step(dev, fused_config(), "fused")
+    check_step(dev, strict_config(), "strict-parity")
+    scene = make_scene(**SCENE)
+    sess, launches = main_path(dev, scene, fused_config(), FUSED_KERNELS)
     trace_steps(sess)
+    del sess
+    launches.update(compare_path(dev))
+    strict, _ = main_path(dev, scene, strict_config(), (),
+                          "strict-parity trainer",
+                          n_step_once=N_STRICT_ONCE, n_fast=N_STRICT_FAST)
+    trace_steps(strict, N_STRICT_TRACE)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if not r["launches"] > 0:
+            raise AssertionError(f"{r['name']}: not launched on its path")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,11 @@ from catnerf_torch.train.__main__ import main
 torch.set_num_threads(1)
 
 
-def test_synthetic_run_prints_one_json_line_per_log_step(capsys):
+@pytest.mark.parametrize("extra", [[], ["--strict-parity"]],
+                         ids=["fused", "strict_parity"])
+def test_synthetic_run_prints_one_json_line_per_log_step(capsys, extra):
     assert main(["--synthetic", "--max-iter", "2", "--log-iter", "1",
-                 "--device", "cpu"]) == 0
+                 "--device", "cpu", *extra]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [r["iteration"] for r in rows] == [1, 2]
     for r in rows:

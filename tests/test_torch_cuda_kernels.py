@@ -8,7 +8,9 @@ without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
 Forward within 1e-5, every gradient within 2e-4, and the backward run twice
-bitwise equal (the weight gradients are reduced in a fixed order).
+bitwise equal (the weight gradients are reduced in a fixed order): the four
+kernels of the fused trainer, the packed-ensemble pair (ragged N included)
+and the MLP-only kernel.
 """
 
 from __future__ import annotations
@@ -105,3 +107,77 @@ def test_cuda_fused_apply_gradients_reach_the_modules(cuda_device):
     for m in tff._cn_modules(fc):
         assert m.w.grad is not None and torch.isfinite(m.w.grad).all()
     assert pe.B.grad is not None
+
+
+def _packed(x):
+    """[C, N, k] -> point-major [N, C*k]."""
+    return x.transpose(0, 1).reshape(x.shape[1], -1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,tile", [(100, 32), (2101, 256), (3600, 384),
+                                    (2100, 128)])
+def test_cuda_packed_kernels_match_plain(cuda_device, N, tile):
+    """Kernels 5 and 6 (ragged N included) against the plain versions;
+    the backward twice, bitwise equal."""
+    gen = torch.Generator().manual_seed(N)
+    C = 3
+    flat = tff.pack(tff._cn_modules(CodeNeRF.init(gen, C))).detach()
+    B = (UniDirsEmbed.init((C,)).B.detach()
+         + 0.05 * torch.randn(C, 21, 3, generator=gen))
+    pts = _packed(torch.randn(C, N, 3, generator=gen))
+    zs = tuple(_packed(torch.relu(torch.randn(C, N, 32, generator=gen)))
+               for _ in range(4))
+    dsg = torch.randn(N, C, generator=gen)
+    dcol = torch.randn(N, 3 * C, generator=gen)
+    args = [x.to(cuda_device) for x in (flat, B, pts)]
+    zd = tuple(z.to(cuda_device) for z in zs)
+    dd = [x.to(cuda_device) for x in (dsg, dcol)]
+    before = tff.LAUNCHES["codenerf_packed_fwd"]
+    out = tff.codenerf_packed_fwd(*args, zd, 0.5, tile)
+    assert tff.LAUNCHES["codenerf_packed_fwd"] == before + 1
+    for x, y in zip(out, tff.codenerf_packed_fwd_plain(*args, zd, 0.5)):
+        _close(x, y, FWD_TOL)
+    got = tff.codenerf_packed_bwd(*args, zd, *dd, 0.5, tile)
+    want = tff.codenerf_packed_bwd_plain(*args, zd, *dd, 0.5)
+    again = tff.codenerf_packed_bwd_cuda(*args, zd, *dd, 0.5, tile)
+    for x, y, z in zip(got[:3] + got[3], want[:3] + want[3],
+                       again[:3] + again[3]):
+        _close(x, y, GRAD_TOL)
+        assert torch.equal(x, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [77, 2100])
+def test_cuda_mlp_kernel_matches_plain(cuda_device, N):
+    gen = torch.Generator().manual_seed(N)
+    C = 3
+    flat = tff.pack(tff._cn_modules(CodeNeRF.init(gen, C))).detach()
+    emb1 = torch.rand(C, N, 87, generator=gen) * 2 - 1
+    emb2 = torch.rand(C, N, 42, generator=gen) * 2 - 1
+    zs = tuple(torch.relu(torch.randn(C, N, 32, generator=gen))
+               for _ in range(4))
+    args = [x.to(cuda_device) for x in (flat, emb1, emb2)]
+    zd = tuple(z.to(cuda_device) for z in zs)
+    before = tff.LAUNCHES["codenerf_mlp_fwd"]
+    out = tff.codenerf_mlp_fwd(*args, zd)
+    assert tff.LAUNCHES["codenerf_mlp_fwd"] == before + 1
+    _close(out, tff.codenerf_mlp_fwd_plain(*args, zd), FWD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_apply_gradients_reach_the_modules(cuda_device):
+    """Through autograd on the card: kernel 6's per-category gradients land
+    on every field layer and on the basis (folded back from dB2)."""
+    gen = torch.Generator().manual_seed(1)
+    fc = CodeNeRF.init(gen, 2).to(cuda_device)
+    pe = UniDirsEmbed.init((2,)).to(cuda_device)
+    pts = torch.randn(50, 6, generator=gen).to(cuda_device)
+    zs = [torch.relu(torch.randn(50, 64, generator=gen)).to(cuda_device)
+          for _ in range(4)]
+    s, r = tff.codenerf_packed_apply(fc, pe, pts, *zs, scale=2.0, tile=64)
+    assert s.shape == (50, 2) and r.shape == (50, 2, 3)
+    (s.sum() + r.sum()).backward()
+    for m in tff._cn_modules(fc):
+        assert m.w.grad is not None and torch.isfinite(m.w.grad).all()
+    assert pe.B.grad is not None and torch.isfinite(pe.B.grad).all()

@@ -53,6 +53,32 @@ def test_importing_every_module_loads_no_jax():
     assert [m for m in loaded if _forbidden(m)] == []
 
 
+@pytest.mark.parametrize("module", [
+    "catnerf_torch.kernels.fused_field", "catnerf_torch.models.embedding",
+    "catnerf_torch.models.codenerf", "catnerf_torch.models.occupancy",
+    "catnerf_torch.experimental.kernel_compare"])
+def test_packed_and_xla_path_modules_load_no_jax(module):
+    """Each module of the packed kernels, the XLA-path fields and the
+    kernel comparison, imported alone in a fresh interpreter, loads
+    neither jax nor the JAX package."""
+    code = (f"import json, sys\nimport {module}\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert module in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_source_walk_covers_the_new_modules():
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    assert {"catnerf_torch/experimental/kernel_compare.py",
+            "catnerf_torch/models/embedding.py",
+            "catnerf_torch/kernels/fused_field.py"} <= names
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_nothing_of_jax(path):
@@ -89,8 +115,10 @@ def test_session_without_device_raises_when_there_is_no_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(use_fused_kernels=False), "Queue 1"),
+    (dict(use_fused_kernels=False, bf16_activations=True),
+     "bf16_activations"),
     (dict(bf16_activations=True), "bf16_activations"),
+    (dict(hidden_feature_size_bg=64), "hidden_feature_size_bg=128"),
 ])
 def test_unsupported_configuration_raises(change, match):
     cfg = Config()

@@ -1,6 +1,8 @@
 """The slice as a whole: the port's training step against the JAX
-package's fused-kernel step, on a 2-category x 2-instance 48x36 scene
-(latent_dim 32, use_fused_kernels=True, bf16_activations=False).
+package's, on a 2-category x 2-instance 48x36 scene (latent_dim 32), in
+two configurations: the fused-kernel step (use_fused_kernels=True,
+bf16_activations=False) and the strict-parity step
+(`Config.apply_strict_parity()`: the XLA-path field modules).
 
 Both start from the same weights (the JAX init, converted), read
 byte-equal batches, and the port is handed JAX's sampling uniforms, drawn
@@ -29,7 +31,6 @@ from catnerf_tpu.train.state import make_optimizer as jmake_optimizer
 from catnerf_torch import convert
 from catnerf_torch.config import Config
 from catnerf_torch.data.synthetic import make_scene
-from catnerf_torch.kernels import fused_field as tff
 from catnerf_torch.ops import sampling
 from catnerf_torch.train import step as tstep
 from catnerf_torch.train.loop import TrainingSession
@@ -40,6 +41,9 @@ torch.set_num_threads(1)
 SCENE = dict(n_frames=2, width=48, height=36, n_categories=2,
              insts_per_cat=2, seed=0)
 SEEDS = (0, 2, 4)
+# (seed, strict): the one-step checks run the fused step on every seed and
+# the strict-parity step on two
+ONE_STEP_CASES = [(s, False) for s in SEEDS] + [(0, True), (2, True)]
 METRIC_RTOL = 1e-5
 GRAD_TOL = 2e-4
 # A ReLU whose pre-activation lies this close to zero (absolute; they are
@@ -49,9 +53,12 @@ GRAD_TOL = 2e-4
 RELU_TIE = 1e-5
 
 
-def _configure(cfg, seed=SEEDS[0]):
-    cfg.use_fused_kernels = True
-    cfg.bf16_activations = False
+def _configure(cfg, seed=SEEDS[0], strict=False):
+    if strict:
+        cfg.apply_strict_parity()
+    else:
+        cfg.use_fused_kernels = True
+        cfg.bf16_activations = False
     cfg.net_hyperparams.latent_dim = 32
     # 240 background rays (3,360 points) instead of 1,200 keep the test
     # quick
@@ -60,12 +67,12 @@ def _configure(cfg, seed=SEEDS[0]):
     return cfg
 
 
-def _sessions(seed):
+def _sessions(seed, strict=False):
     js = jmake_scene(**SCENE)
-    jsess = JSession(_configure(JConfig(), seed), js.inst_dict,
+    jsess = JSession(_configure(JConfig(), seed, strict), js.inst_dict,
                      js.sample_dict, cam=js.cam)
     ts = make_scene(**SCENE)
-    cfg = _configure(Config(), seed)
+    cfg = _configure(Config(), seed, strict)
     tsess = TrainingSession(cfg, ts.inst_dict, ts.sample_dict, cam=ts.cam,
                             device="cpu")
     tsess.state = make_train_state(
@@ -114,49 +121,37 @@ def eager_jax():
         yield mp
 
 
-def _relu_margins(fwd, args):
-    """Per row of a plain kernel forward, the smallest |pre-activation|
-    over its ReLUs."""
-    seen = []
-    relu = torch.relu
-
-    def spy(a):
-        seen.append(a.abs().amin(-1))
-        return relu(a)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(torch, "relu", spy)
-        fwd(*args)
-    return torch.stack(seen).amin(0)
-
-
 def _untie_relus(tsess, cat_np, bg_np, draws):
     """Shift the origin of every ray that has a sample with a ReLU tie
     (RELU_TIE) in the batch both sides read, until no sample has one. The
-    ties are found on the port's forward with the step's own inputs."""
+    ties are found on the port's forward with the step's own inputs: every
+    ReLU of the field, fused (plain version, [C, R*bins, w] and
+    [R_bg*bins, w]) or not ([C, R, bins, w] and [R_bg, bins, w])."""
+    cfg = tsess.cfg
+    C, R = cat_np["origins"].shape[:2]
+    R_bg = bg_np["origins"].shape[0]
     for _ in range(8):
-        args = {}
+        seen = []
+        relu = torch.relu
 
-        def record(name, fwd):
-            def f(*a):
-                args[name] = a
-                return fwd(*a)
-            return f
+        def spy(a):
+            seen.append(a.abs().amin(-1) < RELU_TIE)
+            return relu(a)
 
         with pytest.MonkeyPatch.context() as mp, torch.no_grad():
-            mp.setattr(tff, "codenerf_fwd_plain",
-                       record("cat", tff.codenerf_fwd_plain))
-            mp.setattr(tff, "occupancy_fwd_plain",
-                       record("bg", tff.occupancy_fwd_plain))
+            mp.setattr(torch, "relu", spy)
             tstep.loss_fn(tsess.state.params, _tbatch(tstep.CategoryBatch,
                                                       cat_np),
                           _tbatch(tstep.BackgroundBatch, bg_np), draws,
-                          tsess.cfg, tsess.obj_mask)
-        tied_cat = (_relu_margins(tff.codenerf_fwd_plain, args["cat"])
-                    < RELU_TIE).reshape(*cat_np["origins"].shape[:2], -1)
-        tied_bg = (_relu_margins(tff.occupancy_fwd_plain, args["bg"])
-                   < RELU_TIE).reshape(bg_np["origins"].shape[0], -1)
-        tied_cat, tied_bg = tied_cat.any(-1).numpy(), tied_bg.any(-1).numpy()
+                          cfg, tsess.obj_mask)
+        tied_cat = np.zeros((C, R), bool)
+        tied_bg = np.zeros(R_bg, bool)
+        for near in seen:
+            if near.shape[0] == C and near.numel() == C * R * \
+                    cfg.bins_per_ray_obj:
+                tied_cat |= near.reshape(C, R, -1).any(-1).numpy()
+            elif near.numel() == R_bg * cfg.bins_per_ray_bg:
+                tied_bg |= near.reshape(R_bg, -1).any(-1).numpy()
         if not (tied_cat.any() or tied_bg.any()):
             return
         cat_np["origins"][tied_cat] += 1e-3
@@ -172,11 +167,12 @@ def _jbatch(cls, arrays):
     return cls(**{k: jnp.asarray(v) for k, v in arrays.items()})
 
 
-@pytest.fixture(scope="module", params=SEEDS, ids=lambda s: f"seed{s}")
+@pytest.fixture(scope="module", params=ONE_STEP_CASES,
+                ids=lambda c: f"{'strict-' if c[1] else ''}seed{c[0]}")
 def one_step(request, eager_jax):
     """One step of each side from the same weights, on the seed's batch
     with its ReLU ties shifted away, the port replaying JAX's draws."""
-    jsess, tsess = _sessions(request.param)
+    jsess, tsess = _sessions(*request.param)
     cat_np, bg_np = jsess.batcher.next_batch(jsess.n_per_cls,
                                              jsess.cfg.n_per_optim_bg)
     draws = jax_draws(jsess, 0)
@@ -237,7 +233,7 @@ def test_adamw_update_matches_optax(one_step):
     updates, _ = tx.update(grads, tx.init(params0), params0)
     want = optax.apply_updates(params0, updates)
 
-    tcfg = _configure(Config(), cfg.seed)
+    tcfg = _configure(Config(), cfg.seed, strict=not cfg.use_fused_kernels)
     state = make_train_state(tcfg, convert.params_from_jax(params0))
     gtree = convert.params_from_jax(jax.tree.map(np.asarray, grads))
     for p, g in zip(state.params.parameters(), gtree.parameters()):
