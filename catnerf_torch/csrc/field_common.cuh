@@ -1,7 +1,8 @@
 // Building blocks shared by the field kernels (fused_field.cu,
-// codenerf_packed.cu): the flat parameter layouts, the per-thread dense
-// layers and their transposes, the CodeNeRF chain, the block-level weight
-// gradients and the fixed-order reduction of the per-block partials.
+// codenerf_packed.cu, occupancy_bwd.cu): the flat parameter layouts, the
+// per-thread positional encoding and its backward, dense layers and their
+// transposes, the CodeNeRF chain, the block-level weight gradients and the
+// fixed-order reduction of the per-block partials.
 // Float32 throughout, no fast math; see fused_field.cu for the design.
 
 #pragma once
@@ -66,8 +67,6 @@ constexpr int oc_b = cl_b + H;
 constexpr int P = oc_b + 3;  // 94,340
 constexpr int PP = P + kBSize;
 constexpr int kFwdT = 64;
-constexpr int kBwdT = 128;  // 132 blocks at 16,800 rows: one wave, and
-                            // the partials stay at 132 x 377 KB
 }  // namespace oc
 
 static_assert(cn::P == 13892 && oc::P == 94340, "layout");
@@ -171,6 +170,53 @@ __device__ __forceinline__ void dense_dx(const float* __restrict__ W,
       for (int o = 0; o < OUT; ++o) acc = fmaf(d[o], w[o], acc);
     }
     dx[i] = acc;
+  }
+}
+
+// t = p * inv_scale; proj = t @ B^T; emb1 = [t, sin(pi 2^f proj), f<4];
+// emb2 = [sin(pi 2^f proj), f=4,5].
+__device__ __forceinline__ void embed(const float p[3], const float* B,
+                                      float inv_scale, float t[3],
+                                      float proj[kDirs], float* emb1,
+                                      float* emb2) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) t[j] = p[j] * inv_scale;
+#pragma unroll
+  for (int k = 0; k < kDirs; ++k) {
+    proj[k] = __fadd_rn(__fadd_rn(__fmul_rn(t[0], B[3 * k]),
+                                  __fmul_rn(t[1], B[3 * k + 1])),
+                        __fmul_rn(t[2], B[3 * k + 2]));
+  }
+  emb1[0] = t[0];
+  emb1[1] = t[1];
+  emb1[2] = t[2];
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    const float w = kPi * static_cast<float>(1 << f);
+    float* dst = f < 4 ? emb1 + 3 + kDirs * f : emb2 + kDirs * (f - 4);
+    for (int k = 0; k < kDirs; ++k) dst[k] = sinf(w * proj[k]);
+  }
+}
+
+// dproj = sum_f ds_f * (w_f cos(w_f proj)); dt = demb1[:3] + dproj @ B.
+__device__ __forceinline__ void embed_bwd(const float* demb1,
+                                          const float* demb2,
+                                          const float proj[kDirs],
+                                          const float* B, float dproj[kDirs],
+                                          float dt[3]) {
+  for (int k = 0; k < kDirs; ++k) dproj[k] = 0.f;
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    const float w = kPi * static_cast<float>(1 << f);
+    const float* ds = f < 4 ? demb1 + 3 + kDirs * f : demb2 + kDirs * (f - 4);
+    for (int k = 0; k < kDirs; ++k)
+      dproj[k] = dproj[k] + ds[k] * (w * cosf(w * proj[k]));
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    float acc = 0.f;
+    for (int k = 0; k < kDirs; ++k) acc = fmaf(dproj[k], B[3 * k + j], acc);
+    dt[j] = demb1[j] + acc;
   }
 }
 

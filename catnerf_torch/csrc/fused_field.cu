@@ -5,9 +5,9 @@
 //   cn_fwd_kernel  <- _codenerf_fwd_kernel (:124)  CodeNeRF ensemble forward
 //   cn_bwd_kernel  <- _codenerf_bwd_kernel (:135)  its backward
 //   oc_fwd_kernel  <- _occ_fwd_kernel (:435)       OccupancyMap forward
-//   oc_bwd_kernel  <- _occ_bwd_kernel (:445)       its backward
 //   mlp_fwd_kernel <- scripts/exp_kernel2.py mlp_kernel (:73)  the CodeNeRF
 //                     chain alone, on an embedding computed outside
+// (the OccupancyMap backward, _occ_bwd_kernel :445, is occupancy_bwd.cu).
 // reduce_tiles (field_common.cuh) sums the backward's per-block
 // weight-gradient partials; the building blocks are in field_common.cuh.
 //
@@ -35,53 +35,6 @@
 #include "field_common.cuh"
 
 namespace {
-
-// t = p * inv_scale; proj = t @ B^T; emb1 = [t, sin(pi 2^f proj), f<4];
-// emb2 = [sin(pi 2^f proj), f=4,5].
-__device__ __forceinline__ void embed(const float p[3], const float* B,
-                                      float inv_scale, float t[3],
-                                      float proj[kDirs], float* emb1,
-                                      float* emb2) {
-#pragma unroll
-  for (int j = 0; j < 3; ++j) t[j] = p[j] * inv_scale;
-#pragma unroll
-  for (int k = 0; k < kDirs; ++k) {
-    proj[k] = __fadd_rn(__fadd_rn(__fmul_rn(t[0], B[3 * k]),
-                                  __fmul_rn(t[1], B[3 * k + 1])),
-                        __fmul_rn(t[2], B[3 * k + 2]));
-  }
-  emb1[0] = t[0];
-  emb1[1] = t[1];
-  emb1[2] = t[2];
-#pragma unroll
-  for (int f = 0; f < 6; ++f) {
-    const float w = kPi * static_cast<float>(1 << f);
-    float* dst = f < 4 ? emb1 + 3 + kDirs * f : emb2 + kDirs * (f - 4);
-    for (int k = 0; k < kDirs; ++k) dst[k] = sinf(w * proj[k]);
-  }
-}
-
-// dproj = sum_f ds_f * (w_f cos(w_f proj)); dt = demb1[:3] + dproj @ B.
-__device__ __forceinline__ void embed_bwd(const float* demb1,
-                                          const float* demb2,
-                                          const float proj[kDirs],
-                                          const float* B, float dproj[kDirs],
-                                          float dt[3]) {
-  for (int k = 0; k < kDirs; ++k) dproj[k] = 0.f;
-#pragma unroll
-  for (int f = 0; f < 6; ++f) {
-    const float w = kPi * static_cast<float>(1 << f);
-    const float* ds = f < 4 ? demb1 + 3 + kDirs * f : demb2 + kDirs * (f - 4);
-    for (int k = 0; k < kDirs; ++k)
-      dproj[k] = dproj[k] + ds[k] * (w * cosf(w * proj[k]));
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    float acc = 0.f;
-    for (int k = 0; k < kDirs; ++k) acc = fmaf(dproj[k], B[3 * k + j], acc);
-    dt[j] = demb1[j] + acc;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // CodeNeRF ensemble: grid (row tiles, C), one thread per row
@@ -308,96 +261,22 @@ __global__ void __launch_bounds__(T)
   reinterpret_cast<float4*>(out)[row] = o;
 }
 
-template <int T>
-__global__ void __launch_bounds__(T)
-    oc_bwd_kernel(const float* __restrict__ pts,
-                  const float* __restrict__ prm, const float* __restrict__ B,
-                  const float* __restrict__ dout, float* __restrict__ dpts,
-                  float* __restrict__ partial, int N, float inv_scale) {
-  extern __shared__ float4 smem4[];
-  float* stage = reinterpret_cast<float*>(smem4);
-  const int row = blockIdx.x * T + threadIdx.x;
-  const bool valid = row < N;
-  const size_t g = valid ? row : 0;
-  float* part = partial + static_cast<size_t>(blockIdx.x) * oc::PP;
-  constexpr int H = oc::H;
-
-  float p[3], t[3], proj[kDirs], emb1[kE1], emb2[kE2];
-  load_row<3>(pts + g * 3, valid, p);
-  embed(p, B, inv_scale, t, proj, emb1, emb2);
-  float r0[H], r1[H], r2[H], r3[H], r4[H], a5[3];
-  dense<kE1, 0, H, true>(prm + oc::in_w, prm + oc::in_b, emb1, nullptr, r0);
-  dense<H, 0, H, true>(prm + oc::m1_w, prm + oc::m1_b, r0, nullptr, r1);
-  dense<H, kE1, H, true>(prm + oc::c_w, prm + oc::c_b, r1, emb1, r2);
-  dense<H, 0, H, true>(prm + oc::m2_w, prm + oc::m2_b, r2, nullptr, r3);
-  dense<H, kE2, H, true>(prm + oc::cl_w, prm + oc::cl_b, r3, emb2, r4);
-  dense<H, 0, 3, false>(prm + oc::oc_w, prm + oc::oc_b, r4, nullptr, a5);
-
-  float dd[4];
-  load_row<4>(dout + g * 4, valid, dd);
-  float dalpha = dd[0] * 10.f;
-  float da5[3];
-  for (int k = 0; k < 3; ++k) {
-    const float col = sigmoidf(a5[k]);
-    da5[k] = dd[1 + k] * col * (1.f - col);
-  }
-  float da[H], dx[H], demb1[kE1], demb2[kE2], tmp1[kE1];
-  layer_grad<T, H, 0, 3>(stage, r4, nullptr, da5, part + oc::oc_w,
-                         part + oc::oc_b);
-  dense_dx<H, 3>(prm + oc::oc_w, da5, dx);
-  for (int k = 0; k < H; ++k) da[k] = r4[k] > 0.f ? dx[k] : 0.f;  // da4
-  layer_grad<T, H, kE2, H>(stage, r3, emb2, da, part + oc::cl_w,
-                           part + oc::cl_b);
-  dense_dx<H, H>(prm + oc::cl_w, da, dx);  // dr3
-  dense_dx<kE2, H>(prm + oc::cl_w + H * H, da, demb2);
-  layer_grad<T, H, 0, 1>(stage, r3, nullptr, &dalpha, part + oc::oa_w,
-                         part + oc::oa_b);
-  for (int k = 0; k < H; ++k)
-    da[k] = r3[k] > 0.f ? dx[k] + dalpha * prm[oc::oa_w + k] : 0.f;  // da3
-  layer_grad<T, H, 0, H>(stage, r2, nullptr, da, part + oc::m2_w,
-                         part + oc::m2_b);
-  dense_dx<H, H>(prm + oc::m2_w, da, dx);
-  for (int k = 0; k < H; ++k) da[k] = r2[k] > 0.f ? dx[k] : 0.f;  // da2
-  layer_grad<T, H, kE1, H>(stage, r1, emb1, da, part + oc::c_w,
-                           part + oc::c_b);
-  dense_dx<H, H>(prm + oc::c_w, da, dx);  // dr1
-  dense_dx<kE1, H>(prm + oc::c_w + H * H, da, demb1);
-  for (int k = 0; k < H; ++k) da[k] = r1[k] > 0.f ? dx[k] : 0.f;  // da1
-  layer_grad<T, H, 0, H>(stage, r0, nullptr, da, part + oc::m1_w,
-                         part + oc::m1_b);
-  dense_dx<H, H>(prm + oc::m1_w, da, dx);
-  for (int k = 0; k < H; ++k) da[k] = r0[k] > 0.f ? dx[k] : 0.f;  // da0
-  layer_grad<T, kE1, 0, H>(stage, emb1, nullptr, da, part + oc::in_w,
-                           part + oc::in_b);
-  dense_dx<kE1, H>(prm + oc::in_w, da, tmp1);
-  for (int k = 0; k < kE1; ++k) demb1[k] = demb1[k] + tmp1[k];
-
-  float dproj[kDirs], dt[3];
-  embed_bwd(demb1, demb2, proj, B, dproj, dt);
-  layer_grad<T, kDirs, 0, 3>(stage, dproj, nullptr, t, part + oc::P, nullptr);
-  if (valid)
-    for (int j = 0; j < 3; ++j) dpts[g * 3 + j] = dt[j] * inv_scale;
-}
-
 constexpr int kStageCn = (((cn::W + kE1) | 1) + (cn::W | 1)) * cn::kBwdT;
-constexpr int kStageOc = (((oc::H + kE1) | 1) + (oc::H | 1)) * oc::kBwdT;
 constexpr size_t kSmemCnFwd = (cn::P + 64) * sizeof(float);
 constexpr size_t kSmemCnBwd = (cn::P + 64 + kStageCn) * sizeof(float);
-constexpr size_t kSmemOcBwd = kStageOc * sizeof(float);
-static_assert(kSmemCnBwd <= 232448 && kSmemOcBwd <= 232448, "smem");
+static_assert(kSmemCnBwd <= 232448, "smem");
 
 }  // namespace
 
 extern "C" {
 
-// [CodeNeRF P, OccupancyMap P, cn fwd T, cn bwd T, oc fwd T, oc bwd T]
+// [CodeNeRF P, OccupancyMap P, cn fwd T, cn bwd T, oc fwd T]
 int catnerf_layout(int* out) {
   out[0] = cn::P;
   out[1] = oc::P;
   out[2] = cn::kFwdT;
   out[3] = cn::kBwdT;
   out[4] = oc::kFwdT;
-  out[5] = oc::kBwdT;
   return 0;
 }
 
@@ -461,24 +340,6 @@ int oc_fwd(const float* pts, const float* params, const float* B, float* out,
                      static_cast<cudaStream_t>(stream)>>>(pts, params, B, out,
                                                           N, inv_scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-// + dout [N,4] -> dpts [N,3], grads [P + 63] (via partial [nt, P + 63])
-int oc_bwd(const float* pts, const float* params, const float* B,
-           const float* dout, float* dpts, float* partial, float* grads,
-           int N, float inv_scale, void* stream) {
-  constexpr int T = oc::kBwdT;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      oc_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemOcBwd));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int nt = (N + T - 1) / T;
-  oc_bwd_kernel<T><<<nt, T, kSmemOcBwd, s>>>(pts, params, B, dout, dpts,
-                                             partial, N, inv_scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_reduce(partial, grads, 1, nt, oc::PP, s);
 }
 
 }  // extern "C"

@@ -13,7 +13,8 @@ Replaces the Pallas TPU kernels of the JAX package's
   codenerf_mlp_fwd     <- exp_kernel2.py mlp_kernel :73 (main.mlp_only)
 
 with CUDA C++ kernels for Hopper (`csrc/fused_field.cu`,
-`csrc/codenerf_packed.cu`). Each public function keeps the JAX contract
+`csrc/codenerf_packed.cu`, `csrc/occupancy_bwd.cu`). Each public function
+keeps the JAX contract
 (`codenerf_fused_apply` :384, `occupancy_fused_apply` :631,
 `codenerf_packed_apply` :958) and is differentiable through an
 `autograd.Function` whose backward is a kernel too; the MLP-only kernel
@@ -27,11 +28,15 @@ on-chip memory and the intermediates must never reach device memory.
 The design: one thread per sample point runs the whole chain with its
 activations in registers and local memory; the CodeNeRF weights sit in
 shared memory (every lane of a warp reads the same weight, a broadcast),
-the background's 377 KB, too large for shared memory, are read through
-L1 the same way. The backward recomputes the forward, as the TPU kernel
-does, and sums the weight gradients of a block's rows in shared memory
-into one partial per block; a second launch adds the partials in a fixed
-order, so that two runs are bitwise equal (no atomics).
+the background forward's 377 KB, too large for shared memory, are read
+through L1 the same way. The backwards recompute the forward, as the TPU
+kernels do. The CodeNeRF ones sum the weight gradients of a block's rows
+in shared memory into one partial per block. The background backward is
+instead a chain of tiled float32 GEMMs (`oc_gemm`: 128 x 128 tiles, an
+8 x 8 register tile a thread) and row kernels, its activations in a
+workspace the wrapper allocates, its weight gradients per-chunk partials.
+A last launch adds the partials in a fixed order, so that two runs are
+bitwise equal (no atomics).
 
 Numerics: true float32 throughout, the transcendental sin (not the XLA
 path's sinpi polynomial), no fast math and no TF32, as the TPU kernels.
@@ -53,7 +58,7 @@ import torch
 LAUNCHES = {"codenerf_fwd": 0, "codenerf_bwd": 0,
             "occupancy_fwd": 0, "occupancy_bwd": 0,
             "codenerf_packed_fwd": 0, "codenerf_packed_bwd": 0,
-            "codenerf_mlp_fwd": 0}
+            "codenerf_mlp_fwd": 0, "oc_gemm": 0}
 
 
 def reset_launch_counts() -> None:
@@ -445,7 +450,8 @@ def codenerf_packed_bwd_plain(flat, B, pts, zs, dsg, dcol, inv_scale):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/fused_field.cu, csrc/codenerf_packed.cu)
+# CUDA kernels (csrc/fused_field.cu, csrc/codenerf_packed.cu,
+# csrc/occupancy_bwd.cu)
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -456,7 +462,6 @@ _SIGNATURES = {
         "cn_fwd": [_P] * 8 + [_I, _I, _F, _P],
         "cn_bwd": [_P] * 15 + [_I, _I, _F, _P],
         "oc_fwd": [_P] * 4 + [_I, _F, _P],
-        "oc_bwd": [_P] * 7 + [_I, _F, _P],
         "cn_mlp_fwd": [_P] * 8 + [_I, _I, _P],
         "catnerf_layout": [ctypes.POINTER(ctypes.c_int)],
     },
@@ -465,8 +470,31 @@ _SIGNATURES = {
         "cn2_bwd": [_P] * 16 + [_I, _I, _I, _F, _P],
         "packed_layout": [ctypes.POINTER(ctypes.c_int)],
     },
+    "occupancy_bwd": {
+        "oc_bwd": [_P] * 8 + [_I, _F, _P],
+        "oc_gemm": [_I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I,
+                    _I, _P, _P, _P],
+        "occupancy_bwd_layout": [ctypes.POINTER(ctypes.c_int)],
+    },
 }
 LIBRARIES = tuple(_SIGNATURES)
+# library -> (its layout function, the names of the ints it writes, the
+# values the wrapper relies on)
+_LAYOUT_FNS = {
+    "fused_field": ("catnerf_layout",
+                    ("cn_p", "oc_p", "cn_fwd_t", "cn_bwd_t", "oc_fwd_t"),
+                    {"cn_p": CN_P, "oc_p": OC_P}),
+    "codenerf_packed": ("packed_layout",
+                        ("packed_p", "packed_b2", "packed_max_tile",
+                         "packed_rows"),
+                        {"packed_p": CN_P, "packed_b2": B2_SIZE,
+                         "packed_max_tile": PACKED_MAX_TILE,
+                         "packed_rows": PACKED_ROWS}),
+    "occupancy_bwd": ("occupancy_bwd_layout",
+                      ("oc_bwd_p", "oc_bwd_pp", "oc_bwd_chunks",
+                       "oc_bwd_ws_cols"),
+                      {"oc_bwd_p": OC_P, "oc_bwd_pp": OC_P + B_SIZE}),
+}
 # tile sizes (rows per block) and layouts, read from the libraries
 _LAYOUT: dict[str, int] = {}
 
@@ -476,20 +504,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fn = getattr(lib, fn_name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    if name == "fused_field":
-        out = (ctypes.c_int * 6)()
-        lib.catnerf_layout(out)
-        got = dict(zip(("cn_p", "oc_p", "cn_fwd_t", "cn_bwd_t", "oc_fwd_t",
-                        "oc_bwd_t"), out))
-        want = {"cn_p": CN_P, "oc_p": OC_P}
-    else:
-        out = (ctypes.c_int * 4)()
-        lib.packed_layout(out)
-        got = dict(zip(("packed_p", "packed_b2", "packed_max_tile",
-                        "packed_rows"), out))
-        want = {"packed_p": CN_P, "packed_b2": B2_SIZE,
-                "packed_max_tile": PACKED_MAX_TILE,
-                "packed_rows": PACKED_ROWS}
+    fn_name, keys, want = _LAYOUT_FNS[name]
+    out = (ctypes.c_int * len(keys))()
+    getattr(lib, fn_name)(out)
+    got = dict(zip(keys, out))
     if {k: got[k] for k in want} != want:
         raise RuntimeError(f"{name}.cu layout {got} does not match the "
                            f"wrapper's {want}")
@@ -610,7 +628,11 @@ def occupancy_fwd_cuda(flat, B, pts, inv_scale):
 
 
 def occupancy_bwd_cuda(flat, B, pts, dout, inv_scale):
-    lib = _lib()
+    """csrc/occupancy_bwd.cu: the recompute and the backward as a chain of
+    tiled GEMMs and row kernels, its activations and deltas in a workspace
+    of `oc_bwd_ws_cols` floats a row (rows rounded up to 4), the weight
+    gradients as `oc_bwd_chunks` per-chunk partials reduced in order."""
+    lib = _lib("occupancy_bwd")
     N = pts.shape[0]
     _check(pts.device, {"pts": (pts, (N, 3)), "params": (flat, (OC_P,)),
                         "B": (B, (N_DIRS, 3)), "dout": (dout, (N, 4))})
@@ -620,15 +642,96 @@ def occupancy_bwd_cuda(flat, B, pts, dout, inv_scale):
     if N == 0:
         grads.zero_()
     else:
-        nt = -(-N // _LAYOUT["oc_bwd_t"])
-        partial = torch.empty(nt, OC_P + B_SIZE, device=dev,
-                              dtype=torch.float32)
+        partial = torch.empty(_LAYOUT["oc_bwd_chunks"], OC_P + B_SIZE,
+                              device=dev, dtype=torch.float32)
+        workspace = torch.empty(-(-N // 4) * 4 * _LAYOUT["oc_bwd_ws_cols"],
+                                device=dev, dtype=torch.float32)
         err = lib.oc_bwd(_ptr(pts), _ptr(flat), _ptr(B), _ptr(dout),
-                         _ptr(dpts), _ptr(partial), _ptr(grads), N,
-                         inv_scale, _stream(dev))
+                         _ptr(dpts), _ptr(partial), _ptr(grads),
+                         _ptr(workspace), N, inv_scale, _stream(dev))
         _raise_on(err, "oc_bwd")
         LAUNCHES["occupancy_bwd"] += 1
     return grads[:OC_P], grads[OC_P:].reshape(N_DIRS, 3), dpts
+
+
+GEMM_LAYOUTS = ("nn", "nt", "tn")
+GEMM_EPILOGUES = ("bias_relu", "mask", "accumulate")
+
+
+def _gemm_operands(layout, a, b):
+    """op(a) [M, K], op(b) [K, N] of a layout: nn a [M, K], b [K, N];
+    nt a [M, K], b [N, K]; tn a [K, M], b [K, N]."""
+    if layout not in GEMM_LAYOUTS:
+        raise ValueError(f"layout {layout!r} not in {GEMM_LAYOUTS}")
+    return (a.T if layout == "tn" else a), (b.T if layout == "nt" else b)
+
+
+def oc_gemm_plain(layout, epilogue, a, b, c, bias=None, mask=None, u=None,
+                  v=None):
+    """The GEMM block of csrc/occupancy_bwd.cu: c [M, N] (a view, written in
+    place) = epilogue(op(a) @ op(b)). bias_relu: relu(. + bias[N]); mask:
+    on the first mask.shape[1] columns (. + u[M] v^T) * [mask > 0], the
+    other columns as they are (u, v optional; no mask: a plain store);
+    accumulate: c + . . Returns c."""
+    A, Bm = _gemm_operands(layout, a, b)
+    p = A @ Bm
+    if epilogue == "bias_relu":
+        p = torch.relu(p + bias)
+    elif epilogue == "mask":
+        if mask is not None:
+            k = mask.shape[1]
+            head = p[:, :k]
+            if u is not None:
+                head = head + u[:, None] * v[None, :]
+            p = torch.cat([head * (mask > 0), p[:, k:]], dim=1)
+    elif epilogue == "accumulate":
+        p = c + p
+    else:
+        raise ValueError(f"epilogue {epilogue!r} not in {GEMM_EPILOGUES}")
+    return c.copy_(p)
+
+
+def oc_gemm_cuda(layout, epilogue, a, b, c, bias=None, mask=None, u=None,
+                 v=None):
+    """oc_gemm_plain's contract on the card: every matrix a float32 view on
+    one device with unit column stride (the row stride is its leading
+    dimension); bias, u and v contiguous."""
+    lib = _lib("occupancy_bwd")
+    A, Bm = _gemm_operands(layout, a, b)
+    (M, K), (K2, N) = A.shape, Bm.shape
+    if K2 != K or tuple(c.shape) != (M, N):
+        raise ValueError(f"oc_gemm: op(a) {tuple(A.shape)}, op(b) "
+                         f"{tuple(Bm.shape)}, c {tuple(c.shape)}")
+    vecs = {"bias": (bias, N), "u": (u, M),
+            "v": (v, None if mask is None else mask.shape[1])}
+    for name, x in (("a", a), ("b", b), ("c", c), ("mask", mask)):
+        if x is not None and (x.dim() != 2 or x.stride(1) != 1):
+            raise ValueError(f"oc_gemm: {name} needs unit column stride")
+    for name, (x, n) in vecs.items():
+        if x is not None and (x.shape != (n,) or not x.is_contiguous()):
+            raise ValueError(f"oc_gemm: {name} must be contiguous [{n}]")
+    for name, x in (("a", a), ("b", b), ("c", c), ("bias", bias),
+                    ("mask", mask), ("u", u), ("v", v)):
+        if x is not None and (x.device != c.device
+                              or x.dtype != torch.float32):
+            raise ValueError(f"oc_gemm: {name} must be float32 on {c.device}")
+    if epilogue == "bias_relu" and bias is None:
+        raise ValueError("oc_gemm: bias_relu needs a bias")
+    if mask is not None and (mask.shape[0] != M or mask.shape[1] > N):
+        raise ValueError(f"oc_gemm: mask {tuple(mask.shape)} for c [{M}, {N}]")
+    if (u is None) != (v is None):
+        raise ValueError("oc_gemm: u and v go together")
+    opt = lambda x: 0 if x is None else _ptr(x)
+    err = lib.oc_gemm(GEMM_LAYOUTS.index(layout),
+                      GEMM_EPILOGUES.index(epilogue), _ptr(a), a.stride(0),
+                      _ptr(b), b.stride(0), _ptr(c), c.stride(0), M, N, K,
+                      opt(bias), opt(mask),
+                      0 if mask is None else mask.stride(0),
+                      0 if mask is None else mask.shape[1], opt(u), opt(v),
+                      _stream(c.device))
+    _raise_on(err, "oc_gemm")
+    LAUNCHES["oc_gemm"] += 1
+    return c
 
 
 def codenerf_mlp_fwd_cuda(flat, emb1, emb2, zs):
@@ -743,6 +846,14 @@ def occupancy_bwd(flat, B, pts, dout, inv_scale):
     if _on_cuda(pts):
         return occupancy_bwd_cuda(flat, B, pts, dout, inv_scale)
     return occupancy_bwd_plain(flat, B, pts, dout, inv_scale)
+
+
+def oc_gemm(layout, epilogue, a, b, c, bias=None, mask=None, u=None,
+            v=None):
+    """The background backward's GEMM block alone (oc_gemm_plain)."""
+    if _on_cuda(c):
+        return oc_gemm_cuda(layout, epilogue, a, b, c, bias, mask, u, v)
+    return oc_gemm_plain(layout, epilogue, a, b, c, bias, mask, u, v)
 
 
 def codenerf_packed_fwd(flat, B, pts, zs, inv_scale, tile):

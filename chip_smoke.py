@@ -6,14 +6,22 @@ Phases, each printing one or more lines:
 
 1. the card's name and power limit (nvidia-smi);
 2. the build of the port's CUDA kernels from `catnerf_torch/csrc/`
-   (one nvcc per source, started together, at first use);
+   (one nvcc per source, started together, at first use), ptxas' reports
+   into `chiprun_out/ptxas*.txt`, and the registers and stack frame of
+   each instantiation of the background backward's GEMM block (a stack
+   frame fails the run);
 3. each kernel against its plain PyTorch version on the card (forward
    within 1e-5, gradients within 2e-4, each backward run twice and
-   bitwise equal), then timed beside its plain version and its bound: the
+   bitwise equal), then timed beside its plain version and its bound
+   (CUDA events around one call from an idle device, and per call with
+   50 calls queued back to back, the device's time alone): the
    four kernels of the fused trainer at the training step's shapes, the
    packed-ensemble pair and the MLP-only kernel at the comparison's shape
    (C=8, N=2,100), at the step's (C=8, N=3,600), and the packed pair at a
-   ragged N (2,101);
+   ragged N (2,101); the background backward's bound both without and
+   with its forward recompute; then its GEMM block alone (16,800 x 128 x
+   128, NN, bias + ReLU) against its plain version, timed beside
+   `torch.matmul` on the same operands (a yardstick the port never calls);
 4. one training step on the card against the same step on the CPU (plain
    versions), on a small scene, for the fused config and for the
    strict-parity config (the XLA-path modules): every metric within 1e-5
@@ -46,6 +54,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -116,6 +125,29 @@ def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, n: int = 50) -> float:
+    """Device time of one call: n calls queued behind a device-side sleep
+    that outlasts the host's enqueueing (twice its measured time, counted
+    at 2 GHz), so that they run back to back; CUDA events around the n.
+    cuda_ms's events around one call also hold the host's time before the
+    first launch, which a short kernel does not hide."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0, 2 * n * host_s) * 2e9))
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def max_err(xs, ys) -> float:
@@ -235,19 +267,106 @@ def check_kernels(dev) -> list[dict]:
             flops=2 * 93696 * oc_rows),
         "occupancy_bwd": dict(
             replaces="catnerf_tpu/experimental/fused_field.py:445",
+            source="catnerf_torch/csrc/occupancy_bwd.cu",
             kernel=lambda: _flatten(ff.occupancy_bwd_cuda(
                 oc["flat"], oc["B"], oc["pts"], oc["dout"], inv_oc)),
             plain=lambda: _flatten(ff.occupancy_bwd_plain(
                 oc["flat"], oc["B"], oc["pts"], oc["dout"], inv_oc)),
             tol=GRAD_TOL, bwd=True,
             nbytes=f * (oc_rows * (2 * 3 + 4) + 2 * oc_prm),
-            flops=4 * 93696 * oc_rows),
+            # the backward's own work (input and weight gradients), and in
+            # the log also the work with the forward it recomputes
+            flops=4 * 93696 * oc_rows,
+            flops_recompute=6 * 93696 * oc_rows),
     }
     return [dict(name=name, route="cuda",
-                 source="catnerf_torch/csrc/fused_field.cu",
+                 source=spec.get("source",
+                                 "catnerf_torch/csrc/fused_field.cu"),
                  replaces=spec["replaces"], launches=None,
                  **check_and_time(name, spec))
             for name, spec in specs.items()]
+
+
+def ptxas_report(text: str) -> dict[str, tuple[int, int]]:
+    """Kernel (mangled name) -> (registers, stack frame bytes), from the
+    `-Xptxas -v` lines of an nvcc build log."""
+    out, name, frame = {}, None, 0
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, frame = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes stack frame", line):
+            frame = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name] = (int(m.group(1)), frame)
+            name = None
+    return out
+
+
+def check_gemm_registers(log_text: str) -> None:
+    """Log each instantiation of the GEMM block (gemm_kernel<layout,
+    epilogue>, the grouped wgrad_kernel) with its registers and stack
+    frame; fail on a stack frame (a spill of the 8 x 8 accumulators)."""
+    if not log_text:
+        log("ptxas occupancy_bwd.cu: library built before this process; "
+            "registers not read")
+        return
+    layouts, epilogues = ("NN", "NT", "TN"), ("bias_relu", "mask", "acc")
+    found = []
+    for name, (regs, frame) in sorted(ptxas_report(log_text).items()):
+        if m := re.search(r"gemm_kernelILi(\d)ELi(\d)E", name):
+            label = (f"gemm_kernel<{layouts[int(m.group(1))]}, "
+                     f"{epilogues[int(m.group(2))]}>")
+        elif "wgrad_kernel" in name:
+            label = "wgrad_kernel (TN, grouped)"
+        else:
+            continue
+        found.append((label, regs, frame))
+    log("ptxas occupancy_bwd.cu, GEMM block: " + "; ".join(
+        f"{lb} {r} registers, {fr}-byte stack frame" for lb, r, fr in found))
+    if len(found) != 10 or any(fr for _, _, fr in found):
+        raise AssertionError(f"GEMM block: {found}")
+
+
+def time_gemm_block(dev) -> dict:
+    """The background backward's GEMM block alone at 16,800 x 128 x 128
+    (NN, bias + ReLU: a forward layer of the recompute) against its plain
+    version, then timed beside torch.matmul on the same operands, the
+    yardstick of a library's f32 product (the port never calls it)."""
+    from catnerf_torch.kernels import fused_field as ff
+
+    gen = torch.Generator().manual_seed(5)
+    M, K, N = 16800, 128, 128
+    a = torch.randn(M, K, generator=gen).to(dev)
+    w = (torch.randn(K, N, generator=gen) / math.sqrt(K)).to(dev)
+    bias = torch.randn(N, generator=gen).to(dev)
+    c = torch.empty(M, N, device=dev)
+    kernel = lambda: ff.oc_gemm_cuda("nn", "bias_relu", a, w, c, bias=bias)
+    got = kernel().clone()
+    again = kernel().clone()
+    want = ff.oc_gemm_plain("nn", "bias_relu", a, w, torch.empty_like(c),
+                            bias=bias)
+    torch.cuda.synchronize()
+    assert_close("oc_gemm", (got,), (want,), GRAD_TOL, scaled=True)
+    if not torch.equal(got, again):
+        raise AssertionError("oc_gemm: two runs differ bitwise")
+    library = lambda: torch.matmul(a, w)
+    ms, library_ms = cuda_ms(kernel, n=50), cuda_ms(library, n=50)
+    dev_ms, library_dev_ms = device_ms(kernel), device_ms(library)
+    flops = 2 * M * N * K
+    bound_ms, bound_by = bound(4 * (M * K + K * N + N + M * N), flops)
+    res = dict(shape=[M, N, K], layout="nn", epilogue="bias_relu",
+               max_abs_err=max_err((got,), (want,)), ms=ms,
+               device_ms=dev_ms, tflops=flops / dev_ms / 1e9,
+               bound_ms=bound_ms, bound_by=bound_by, library="torch.matmul",
+               library_ms=library_ms, library_device_ms=library_dev_ms)
+    log(f"gemm block NN {M}x{N}x{K} bias+relu: {dev_ms:.4f} ms queued back "
+        f"to back, {res['tflops']:.2f} TFLOP/s f32 ({100 * bound_ms / dev_ms:.1f}%"
+        f" of the bound {bound_ms:.4f} ms, {bound_by}), {ms:.4f} ms a call "
+        f"from idle; library_ms (torch.matmul, same operands) "
+        f"{library_dev_ms:.4f} ms queued, {library_ms:.4f} ms a call; "
+        f"max_abs_err {res['max_abs_err']:.3e}, bitwise repeatable")
+    log(json.dumps({"gemm_block": res}))
+    return res
 
 
 def check_and_time(name, spec, label="") -> dict:
@@ -266,12 +385,19 @@ def check_and_time(name, spec, label="") -> dict:
     err = max_err(got, want)
     ms = cuda_ms(spec["kernel"])
     plain_ms = cuda_ms(spec["plain"])
+    queued_ms = device_ms(spec["kernel"])
     bound_ms, bound_by = bound(spec["nbytes"], spec["flops"])
+    bounds = f"bound {bound_ms:.4f} ms ({bound_by}"
+    if "flops_recompute" in spec:
+        full_ms, full_by = bound(spec["nbytes"], spec["flops_recompute"])
+        bounds += (f", {spec['flops'] / 1e9:.2f} GFLOP; with the recompute"
+                   f" {spec['flops_recompute'] / 1e9:.2f} GFLOP, "
+                   f"{full_ms:.4f} ms, {full_by}")
     log(f"kernel {name}{label}: max_abs_err {err:.3e} (tol {spec['tol']:g}"
         f"{' of the scale' if spec.get('scaled') else ''})"
         f"{', backward bitwise repeatable' if spec['bwd'] else ''}; "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
+        f"{ms:.4f} ms ({queued_ms:.4f} queued back to back), plain "
+        f"{plain_ms:.4f} ms, {bounds})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
@@ -559,7 +685,7 @@ def trace_steps(sess, n_steps: int = N_INNER) -> None:
         f"({100 * busy / wall_us:.1f}% of the profiled window), "
         f"{n_launch / n_steps:.0f} device activities/step, "
         f"{len(dev_us)} distinct")
-    for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
+    for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:20]:
         log(f"trace:   {us / n_steps / 1e3:8.4f} ms/step "
             f"{100 * us / busy:5.1f}%  {name[:110]}")
 
@@ -590,8 +716,10 @@ def main() -> int:
         out = "ptxas.txt" if name == "fused_field" else f"ptxas_{name}.txt"
         with open(os.path.join(ROOT, "chiprun_out", out), "w") as fh:
             fh.write(build.build_log(name))
+    check_gemm_registers(build.build_log("occupancy_bwd"))
 
     rows = check_kernels(dev) + check_packed_kernels(dev)
+    time_gemm_block(dev)
     check_step(dev, fused_config(), "fused")
     check_step(dev, strict_config(), "strict-parity")
     scene = make_scene(**SCENE)

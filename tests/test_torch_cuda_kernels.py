@@ -10,7 +10,10 @@ without it:
 Forward within 1e-5, every gradient within 2e-4, and the backward run twice
 bitwise equal (the weight gradients are reduced in a fixed order): the four
 kernels of the fused trainer, the packed-ensemble pair (ragged N included)
-and the MLP-only kernel.
+and the MLP-only kernel. The background backward's GEMM block alone, for
+each layout and epilogue, at 1, 16,800 and 16,801 rows: within 2e-4 of the
+output's scale (sums of up to 16,800 terms), bitwise repeatable. One
+kernel's tests alone: `-k "gemm or occupancy"`.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from catnerf_torch.kernels import fused_field as tff
 from catnerf_torch.models.codenerf import CodeNeRF
 from catnerf_torch.models.embedding import UniDirsEmbed
 from catnerf_torch.models.occupancy import OccupancyMap
+from test_torch_occupancy_gemm import EPILOGUES, gemm_case, gemm_epilogue
 
 torch.set_num_threads(1)
 
@@ -71,7 +75,7 @@ def test_cuda_codenerf_kernel_matches_plain(cuda_device, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [77, 16800])
+@pytest.mark.parametrize("N", [1, 77, 16800, 16801])
 def test_cuda_occupancy_kernel_matches_plain(cuda_device, N):
     gen = torch.Generator().manual_seed(N)
     flat = tff.pack(tff._oc_modules(OccupancyMap.init(gen))).detach()
@@ -90,6 +94,43 @@ def test_cuda_occupancy_kernel_matches_plain(cuda_device, N):
     for x, y, z in zip(got, want, again):
         _close(x, y, GRAD_TOL)
         assert torch.equal(x, z)
+
+
+def _copy_view(v):
+    """A copy of a column view inside a buffer as wide as its own."""
+    off = v.storage_offset() % v.stride(0)
+    buf = torch.zeros(v.shape[0], v.stride(0), device=v.device)
+    out = buf[:, off:off + v.shape[1]]
+    return out.copy_(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16800, 16801])
+@pytest.mark.parametrize("layer", ["in", "c"])
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("layout", tff.GEMM_LAYOUTS)
+def test_cuda_gemm_block_matches_plain(cuda_device, layout, epilogue, layer,
+                                       M):
+    """The GEMM block of csrc/occupancy_bwd.cu against oc_gemm_plain on the
+    card (views at the backward's leading dimensions, ragged edges), and
+    twice, bitwise equal."""
+    kw, _ = gemm_case(layout, epilogue, layer, M, seed=M, device=cuda_device)
+    epi = gemm_epilogue(epilogue)
+    c0 = kw.pop("c")
+    runs = []
+    for _ in range(2):
+        c = _copy_view(c0)
+        before = tff.LAUNCHES["oc_gemm"]
+        tff.oc_gemm(layout, epi, c=c, **kw)
+        assert tff.LAUNCHES["oc_gemm"] == before + 1
+        runs.append(c)
+    want = tff.oc_gemm_plain(layout, epi, c=c0.clone(), **kw)
+    torch.cuda.synchronize()
+    assert runs[0].stride() == c0.stride()
+    scale = max(1.0, float(want.abs().max()))
+    np.testing.assert_allclose(runs[0].cpu().numpy(), want.cpu().numpy(),
+                               rtol=GRAD_TOL, atol=GRAD_TOL * scale)
+    assert torch.equal(runs[0], runs[1])
 
 
 @pytest.mark.cuda
