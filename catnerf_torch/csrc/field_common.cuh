@@ -1,9 +1,10 @@
 // Building blocks shared by the field kernels (fused_field.cu,
-// codenerf_packed.cu, occupancy_bwd.cu): the flat parameter layouts, the
-// per-thread positional encoding and its backward, dense layers and their
-// transposes, the CodeNeRF chain, the block-level weight gradients and the
-// fixed-order reduction of the per-block partials.
-// Float32 throughout, no fast math; see fused_field.cu for the design.
+// codenerf_packed.cu, codenerf_bwd.cu, occupancy.cu): the flat parameter
+// layouts, the per-thread positional encoding and its backward, dense
+// layers and their transposes, the CodeNeRF chain, the block-level weight
+// gradients and the fixed-order reduction of the per-block partials.
+// Float32 throughout, no fast math; the GEMM block of the chains is
+// gemm_f32.cuh.
 
 #pragma once
 
@@ -45,7 +46,6 @@ constexpr int r1_b = r0_b + W / 2;
 constexpr int P = r1_b + 3;  // 13,892
 constexpr int PP = P + kBSize;  // partial row: params then dB
 constexpr int kFwdT = 64;
-constexpr int kBwdT = 64;
 }  // namespace cn
 
 namespace oc {
@@ -66,7 +66,6 @@ constexpr int cl_b = oa_b + 1;
 constexpr int oc_b = cl_b + H;
 constexpr int P = oc_b + 3;  // 94,340
 constexpr int PP = P + kBSize;
-constexpr int kFwdT = 64;
 }  // namespace oc
 
 static_assert(cn::P == 13892 && oc::P == 94340, "layout");
@@ -263,50 +262,15 @@ __device__ __forceinline__ void cn_chain(const float* sW, const float* emb1,
   dense<W / 2, 0, 3, false>(sW + cn::r1_w, sW + cn::r1_b, x, nullptr, a7);
 }
 
-// Block-level weight gradient of one layer. Each thread stages its row's
-// input [x1, x2] and delta d into shared memory (odd row strides: no bank
-// conflicts), then the block computes
-//   part_w[i*OUT + o] = sum_r x[r][i] d[r][o],  part_b[o] = sum_r d[r][o]
-// over its T rows in row order, with thread e owning elements e, e+T, ...
-template <int T, int IN1, int IN2, int OUT>
-__device__ __forceinline__ void layer_grad(float* stage, const float* x1,
-                                           const float* x2, const float* d,
-                                           float* __restrict__ part_w,
-                                           float* __restrict__ part_b) {
-  constexpr int IN = IN1 + IN2;
-  constexpr int SX = IN | 1;
-  constexpr int SD = OUT | 1;
-  float* sx = stage;
-  float* sd = stage + T * SX;
-  float* mx = sx + threadIdx.x * SX;
-  float* md = sd + threadIdx.x * SD;
-  for (int i = 0; i < IN1; ++i) mx[i] = x1[i];
-  for (int i = 0; i < IN2; ++i) mx[IN1 + i] = x2[i];
-  for (int o = 0; o < OUT; ++o) md[o] = d[o];
-  __syncthreads();
-  for (int e = threadIdx.x; e < IN * OUT; e += T) {
-    const int i = e / OUT;
-    const int o = e - i * OUT;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int r = 0; r < T; ++r) acc = fmaf(sx[r * SX + i], sd[r * SD + o], acc);
-    part_w[e] = acc;
-  }
-  if (part_b != nullptr) {
-    for (int o = threadIdx.x; o < OUT; o += T) {
-      float acc = 0.f;
-      for (int r = 0; r < T; ++r) acc += sd[r * SD + o];
-      part_b[o] = acc;
-    }
-  }
-  __syncthreads();
-}
-
-// The same for a block of any number of rows (blockDim.x, a multiple of
-// CH): the rows are staged CH at a time, and each element's sum is carried
-// from chunk to chunk in `acc` (shared memory, IN*OUT + OUT floats), where
-// element e belongs to thread e % blockDim.x throughout, so no two threads
-// touch one slot and the order of the sum is fixed.
+// Block-level weight gradient of one layer over a block of any number of
+// rows (blockDim.x, a multiple of CH):
+//   part_w[i*OUT + o] = sum_r x[r][i] d[r][o],  part_b[o] = sum_r d[r][o].
+// Each thread stages its row's input [x1, x2] and delta d into shared
+// memory (odd row strides: no bank conflicts), CH rows at a time, and each
+// element's sum is carried from chunk to chunk in `acc` (shared memory,
+// IN*OUT + OUT floats), where element e belongs to thread e % blockDim.x
+// throughout, so no two threads touch one slot and the order of the sum is
+// fixed.
 template <int CH, int IN1, int IN2, int OUT>
 __device__ __forceinline__ void layer_grad_rows(float* stage, float* acc,
                                                 const float* x1,

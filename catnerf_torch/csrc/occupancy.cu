@@ -1,223 +1,47 @@
-// The OccupancyMap background backward for Hopper (sm_90a), float32
-// throughout, as a chain of tiled GEMMs and three row kernels.
+// The OccupancyMap background, forward and backward, for Hopper (sm_90a),
+// float32 throughout, as chains of tiled GEMMs (gemm_f32.cuh) and row
+// kernels.
 //
-// Replaces the Pallas TPU kernel _occ_bwd_kernel (:445) of
-// catnerf_tpu/experimental/fused_field.py (_make_occ_fused.f_bwd :596):
-// recompute the forward, then the hand-derived backward: dpts [N,3], the
-// basis gradient dB [21,3] and dW/db of the seven layers.
+// Replaces the Pallas TPU kernels of catnerf_tpu/experimental/fused_field.py
+//   oc_fwd <- _occ_fwd_kernel (:435, _make_occ_fused.fwd_call :568): the PE
+//             and the seven layers, [alpha x10 | sigmoid rgb] [N,4];
+//   oc_bwd <- _occ_bwd_kernel (:445, _make_occ_fused.f_bwd :596): recompute
+//             the forward, then the hand-derived backward: dpts [N,3], the
+//             basis gradient dB [21,3] and dW/db of the seven layers.
 //
-// What bounds it on an H100 is the operations: 3 x 93,696 multiply-adds a
-// row (forward recompute, input gradients, weight gradients), ~9.4 GFLOP at
-// 16,800 rows, against 377 KB of weights. Nearly all of it is ten products
-// of [rows, 87..215] by [87..215, 128] and five of their transposes, so:
-//   * one GEMM block (gemm_tile) computes C = epilogue(A B) in true f32
-//     FFMA (no TF32: the tensor cores are out), a 128 x 128 tile per block
-//     of 256 threads, each thread an 8 x 8 tile of outputs in registers,
-//     K staged 8 at a time through shared memory, double-buffered with
-//     cp.async; leading dimensions are parameters, so the concatenated
-//     layer inputs [r1 | emb1] and [r3 | emb2] need no copies, and every
-//     edge (rows, columns, K) is masked;
-//   * three operand layouts: NN (X W, the forward recompute), NT (D W^T,
-//     the input gradients; W is stored [in, out]) and TN (X^T D, the weight
-//     gradients, split over kChunks row chunks), and three epilogues:
-//     bias + ReLU, mask by a stored activation (D [r > 0], optionally after
-//     a rank-1 term u v^T), and accumulate into C;
+// What bounds them on an H100 is the operations: 93,696 multiply-adds a
+// row forward, 3 x that backward (forward recompute, input gradients,
+// weight gradients), ~9.4 GFLOP at 16,800 rows, against 377 KB of weights.
+// Nearly all of it is five products of [rows, 87..215] by [87..215, 128]
+// (forward), their five transposes and five weight-gradient products
+// (backward), so:
+//   * the GEMM block at its 128 x 128 tile (256 threads, an 8 x 8 register
+//     tile each); leading dimensions are parameters, so the concatenated
+//     layer inputs [r1 | emb1] and [r3 | emb2] need no copies;
+//   * NN bias + ReLU for the forward layers; NT with the mask epilogue
+//     (D [r > 0], the first after a rank-1 term u v^T) for the input
+//     gradients; TN over kChunks row chunks for the weight gradients;
 //   * the narrow parts (the PE and its backward, the sigmoid head, the
 //     oa/oc layers, the bias and basis gradients) are row or column
 //     kernels.
 // Every sum runs in a fixed order and no atomics are used: the weight
 // gradients are per-chunk partials that reduce_tiles adds in order, so two
 // runs are bitwise equal. The activations and deltas live in a workspace
-// the caller allocates (kWsCols floats a row, rows rounded up to 4).
+// the caller allocates (rows rounded up to 4; kWsCols floats a row for the
+// backward, the first kFwdSlots buffers, kFwdWsCols floats, for the
+// forward).
 //
-// oc_bwd launches everything on the caller's stream, allocates nothing and
-// returns the first non-zero cudaGetLastError(); oc_gemm launches the GEMM
-// block alone.
+// oc_fwd and oc_bwd launch everything on the caller's stream, allocate
+// nothing and return the first non-zero cudaGetLastError(); oc_gemm
+// launches the GEMM block alone.
 
 #include "field_common.cuh"
+#include "gemm_f32.cuh"
 
 namespace {
 
-constexpr int kBM = 128;  // rows of a block tile
-constexpr int kBN = 128;  // columns of a block tile
-constexpr int kBK = 8;    // K staged at a time
-constexpr int kPad = 4;   // shared rows of 132 floats: float4-aligned, and the
-                          // transposing stores of a warp hit 32 banks
-constexpr int kThreads = 256;
+constexpr int kThreads = GemmShape<128>::kThreads;
 constexpr int kChunks = 32;  // row chunks of the weight gradients (partials)
-
-enum Layout { kNN = 0, kNT = 1, kTN = 2 };
-enum Epilogue { kBiasRelu = 0, kMask = 1, kAccumulate = 2 };
-
-// C[m, n] = epilogue(sum_k A(m, k) B(k, n)) for m < M, n < N, with
-//   A(m, k) = A[m * lda + k] (NN, NT) or A[k * lda + m] (TN),
-//   B(k, n) = B[k * ldb + n] (NN, TN) or B[n * ldb + k] (NT);
-// kBiasRelu: max(. + bias[n], 0); kMask: for n < mask_cols,
-// (. + u[m] v[n]) * [mask[m * ldm + n] > 0] (u, v optional), other columns
-// as they are; kAccumulate: C + .
-struct Gemm {
-  const float* A;
-  int lda;
-  const float* B;
-  int ldb;
-  float* C;
-  int ldc;
-  int M, N, K;
-  const float* bias;
-  const float* mask;
-  int ldm;
-  int mask_cols;
-  const float* u;
-  const float* v;
-};
-
-// The product alone; a caller sets the epilogue's fields it needs.
-__host__ __device__ inline Gemm make_gemm(const float* A, int lda,
-                                          const float* B, int ldb, float* C,
-                                          int ldc, int M, int N, int K) {
-  Gemm g;
-  g.A = A;
-  g.lda = lda;
-  g.B = B;
-  g.ldb = ldb;
-  g.C = C;
-  g.ldc = ldc;
-  g.M = M;
-  g.N = N;
-  g.K = K;
-  g.bias = nullptr;
-  g.mask = nullptr;
-  g.ldm = 0;
-  g.mask_cols = 0;
-  g.u = nullptr;
-  g.v = nullptr;
-  return g;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  // src-size 0 fills the slot with zero and reads nothing
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// One 128 x 128 tile of C at (m0, n0), by the whole block of kThreads.
-// Thread (tx, ty) = (tid % 16, tid / 16) owns rows ty*4 + {0..3} and
-// 64 + ty*4 + {0..3}, columns tx*4 + {0..3} and 64 + tx*4 + {0..3}.
-template <int L, int E>
-__device__ __forceinline__ void gemm_tile(const Gemm& g, int m0, int n0) {
-  __shared__ __align__(16) float As[2][kBK][kBM + kPad];
-  __shared__ __align__(16) float Bs[2][kBK][kBN + kPad];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  // 4 elements of each operand a thread, neighbouring threads on
-  // neighbouring addresses of the operand's contiguous dimension
-  auto load = [&](int buf, int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = tid + i * kThreads;
-      const int mm = L == kTN ? e % kBM : e / kBK;
-      const int ka = L == kTN ? e / kBM : e % kBK;
-      const int gm = m0 + mm;
-      const int gka = k0 + ka;
-      const bool oka = gm < g.M && gka < g.K;
-      const size_t ia = L == kTN
-                            ? static_cast<size_t>(gka) * g.lda + gm
-                            : static_cast<size_t>(gm) * g.lda + gka;
-      cp_async4(&As[buf][ka][mm], oka ? g.A + ia : g.A, oka);
-      const int nn = L == kNT ? e / kBK : e % kBN;
-      const int kb = L == kNT ? e % kBK : e / kBN;
-      const int gn = n0 + nn;
-      const int gkb = k0 + kb;
-      const bool okb = gn < g.N && gkb < g.K;
-      const size_t ib = L == kNT
-                            ? static_cast<size_t>(gn) * g.ldb + gkb
-                            : static_cast<size_t>(gkb) * g.ldb + gn;
-      cp_async4(&Bs[buf][kb][nn], okb ? g.B + ib : g.B, okb);
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const int nk = (g.K + kBK - 1) / kBK;
-  if (nk > 0) load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, (kt + 1) * kBK);
-    cp_async_commit();
-    cp_async_wait_prev();  // tile kt has landed
-    __syncthreads();
-    const int b = kt & 1;
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[b][k][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[b][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[b][k][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[b][k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-    __syncthreads();  // the next load overwrites this buffer
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= g.M) continue;
-    float* crow = g.C + static_cast<size_t>(m) * g.ldc;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n >= g.N) continue;
-      float v = acc[i][j];
-      if constexpr (E == kBiasRelu) {
-        v = fmaxf(v + g.bias[n], 0.f);
-      } else if constexpr (E == kMask) {
-        if (n < g.mask_cols) {
-          if (g.u != nullptr) v = v + g.u[m] * g.v[n];
-          v = g.mask[static_cast<size_t>(m) * g.ldm + n] > 0.f ? v : 0.f;
-        }
-      } else {
-        v = crow[n] + v;
-      }
-      crow[n] = v;
-    }
-  }
-}
-
-template <int L, int E>
-__global__ void __launch_bounds__(kThreads, 2) gemm_kernel(Gemm g) {
-  gemm_tile<L, E>(g, blockIdx.x * kBM, blockIdx.y * kBN);
-}
-
-template <int L, int E>
-int launch_gemm(const Gemm& g, cudaStream_t s) {
-  if (g.M <= 0 || g.N <= 0) return 0;
-  const dim3 grid((g.M + kBM - 1) / kBM, (g.N + kBN - 1) / kBN);
-  gemm_kernel<L, E><<<grid, kThreads, 0, s>>>(g);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // The backward's workspace and its row kernels
@@ -247,21 +71,26 @@ struct Buffers {
 
 constexpr int kWsCols = kC + kCl + 3 * H + H + kCl + H + kC + H + kDirs + 3 + 1;
 static_assert(kWsCols == 1563, "workspace");
+constexpr int kFwdSlots = 5;  // xc, xcl, r0, r2, r4
+constexpr int kFwdWsCols = kC + kCl + 3 * H;
+static_assert(kFwdWsCols == 769, "forward workspace");
 
-Buffers carve(float* ws, int Np) {
+// The first `slots` buffers of the workspace; the others are null.
+Buffers carve(float* ws, int Np, int slots = 13) {
   Buffers w;
-  float** slots[] = {&w.xc, &w.xcl, &w.r0, &w.r2, &w.r4, &w.d4, &w.dcl,
-                     &w.d2, &w.dc, &w.d0, &w.proj, &w.da5, &w.dalpha};
+  float** ptrs[] = {&w.xc, &w.xcl, &w.r0, &w.r2, &w.r4, &w.d4, &w.dcl,
+                    &w.d2, &w.dc, &w.d0, &w.proj, &w.da5, &w.dalpha};
   const int cols[] = {kC, kCl, H, H, H, H, kCl, H, kC, H, kDirs, 3, 1};
   size_t off = 0;
   for (int i = 0; i < 13; ++i) {
-    *slots[i] = ws + off;
+    *ptrs[i] = i < slots ? ws + off : nullptr;
     off += static_cast<size_t>(Np) * cols[i];
   }
   return w;
 }
 
-// One thread a row: the PE (embed) into the tails of xc and xcl, and proj.
+// One thread a row: the PE (embed) into the tails of xc and xcl, and proj
+// (when the workspace has it: the backward's).
 __global__ void embed_rows(const float* __restrict__ pts,
                            const float* __restrict__ B, Buffers w, int N,
                            float inv_scale) {
@@ -271,7 +100,49 @@ __global__ void embed_rows(const float* __restrict__ pts,
   float p[3], t[3], proj[kDirs];
   load_row<3>(pts + r * 3, true, p);
   embed(p, B, inv_scale, t, proj, w.xc + r * kC + H, w.xcl + r * kCl + H);
-  for (int k = 0; k < kDirs; ++k) w.proj[r * kDirs + k] = proj[k];
+  if (w.proj != nullptr)
+    for (int k = 0; k < kDirs; ++k) w.proj[r * kDirs + k] = proj[k];
+}
+
+// The forward's head, one warp a row: alpha = 10 (r3 w_oa + b_oa), r3 the
+// first H columns of xcl (lane l on columns l + 32q: the rows are 170
+// floats, not 16-byte aligned), and rgb = sigmoid(r4 W_oc + b_oc) (lane l
+// on columns 4l..4l+3); each sum a fixed butterfly, so every lane holds
+// the same bits, and lane 0 writes out [N, 4].
+__global__ void __launch_bounds__(256)
+    fwd_head_rows(const float* __restrict__ prm, Buffers w,
+                  float* __restrict__ out, int N) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= N) return;  // the whole warp
+  const size_t r = row;
+  const float* Woc = prm + oc::oc_w;  // [H, 3]
+  const float* x3 = w.xcl + r * kCl;
+  float al = 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    al = fmaf(x3[lane + 32 * q], prm[oc::oa_w + lane + 32 * q], al);
+  const float4 x4 = reinterpret_cast<const float4*>(w.r4 + r * H)[lane];
+  const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+  float a[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      a[j] = fmaf(x[q], Woc[(lane * 4 + q) * 3 + j], a[j]);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    al += __shfl_xor_sync(0xffffffffu, al, off);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      a[j] += __shfl_xor_sync(0xffffffffu, a[j], off);
+  }
+  if (lane == 0)
+    reinterpret_cast<float4*>(out)[r] =
+        make_float4((al + prm[oc::oa_b]) * 10.f,
+                    sigmoidf(a[0] + prm[oc::oc_b]),
+                    sigmoidf(a[1] + prm[oc::oc_b + 1]),
+                    sigmoidf(a[2] + prm[oc::oc_b + 2]));
 }
 
 // One warp a row, lane l on columns 4l..4l+3: a5 = r4 W_oc + b (a fixed
@@ -340,14 +211,6 @@ __global__ void embed_bwd_rows(const float* __restrict__ B, Buffers w,
   for (int j = 0; j < 3; ++j) dpts[r * 3 + j] = dt[j] * inv_scale;
 }
 
-// The rows [r0, r1) of chunk s: every chunk holds `rows` rows, the last
-// ones fewer or none.
-__device__ __forceinline__ void chunk_rows(int N, int rows, int s, int& r0,
-                                           int& r1) {
-  r0 = min(N, s * rows);
-  r1 = min(N, r0 + rows);
-}
-
 // The weight gradients of the five wide layers, grouped: blockIdx.x picks
 // (layer, row tile of dW) among 7, blockIdx.y the row chunk s; the block
 // writes X[r0:r1]^T D[r0:r1] into partial[s] at the layer's offset.
@@ -376,7 +239,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                            d + static_cast<size_t>(r0) * ldd, ldd,
                            partial + static_cast<size_t>(s) * oc::PP + off,
                            H, m, H, r1 - r0);
-  gemm_tile<kTN, kMask>(g, m0, 0);  // no mask: a plain store
+  gemm_tile<H, kTN, kMask>(g, m0, 0);  // no mask: a plain store
 }
 constexpr int kWgradTiles = 7;
 
@@ -450,7 +313,7 @@ int forward_layer(const float* X, int ldx, int K, const float* W,
                   const float* b, float* C, int ldc, int N, cudaStream_t s) {
   Gemm g = make_gemm(X, ldx, W, H, C, ldc, N, H, K);
   g.bias = b;
-  return launch_gemm<kNN, kBiasRelu>(g, s);
+  return launch_gemm<H, kNN, kBiasRelu>(g, s);
 }
 
 // (D W^T + u v^T) [mask > 0] on the first H columns, W [n, H] ([in, out]),
@@ -464,19 +327,45 @@ int input_grad(const float* D, int ldd, const float* W, int n, float* C,
   g.mask_cols = H;
   g.u = u;
   g.v = v;
-  return launch_gemm<kNT, kMask>(g, s);
+  return launch_gemm<H, kNT, kMask>(g, s);
+}
+
+#define OC_TRY(call)       \
+  if ((e = (call)) != 0) { \
+    return e;              \
+  }
+
+// The PE and the five wide layers (_occ_chain :409) into the workspace's
+// first five buffers: xc = [r1 | emb1], xcl = [r3 | emb2], r0, r2, r4.
+int forward_chain(const float* pts, const float* prm, const float* B,
+                  const Buffers& w, int N, float inv_scale, cudaStream_t s) {
+  int e;
+  embed_rows<<<(N + 127) / 128, 128, 0, s>>>(pts, B, w, N, inv_scale);
+  OC_TRY(static_cast<int>(cudaGetLastError()));
+  OC_TRY(forward_layer(w.xc + H, kC, kE1, prm + oc::in_w, prm + oc::in_b,
+                       w.r0, H, N, s));
+  OC_TRY(forward_layer(w.r0, H, H, prm + oc::m1_w, prm + oc::m1_b, w.xc, kC,
+                       N, s));
+  OC_TRY(forward_layer(w.xc, kC, kC, prm + oc::c_w, prm + oc::c_b, w.r2, H,
+                       N, s));
+  OC_TRY(forward_layer(w.r2, H, H, prm + oc::m2_w, prm + oc::m2_b, w.xcl,
+                       kCl, N, s));
+  return forward_layer(w.xcl, kCl, kCl, prm + oc::cl_w, prm + oc::cl_b, w.r4,
+                       H, N, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// [OccupancyMap P, partial row, row chunks, workspace floats a row]
-int occupancy_bwd_layout(int* out) {
+// [OccupancyMap P, partial row, row chunks, workspace floats a row of the
+// backward, of the forward]
+int occupancy_layout(int* out) {
   out[0] = oc::P;
   out[1] = oc::PP;
   out[2] = kChunks;
   out[3] = kWsCols;
+  out[4] = kFwdWsCols;
   return 0;
 }
 
@@ -495,17 +384,29 @@ int oc_gemm(int layout, int epilogue, const float* A, int lda, const float* B,
   g.v = v;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (layout * 3 + epilogue) {
-    case 0: return launch_gemm<kNN, kBiasRelu>(g, s);
-    case 1: return launch_gemm<kNN, kMask>(g, s);
-    case 2: return launch_gemm<kNN, kAccumulate>(g, s);
-    case 3: return launch_gemm<kNT, kBiasRelu>(g, s);
-    case 4: return launch_gemm<kNT, kMask>(g, s);
-    case 5: return launch_gemm<kNT, kAccumulate>(g, s);
-    case 6: return launch_gemm<kTN, kBiasRelu>(g, s);
-    case 7: return launch_gemm<kTN, kMask>(g, s);
-    case 8: return launch_gemm<kTN, kAccumulate>(g, s);
+    case 0: return launch_gemm<H, kNN, kBiasRelu>(g, s);
+    case 1: return launch_gemm<H, kNN, kMask>(g, s);
+    case 2: return launch_gemm<H, kNN, kAccumulate>(g, s);
+    case 3: return launch_gemm<H, kNT, kBiasRelu>(g, s);
+    case 4: return launch_gemm<H, kNT, kMask>(g, s);
+    case 5: return launch_gemm<H, kNT, kAccumulate>(g, s);
+    case 6: return launch_gemm<H, kTN, kBiasRelu>(g, s);
+    case 7: return launch_gemm<H, kTN, kMask>(g, s);
+    case 8: return launch_gemm<H, kTN, kAccumulate>(g, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// pts [N,3], params [P], B [21,3] -> out [N,4]; workspace
+// [ceil4(N) * kFwdWsCols]
+int oc_fwd(const float* pts, const float* params, const float* B, float* out,
+           float* workspace, int N, float inv_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Buffers w = carve(workspace, (N + 3) / 4 * 4, kFwdSlots);
+  int e;
+  OC_TRY(forward_chain(pts, params, B, w, N, inv_scale, s));
+  fwd_head_rows<<<(N + 7) / 8, 256, 0, s>>>(params, w, out, N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // pts [N,3], params [P], B [21,3], dout [N,4] -> dpts [N,3], grads [P + 63]
@@ -518,23 +419,7 @@ int oc_bwd(const float* pts, const float* params, const float* B,
   const Buffers w = carve(workspace, (N + 3) / 4 * 4);
   const int rows = (N + kChunks - 1) / kChunks;
   int e;
-#define OC_TRY(call)          \
-  if ((e = (call)) != 0) {    \
-    return e;                 \
-  }
-  embed_rows<<<(N + 127) / 128, 128, 0, s>>>(pts, B, w, N, inv_scale);
-  OC_TRY(static_cast<int>(cudaGetLastError()));
-  // the forward recompute (_occ_chain :409)
-  OC_TRY(forward_layer(w.xc + H, kC, kE1, prm + oc::in_w, prm + oc::in_b,
-                       w.r0, H, N, s));
-  OC_TRY(forward_layer(w.r0, H, H, prm + oc::m1_w, prm + oc::m1_b, w.xc, kC,
-                       N, s));
-  OC_TRY(forward_layer(w.xc, kC, kC, prm + oc::c_w, prm + oc::c_b, w.r2, H,
-                       N, s));
-  OC_TRY(forward_layer(w.r2, H, H, prm + oc::m2_w, prm + oc::m2_b, w.xcl,
-                       kCl, N, s));
-  OC_TRY(forward_layer(w.xcl, kCl, kCl, prm + oc::cl_w, prm + oc::cl_b, w.r4,
-                       H, N, s));
+  OC_TRY(forward_chain(pts, prm, B, w, N, inv_scale, s));  // the recompute
   head_rows<<<(N + 7) / 8, 256, 0, s>>>(prm, dout, w, N);
   OC_TRY(static_cast<int>(cudaGetLastError()));
   // the input gradients, output to input; ReLU(a) > 0 exactly when a > 0,
@@ -548,7 +433,7 @@ int oc_bwd(const float* pts, const float* params, const float* B,
   OC_TRY(input_grad(w.dc, kC, prm + oc::m1_w, H, w.d0, H, w.r0, H, nullptr,
                     nullptr, N, s));                    // delta0
   Gemm g = make_gemm(w.d0, H, prm + oc::in_w, H, w.dc + H, kC, N, kE1, H);
-  OC_TRY((launch_gemm<kNT, kAccumulate>(g, s)));      // demb1 += delta0 W_in^T
+  OC_TRY((launch_gemm<H, kNT, kAccumulate>(g, s)));  // demb1 += delta0 W_in^T
   embed_bwd_rows<<<(N + 127) / 128, 128, 0, s>>>(B, w, dpts, N, inv_scale);
   OC_TRY(static_cast<int>(cudaGetLastError()));
   // the parameter gradients: per-chunk partials, then reduce_tiles
@@ -558,8 +443,9 @@ int oc_bwd(const float* pts, const float* params, const float* B,
   narrow_kernel<<<dim3(kNarrowJobs, kChunks), H, 0, s>>>(pts, w, partial, N,
                                                          rows, inv_scale);
   OC_TRY(static_cast<int>(cudaGetLastError()));
-#undef OC_TRY
   return launch_reduce(partial, grads, 1, kChunks, oc::PP, s);
 }
 
 }  // extern "C"
+
+#undef OC_TRY

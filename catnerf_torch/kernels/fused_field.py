@@ -12,9 +12,11 @@ Replaces the Pallas TPU kernels of the JAX package's
   codenerf_packed_bwd  <- _cn2_bwd_kernel :786
   codenerf_mlp_fwd     <- exp_kernel2.py mlp_kernel :73 (main.mlp_only)
 
-with CUDA C++ kernels for Hopper (`csrc/fused_field.cu`,
-`csrc/codenerf_packed.cu`, `csrc/occupancy_bwd.cu`). Each public function
-keeps the JAX contract
+with CUDA C++ kernels for Hopper, one library per source: `csrc/
+fused_field.cu` (the CodeNeRF forward, the MLP-only kernel),
+`csrc/codenerf_packed.cu` (the packed pair), `csrc/codenerf_bwd.cu` (the
+CodeNeRF backward) and `csrc/occupancy.cu` (the background forward and
+backward). Each public function keeps the JAX contract
 (`codenerf_fused_apply` :384, `occupancy_fused_apply` :631,
 `codenerf_packed_apply` :958) and is differentiable through an
 `autograd.Function` whose backward is a kernel too; the MLP-only kernel
@@ -22,19 +24,21 @@ has no backward, as in the JAX script.
 
 What bounds them on an H100: the operations. Per sample point the
 CodeNeRF forward does 13,648 multiply-adds against 55.6 KB of weights that
-every point shares, and the background 93,696 against 377 KB, while a
-point's own data is a few hundred bytes; so the weights must come from
-on-chip memory and the intermediates must never reach device memory.
-The design: one thread per sample point runs the whole chain with its
-activations in registers and local memory; the CodeNeRF weights sit in
-shared memory (every lane of a warp reads the same weight, a broadcast),
-the background forward's 377 KB, too large for shared memory, are read
-through L1 the same way. The backwards recompute the forward, as the TPU
-kernels do. The CodeNeRF ones sum the weight gradients of a block's rows
-in shared memory into one partial per block. The background backward is
-instead a chain of tiled float32 GEMMs (`oc_gemm`: 128 x 128 tiles, an
-8 x 8 register tile a thread) and row kernels, its activations in a
-workspace the wrapper allocates, its weight gradients per-chunk partials.
+every point shares, and the background 93,696 against 377 KB. Two designs:
+
+* the forwards of CodeNeRF and the packed pair run one thread per sample
+  point through the whole chain, activations in registers and local
+  memory, the weights in shared memory (every lane of a warp reads the
+  same weight, a broadcast), and the packed backward as well, summing the
+  weight gradients of a block's rows in shared memory into one partial per
+  block;
+* the CodeNeRF backward and the background forward and backward are chains
+  of tiled float32 GEMMs (`csrc/gemm_f32.cuh`: a 128 x 32 tile for the
+  32-wide CodeNeRF layers, `cn_gemm`, with the category as a batch index,
+  and 128 x 128 for the 128-wide background, `oc_gemm`) and row kernels,
+  their activations in a workspace the wrapper allocates, their weight
+  gradients per-chunk partials.
+
 A last launch adds the partials in a fixed order, so that two runs are
 bitwise equal (no atomics).
 
@@ -43,7 +47,7 @@ path's sinpi polynomial), no fast math and no TF32, as the TPU kernels.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version below; a
 tensor on a CUDA device launches the kernel or raises. The plain version
-of each backward also serves as the kernel's reference on the card.
+of each kernel also serves as its reference on the card.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ import torch
 LAUNCHES = {"codenerf_fwd": 0, "codenerf_bwd": 0,
             "occupancy_fwd": 0, "occupancy_bwd": 0,
             "codenerf_packed_fwd": 0, "codenerf_packed_bwd": 0,
-            "codenerf_mlp_fwd": 0, "oc_gemm": 0}
+            "codenerf_mlp_fwd": 0, "oc_gemm": 0, "cn_gemm": 0}
 
 
 def reset_launch_counts() -> None:
@@ -157,24 +161,26 @@ def _embed_bwd(demb1, demb2, t, proj, B, inv_scale):
     return dt * inv_scale, dB
 
 
-def _codenerf_chain(emb1, emb2, zs0, zc, zs1, zt0, W, b):
+def _codenerf_chain(emb1, emb2, zs0, zc, zs1, zt0, W, b, relu=None):
     """ref: _codenerf_chain (fused_field.py:81). W=32 splits the concat
-    layers' weights into their two input blocks."""
-    r0 = torch.relu(emb1 @ W["e"] + b["e"])
+    layers' weights into their two input blocks. `relu` (torch.relu, looked
+    up at each call) lets codenerf_relu_margin see the pre-activations."""
+    relu = torch.relu if relu is None else relu
+    r0 = relu(emb1 @ W["e"] + b["e"])
     g0 = r0 + zs0
-    r1 = torch.relu(g0 @ W["s0"] + b["s0"])
+    r1 = relu(g0 @ W["s0"] + b["s0"])
     g1 = r1 + zc
-    r2 = torch.relu(g1 @ W["c"][..., :32, :] + emb1 @ W["c"][..., 32:, :]
-                    + b["c"])
+    r2 = relu(g1 @ W["c"][..., :32, :] + emb1 @ W["c"][..., 32:, :]
+              + b["c"])
     g2 = r2 + zs1
-    r3 = torch.relu(g2 @ W["s1"] + b["s1"])
+    r3 = relu(g2 @ W["s1"] + b["s1"])
     h = r3 @ W["en"] + b["en"]
     sg = (h @ W["sg"] + b["sg"]) * 10.0
-    r4 = torch.relu(h @ W["vd"][..., :32, :] + emb2 @ W["vd"][..., 32:, :]
-                    + b["vd"])
+    r4 = relu(h @ W["vd"][..., :32, :] + emb2 @ W["vd"][..., 32:, :]
+              + b["vd"])
     g4 = r4 + zt0
-    r5 = torch.relu(g4 @ W["t0"] + b["t0"])
-    r6 = torch.relu(r5 @ W["r0"] + b["r0"])
+    r5 = relu(g4 @ W["t0"] + b["t0"])
+    r6 = relu(r5 @ W["r0"] + b["r0"])
     color = torch.sigmoid(r6 @ W["r1"] + b["r1"])
     iv = dict(r0=r0, g0=g0, r1=r1, g1=g1, r2=r2, g2=g2, r3=r3, h=h, r4=r4,
               g4=g4, r5=r5, r6=r6, color=color)
@@ -188,6 +194,46 @@ def codenerf_fwd_plain(flat, B, pts, zs, inv_scale):
     _, _, emb1, emb2 = _embed(pts, B, inv_scale)
     sg, color, _ = _codenerf_chain(emb1, emb2, *zs, W, b)
     return torch.cat([sg, color], dim=-1)
+
+
+def codenerf_relu_margin(flat, B, pts, zs, inv_scale):
+    """[C, N]: each row's smallest |pre-activation| over the seven ReLU
+    layers of the CodeNeRF chain, in float64. Within float32 rounding of
+    zero, two summation orders may disagree on the ReLU's derivative and so
+    on the row's whole contribution to the backward; a check of a kernel's
+    gradients leaves such rows out (dout = 0 there)."""
+    margins = []
+
+    def relu(a):
+        margins.append(a.abs().amin(-1))
+        return torch.relu(a)
+
+    W, b = _unpack(flat.double(), CN_LAYERS)
+    _, _, emb1, emb2 = _embed(pts.double(), B.double(), inv_scale)
+    _codenerf_chain(emb1, emb2, *(z.double() for z in zs), W, b, relu=relu)
+    return torch.stack(margins).amin(0)
+
+
+def grad_bound(exact, plain, tol, layers=None):
+    """The elementwise bound to which a kernel's float32 gradient is held
+    on the card: tol (absolute plus relative) of the exact result (the plain
+    version in float64), plus twice the float32 plain version's own largest
+    error within the element's block: each layer's weights and each bias
+    of a flat parameter gradient laid out by `layers`, else the whole
+    tensor. A weight gradient that sums thousands of rows and cancels
+    carries float32 rounding beyond tol in any order of summation (two
+    orders differed by 7.5e-4 on a sigma-head weight gradient of 0.038 at
+    C=8 x 3,600 rows on an H100), and its layer shares that
+    conditioning."""
+    perr = (plain.double() - exact).abs()
+    if layers is None:
+        block = perr.max().expand_as(perr)
+    else:
+        block = perr.clone()
+        W, b = _unpack(block, layers)
+        for v in (*W.values(), *b.values()):
+            v.fill_(v.max())
+    return tol * (1 + exact.abs()) + 2 * block
 
 
 def _grads_flat(dW, db, layers):
@@ -451,7 +497,7 @@ def codenerf_packed_bwd_plain(flat, B, pts, zs, dsg, dcol, inv_scale):
 
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/fused_field.cu, csrc/codenerf_packed.cu,
-# csrc/occupancy_bwd.cu)
+# csrc/codenerf_bwd.cu, csrc/occupancy.cu)
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -460,8 +506,6 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "fused_field": {
         "cn_fwd": [_P] * 8 + [_I, _I, _F, _P],
-        "cn_bwd": [_P] * 15 + [_I, _I, _F, _P],
-        "oc_fwd": [_P] * 4 + [_I, _F, _P],
         "cn_mlp_fwd": [_P] * 8 + [_I, _I, _P],
         "catnerf_layout": [ctypes.POINTER(ctypes.c_int)],
     },
@@ -470,30 +514,43 @@ _SIGNATURES = {
         "cn2_bwd": [_P] * 16 + [_I, _I, _I, _F, _P],
         "packed_layout": [ctypes.POINTER(ctypes.c_int)],
     },
-    "occupancy_bwd": {
+    "occupancy": {
+        "oc_fwd": [_P] * 5 + [_I, _F, _P],
         "oc_bwd": [_P] * 8 + [_I, _F, _P],
         "oc_gemm": [_I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I,
                     _I, _P, _P, _P],
-        "occupancy_bwd_layout": [ctypes.POINTER(ctypes.c_int)],
+        "occupancy_layout": [ctypes.POINTER(ctypes.c_int)],
+    },
+    "codenerf_bwd": {
+        "cn_bwd": [_P] * 16 + [_I, _I, _F, _P],
+        # layout, epilogue, batch; A, lda, sA; B, ldb, sB; C, ldc, sC;
+        # M, N, K; bias, sbias; mask, ldm, smask, mask_cols; Z, ldz, sZ;
+        # C2, ldc2, sC2; stream
+        "cn_gemm": [_I, _I, _I] + [_P, _I, _I] * 3 + [_I, _I, _I, _P, _I,
+                                                       _P, _I, _I, _I]
+                   + [_P, _I, _I] * 2 + [_P],
+        "codenerf_bwd_layout": [ctypes.POINTER(ctypes.c_int)],
     },
 }
 LIBRARIES = tuple(_SIGNATURES)
 # library -> (its layout function, the names of the ints it writes, the
 # values the wrapper relies on)
 _LAYOUT_FNS = {
-    "fused_field": ("catnerf_layout",
-                    ("cn_p", "oc_p", "cn_fwd_t", "cn_bwd_t", "oc_fwd_t"),
-                    {"cn_p": CN_P, "oc_p": OC_P}),
+    "fused_field": ("catnerf_layout", ("cn_p", "cn_fwd_t"), {"cn_p": CN_P}),
     "codenerf_packed": ("packed_layout",
                         ("packed_p", "packed_b2", "packed_max_tile",
                          "packed_rows"),
                         {"packed_p": CN_P, "packed_b2": B2_SIZE,
                          "packed_max_tile": PACKED_MAX_TILE,
                          "packed_rows": PACKED_ROWS}),
-    "occupancy_bwd": ("occupancy_bwd_layout",
-                      ("oc_bwd_p", "oc_bwd_pp", "oc_bwd_chunks",
-                       "oc_bwd_ws_cols"),
-                      {"oc_bwd_p": OC_P, "oc_bwd_pp": OC_P + B_SIZE}),
+    "occupancy": ("occupancy_layout",
+                  ("oc_p", "oc_pp", "oc_chunks", "oc_ws_cols",
+                   "oc_fwd_ws_cols"),
+                  {"oc_p": OC_P, "oc_pp": OC_P + B_SIZE}),
+    "codenerf_bwd": ("codenerf_bwd_layout",
+                     ("cn_bwd_p", "cn_bwd_pp", "cn_bwd_chunks",
+                      "cn_bwd_ws_cols"),
+                     {"cn_bwd_p": CN_P, "cn_bwd_pp": CN_P + B_SIZE}),
 }
 # tile sizes (rows per block) and layouts, read from the libraries
 _LAYOUT: dict[str, int] = {}
@@ -587,7 +644,12 @@ def codenerf_fwd_cuda(flat, B, pts, zs, inv_scale):
 
 
 def codenerf_bwd_cuda(flat, B, pts, zs, dout, inv_scale):
-    lib = _lib()
+    """csrc/codenerf_bwd.cu: the recompute and the backward as a chain of
+    tiled GEMMs (the category their batch index) and row kernels, its
+    activations and deltas in a workspace of `cn_bwd_ws_cols` floats a row
+    and category (rows rounded up to 4), the weight gradients as
+    `cn_bwd_chunks` per-chunk partials a category, reduced in order."""
+    lib = _lib("codenerf_bwd")
     C, N, _ = pts.shape
     _check(pts.device, {"pts": (pts, (C, N, 3)), "params": (flat, (C, CN_P)),
                         "B": (B, (C, N_DIRS, 3)), "dout": (dout, (C, N, 4)),
@@ -599,13 +661,15 @@ def codenerf_bwd_cuda(flat, B, pts, zs, dout, inv_scale):
     if N == 0:
         grads.zero_()
     else:
-        nt = -(-N // _LAYOUT["cn_bwd_t"])
-        partial = torch.empty(C, nt, CN_P + B_SIZE, device=dev,
-                              dtype=torch.float32)
+        partial = torch.empty(C, _LAYOUT["cn_bwd_chunks"], CN_P + B_SIZE,
+                              device=dev, dtype=torch.float32)
+        workspace = torch.empty(
+            C * -(-N // 4) * 4 * _LAYOUT["cn_bwd_ws_cols"], device=dev,
+            dtype=torch.float32)
         err = lib.cn_bwd(_ptr(pts), *(_ptr(z) for z in zs), _ptr(flat),
                          _ptr(B), _ptr(dout), _ptr(dpts),
                          *(_ptr(z) for z in dzs), _ptr(partial), _ptr(grads),
-                         C, N, inv_scale, _stream(dev))
+                         _ptr(workspace), C, N, inv_scale, _stream(dev))
         _raise_on(err, "cn_bwd")
         LAUNCHES["codenerf_bwd"] += 1
     return (grads[:, :CN_P], grads[:, CN_P:].reshape(C, N_DIRS, 3), dpts,
@@ -613,26 +677,32 @@ def codenerf_bwd_cuda(flat, B, pts, zs, dout, inv_scale):
 
 
 def occupancy_fwd_cuda(flat, B, pts, inv_scale):
-    lib = _lib()
+    """csrc/occupancy.cu: the PE and the five wide layers as tiled GEMMs,
+    then a head kernel; the activations in a workspace of `oc_fwd_ws_cols`
+    floats a row (rows rounded up to 4)."""
+    lib = _lib("occupancy")
     N = pts.shape[0]
     _check(pts.device, {"pts": (pts, (N, 3)), "params": (flat, (OC_P,)),
                         "B": (B, (N_DIRS, 3))})
-    out = torch.empty(N, 4, device=pts.device, dtype=torch.float32)
+    dev = pts.device
+    out = torch.empty(N, 4, device=dev, dtype=torch.float32)
     if N == 0:
         return out
-    err = lib.oc_fwd(_ptr(pts), _ptr(flat), _ptr(B), _ptr(out), N,
-                     inv_scale, _stream(pts.device))
+    workspace = torch.empty(-(-N // 4) * 4 * _LAYOUT["oc_fwd_ws_cols"],
+                            device=dev, dtype=torch.float32)
+    err = lib.oc_fwd(_ptr(pts), _ptr(flat), _ptr(B), _ptr(out),
+                     _ptr(workspace), N, inv_scale, _stream(dev))
     _raise_on(err, "oc_fwd")
     LAUNCHES["occupancy_fwd"] += 1
     return out
 
 
 def occupancy_bwd_cuda(flat, B, pts, dout, inv_scale):
-    """csrc/occupancy_bwd.cu: the recompute and the backward as a chain of
+    """csrc/occupancy.cu: the recompute and the backward as a chain of
     tiled GEMMs and row kernels, its activations and deltas in a workspace
-    of `oc_bwd_ws_cols` floats a row (rows rounded up to 4), the weight
-    gradients as `oc_bwd_chunks` per-chunk partials reduced in order."""
-    lib = _lib("occupancy_bwd")
+    of `oc_ws_cols` floats a row (rows rounded up to 4), the weight
+    gradients as `oc_chunks` per-chunk partials reduced in order."""
+    lib = _lib("occupancy")
     N = pts.shape[0]
     _check(pts.device, {"pts": (pts, (N, 3)), "params": (flat, (OC_P,)),
                         "B": (B, (N_DIRS, 3)), "dout": (dout, (N, 4))})
@@ -642,9 +712,9 @@ def occupancy_bwd_cuda(flat, B, pts, dout, inv_scale):
     if N == 0:
         grads.zero_()
     else:
-        partial = torch.empty(_LAYOUT["oc_bwd_chunks"], OC_P + B_SIZE,
+        partial = torch.empty(_LAYOUT["oc_chunks"], OC_P + B_SIZE,
                               device=dev, dtype=torch.float32)
-        workspace = torch.empty(-(-N // 4) * 4 * _LAYOUT["oc_bwd_ws_cols"],
+        workspace = torch.empty(-(-N // 4) * 4 * _LAYOUT["oc_ws_cols"],
                                 device=dev, dtype=torch.float32)
         err = lib.oc_bwd(_ptr(pts), _ptr(flat), _ptr(B), _ptr(dout),
                          _ptr(dpts), _ptr(partial), _ptr(grads),
@@ -655,35 +725,55 @@ def occupancy_bwd_cuda(flat, B, pts, dout, inv_scale):
 
 
 GEMM_LAYOUTS = ("nn", "nt", "tn")
-GEMM_EPILOGUES = ("bias_relu", "mask", "accumulate")
+# the epilogues of csrc/gemm_f32.cuh, in its order
+GEMM_EPILOGUES = ("bias_relu", "mask", "accumulate", "bias", "bias_relu_add",
+                  "grad_mask")
+# oc_gemm (the 128-wide block) builds every layout with the first three;
+# cn_gemm (the 32-wide, batched) the pairs the CodeNeRF backward uses
+OC_GEMM_EPILOGUES = GEMM_EPILOGUES[:3]
+CN_GEMM_CASES = (("nn", "bias_relu"), ("nn", "bias"), ("nn", "bias_relu_add"),
+                 ("nt", "mask"), ("nt", "accumulate"), ("nt", "grad_mask"),
+                 ("tn", "mask"))
 
 
 def _gemm_operands(layout, a, b):
-    """op(a) [M, K], op(b) [K, N] of a layout: nn a [M, K], b [K, N];
-    nt a [M, K], b [N, K]; tn a [K, M], b [K, N]."""
+    """op(a) [..., M, K], op(b) [..., K, N] of a layout: nn a [M, K],
+    b [K, N]; nt a [M, K], b [N, K]; tn a [K, M], b [K, N]."""
     if layout not in GEMM_LAYOUTS:
         raise ValueError(f"layout {layout!r} not in {GEMM_LAYOUTS}")
-    return (a.T if layout == "tn" else a), (b.T if layout == "nt" else b)
+    t = lambda x: x.transpose(-1, -2)
+    return (t(a) if layout == "tn" else a), (t(b) if layout == "nt" else b)
 
 
-def oc_gemm_plain(layout, epilogue, a, b, c, bias=None, mask=None, u=None,
-                  v=None):
-    """The GEMM block of csrc/occupancy_bwd.cu: c [M, N] (a view, written in
-    place) = epilogue(op(a) @ op(b)). bias_relu: relu(. + bias[N]); mask:
-    on the first mask.shape[1] columns (. + u[M] v^T) * [mask > 0], the
-    other columns as they are (u, v optional; no mask: a plain store);
-    accumulate: c + . . Returns c."""
+def gemm_plain(layout, epilogue, a, b, c, bias=None, mask=None, u=None,
+               v=None, z=None, c2=None):
+    """The GEMM block of csrc/gemm_f32.cuh, batched over leading dims:
+    c [..., M, N] (a view, written in place) = epilogue(op(a) @ op(b)).
+      bias_relu: relu(. + bias[..., N]);  bias: . + bias;
+      bias_relu_add: relu(. + bias), and c2 = that + z;
+      mask: on the first mask.shape[-1] columns (. + u v^T) * [mask > 0]
+        (u, v optional), the other columns as they are (no mask: a plain
+        store);
+      grad_mask: ., and c2 = .[..., :k] * [mask > 0] (k = mask's width);
+      accumulate: c + . .
+    Returns c."""
     A, Bm = _gemm_operands(layout, a, b)
     p = A @ Bm
-    if epilogue == "bias_relu":
-        p = torch.relu(p + bias)
+    if epilogue in ("bias_relu", "bias", "bias_relu_add"):
+        p = p + bias.unsqueeze(-2)
+        if epilogue != "bias":
+            p = torch.relu(p)
+        if epilogue == "bias_relu_add":
+            c2.copy_(p + z)
     elif epilogue == "mask":
         if mask is not None:
-            k = mask.shape[1]
-            head = p[:, :k]
+            k = mask.shape[-1]
+            head = p[..., :k]
             if u is not None:
-                head = head + u[:, None] * v[None, :]
-            p = torch.cat([head * (mask > 0), p[:, k:]], dim=1)
+                head = head + u.unsqueeze(-1) * v.unsqueeze(-2)
+            p = torch.cat([head * (mask > 0), p[..., k:]], dim=-1)
+    elif epilogue == "grad_mask":
+        c2.copy_(p[..., :mask.shape[-1]] * (mask > 0))
     elif epilogue == "accumulate":
         p = c + p
     else:
@@ -691,12 +781,23 @@ def oc_gemm_plain(layout, epilogue, a, b, c, bias=None, mask=None, u=None,
     return c.copy_(p)
 
 
+def _same_device_f32(what, device, tensors):
+    for name, x in tensors:
+        if x is not None and (x.device != device
+                              or x.dtype != torch.float32):
+            raise ValueError(f"{what}: {name} must be float32 on {device}")
+
+
 def oc_gemm_cuda(layout, epilogue, a, b, c, bias=None, mask=None, u=None,
                  v=None):
-    """oc_gemm_plain's contract on the card: every matrix a float32 view on
+    """gemm_plain's contract for the 128-wide block on the card, one
+    product, epilogues OC_GEMM_EPILOGUES: every matrix a float32 view on
     one device with unit column stride (the row stride is its leading
     dimension); bias, u and v contiguous."""
-    lib = _lib("occupancy_bwd")
+    lib = _lib("occupancy")
+    if epilogue not in OC_GEMM_EPILOGUES:
+        raise ValueError(f"oc_gemm: epilogue {epilogue!r} not in "
+                         f"{OC_GEMM_EPILOGUES}")
     A, Bm = _gemm_operands(layout, a, b)
     (M, K), (K2, N) = A.shape, Bm.shape
     if K2 != K or tuple(c.shape) != (M, N):
@@ -710,11 +811,9 @@ def oc_gemm_cuda(layout, epilogue, a, b, c, bias=None, mask=None, u=None,
     for name, (x, n) in vecs.items():
         if x is not None and (x.shape != (n,) or not x.is_contiguous()):
             raise ValueError(f"oc_gemm: {name} must be contiguous [{n}]")
-    for name, x in (("a", a), ("b", b), ("c", c), ("bias", bias),
-                    ("mask", mask), ("u", u), ("v", v)):
-        if x is not None and (x.device != c.device
-                              or x.dtype != torch.float32):
-            raise ValueError(f"oc_gemm: {name} must be float32 on {c.device}")
+    _same_device_f32("oc_gemm", c.device, (("a", a), ("b", b), ("c", c),
+                                           ("bias", bias), ("mask", mask),
+                                           ("u", u), ("v", v)))
     if epilogue == "bias_relu" and bias is None:
         raise ValueError("oc_gemm: bias_relu needs a bias")
     if mask is not None and (mask.shape[0] != M or mask.shape[1] > N):
@@ -731,6 +830,59 @@ def oc_gemm_cuda(layout, epilogue, a, b, c, bias=None, mask=None, u=None,
                       _stream(c.device))
     _raise_on(err, "oc_gemm")
     LAUNCHES["oc_gemm"] += 1
+    return c
+
+
+def cn_gemm_cuda(layout, epilogue, a, b, c, bias=None, mask=None, z=None,
+                 c2=None):
+    """gemm_plain's contract for the 32-wide block on the card, batched
+    over one leading dim (the category, blockIdx.z), for the pairs of
+    CN_GEMM_CASES: every matrix [C, rows, cols] and every vector [C, n] a
+    float32 view with unit column stride (rows and batches at any stride
+    below 2^31 floats)."""
+    lib = _lib("codenerf_bwd")
+    if (layout, epilogue) not in CN_GEMM_CASES:
+        raise ValueError(f"cn_gemm: ({layout!r}, {epilogue!r}) not in "
+                         f"{CN_GEMM_CASES}")
+    A, Bm = _gemm_operands(layout, a, b)
+    (C, M, K), (C2, K2, N) = A.shape, Bm.shape
+    if (C2, K2) != (C, K) or tuple(c.shape) != (C, M, N):
+        raise ValueError(f"cn_gemm: op(a) {tuple(A.shape)}, op(b) "
+                         f"{tuple(Bm.shape)}, c {tuple(c.shape)}")
+    k = 0 if mask is None else mask.shape[-1]
+    want = {"a": (a, 3, None), "b": (b, 3, None), "c": (c, 3, None),
+            "bias": (bias, 2, (C, N)), "mask": (mask, 3, (C, M, k)),
+            "z": (z, 3, (C, M, N)),
+            "c2": (c2, 3, (C, M, N if epilogue == "bias_relu_add" else k))}
+    for name, (x, dim, shape) in want.items():
+        if x is None:
+            continue
+        if x.dim() != dim or x.stride(-1) != 1 or max(x.stride()) >= 2**31:
+            raise ValueError(f"cn_gemm: {name} needs {dim} dims, unit column "
+                             f"stride and strides below 2^31")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"cn_gemm: {name} {tuple(x.shape)} != {shape}")
+    _same_device_f32("cn_gemm", c.device,
+                     [(name, x) for name, (x, _, _) in want.items()])
+    needs = {"bias_relu": ("bias",), "bias": ("bias",),
+             "bias_relu_add": ("bias", "z", "c2"),
+             "grad_mask": ("mask", "c2")}.get(epilogue, ())
+    if any(want[name][0] is None for name in needs):
+        raise ValueError(f"cn_gemm: {epilogue} needs {needs}")
+    if k > N:
+        raise ValueError(f"cn_gemm: mask {tuple(mask.shape)} for c "
+                         f"{tuple(c.shape)}")
+    ptr = lambda x: 0 if x is None else _ptr(x)
+    ld = lambda x: 0 if x is None else x.stride(-2)
+    bs = lambda x: 0 if x is None else x.stride(0)
+    err = lib.cn_gemm(GEMM_LAYOUTS.index(layout),
+                      GEMM_EPILOGUES.index(epilogue), C,
+                      ptr(a), ld(a), bs(a), ptr(b), ld(b), bs(b),
+                      ptr(c), ld(c), bs(c), M, N, K, ptr(bias), bs(bias),
+                      ptr(mask), ld(mask), bs(mask), k, ptr(z), ld(z), bs(z),
+                      ptr(c2), ld(c2), bs(c2), _stream(c.device))
+    _raise_on(err, "cn_gemm")
+    LAUNCHES["cn_gemm"] += 1
     return c
 
 
@@ -850,10 +1002,19 @@ def occupancy_bwd(flat, B, pts, dout, inv_scale):
 
 def oc_gemm(layout, epilogue, a, b, c, bias=None, mask=None, u=None,
             v=None):
-    """The background backward's GEMM block alone (oc_gemm_plain)."""
+    """The background chain's 128-wide GEMM block alone (gemm_plain)."""
     if _on_cuda(c):
         return oc_gemm_cuda(layout, epilogue, a, b, c, bias, mask, u, v)
-    return oc_gemm_plain(layout, epilogue, a, b, c, bias, mask, u, v)
+    return gemm_plain(layout, epilogue, a, b, c, bias, mask, u, v)
+
+
+def cn_gemm(layout, epilogue, a, b, c, bias=None, mask=None, z=None,
+            c2=None):
+    """The CodeNeRF backward's 32-wide GEMM block alone, batched over the
+    categories (gemm_plain, with no rank-1 term)."""
+    if _on_cuda(c):
+        return cn_gemm_cuda(layout, epilogue, a, b, c, bias, mask, z, c2)
+    return gemm_plain(layout, epilogue, a, b, c, bias, mask, z=z, c2=c2)
 
 
 def codenerf_packed_fwd(flat, B, pts, zs, inv_scale, tile):

@@ -8,20 +8,25 @@ Phases, each printing one or more lines:
 2. the build of the port's CUDA kernels from `catnerf_torch/csrc/`
    (one nvcc per source, started together, at first use), ptxas' reports
    into `chiprun_out/ptxas*.txt`, and the registers and stack frame of
-   each instantiation of the background backward's GEMM block (a stack
-   frame fails the run);
+   each instantiation of the GEMM block in the two libraries that build it
+   (`occupancy`, `codenerf_bwd`; a stack frame fails the run);
 3. each kernel against its plain PyTorch version on the card (forward
-   within 1e-5, gradients within 2e-4, each backward run twice and
-   bitwise equal), then timed beside its plain version and its bound
+   within 1e-5, gradients within 2e-4 (the CodeNeRF backward's: of its
+   plain version in float64, widened by the float32 plain version's own
+   error within each layer's block, `grad_bound`), each backward run
+   twice and bitwise equal), then timed beside its plain version and its bound
    (CUDA events around one call from an idle device, and per call with
    50 calls queued back to back, the device's time alone): the
    four kernels of the fused trainer at the training step's shapes, the
    packed-ensemble pair and the MLP-only kernel at the comparison's shape
    (C=8, N=2,100), at the step's (C=8, N=3,600), and the packed pair at a
-   ragged N (2,101); the background backward's bound both without and
-   with its forward recompute; then its GEMM block alone (16,800 x 128 x
-   128, NN, bias + ReLU) against its plain version, timed beside
-   `torch.matmul` on the same operands (a yardstick the port never calls);
+   ragged N (2,101); the two backwards' bounds both without and with their
+   forward recompute; the device time of each piece of the three GEMM
+   chains (kernels 2-4) under torch.profiler; then the GEMM block alone
+   against its plain version, timed beside one library call on the same
+   operands (a yardstick the port never calls): 128 wide at 16,800 x 128 x
+   128 beside `torch.matmul`, and 32 wide at C=8 x 3,600 x 32 x 32 beside
+   `torch.bmm` (NN, bias + ReLU: a forward layer of each chain);
 4. one training step on the card against the same step on the CPU (plain
    versions), on a small scene, for the fused config and for the
    strict-parity config (the XLA-path modules): every metric within 1e-5
@@ -67,6 +72,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 FWD_TOL = 1e-5
 GRAD_TOL = 2e-4
+# rows whose ReLU pre-activation lies this close to zero get dout = 0 in the
+# CodeNeRF backward's check (fused_field.codenerf_relu_margin): 54 of the
+# 28,800 rows of kernel_inputs, where float32 summation orders disagree on
+# the ReLU's derivative (one weight gradient then moved by 0.19)
+RELU_MARGIN = 1e-5
 # one step's metrics, float32 on the card against float32 on the CPU (two
 # summation orders; the step check prints each difference): relative, and
 # looser for the terms weighted by 1/sqrt(var) of the rendered depth, a
@@ -166,6 +176,25 @@ def assert_close(name, xs, ys, tol, scaled=False):
                                    msg=lambda m: f"{name}[{i}]: {m}")
 
 
+def assert_close_exact(name, xs, exact, plain, tol, layers):
+    """Each x within fused_field.grad_bound of the exact result (the plain
+    version in float64): tol (absolute plus relative), plus twice the
+    float32 plain version's own largest error within the element's block
+    (each layer's weights and bias of the first, flat, gradient)."""
+    from catnerf_torch.kernels import fused_field as ff
+
+    for i, (x, e, p) in enumerate(zip(xs, exact, plain)):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{name}[{i}]: kernel output not finite")
+        err = (x.double() - e).abs()
+        lim = ff.grad_bound(e, p, tol, layers if i == 0 else None)
+        worst = float((err / lim).max())
+        if worst > 1.0:
+            raise AssertionError(f"{name}[{i}]: max error "
+                                 f"{float(err.max()):.3e}, {worst:.2f} x its "
+                                 f"bound")
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
@@ -209,6 +238,12 @@ def kernel_inputs(dev):
         zs=tuple(torch.relu(torch.randn(C, N, 32, generator=gen))
                  for _ in range(4)),
         dout=torch.randn(C, N, 4, generator=gen))
+    margin = ff.codenerf_relu_margin(cn["flat"], cn["B"], cn["pts"],
+                                     cn["zs"], 0.5)
+    cn["dout"] = cn["dout"] * (margin >= RELU_MARGIN)[..., None]
+    log(f"kernel inputs: dout = 0 on {int((margin < RELU_MARGIN).sum())} of "
+        f"{C * N} CodeNeRF rows with a ReLU pre-activation within "
+        f"{RELU_MARGIN:g} of zero")
     oc = dict(flat=oc_flat, B=oc_B,
               pts=torch.randn(NB, 3, generator=gen) * 2.0,
               dout=torch.randn(NB, 4, generator=gen))
@@ -216,6 +251,10 @@ def kernel_inputs(dev):
                       else v.to(dev))
     return ({k: move(v) for k, v in cn.items()},
             {k: move(v) for k, v in oc.items()})
+
+
+def _f64(x):
+    return tuple(t.double() for t in x) if isinstance(x, tuple) else x.double()
 
 
 def _flatten(res):
@@ -249,25 +288,36 @@ def check_kernels(dev) -> list[dict]:
             flops=2 * 13648 * cn_rows),
         "codenerf_bwd": dict(
             replaces="catnerf_tpu/experimental/fused_field.py:135",
+            source="catnerf_torch/csrc/codenerf_bwd.cu",
             kernel=lambda: _flatten(ff.codenerf_bwd_cuda(
                 cn["flat"], cn["B"], cn["pts"], cn["zs"], cn["dout"], inv_cn)),
             plain=lambda: _flatten(ff.codenerf_bwd_plain(
                 cn["flat"], cn["B"], cn["pts"], cn["zs"], cn["dout"], inv_cn)),
+            # held to the plain version in float64 within grad_bound, as
+            # the card test does
+            layers=ff.CN_LAYERS,
+            exact=lambda: _flatten(ff.codenerf_bwd_plain(
+                *(_f64(cn[k]) for k in ("flat", "B", "pts", "zs", "dout")),
+                inv_cn)),
             tol=GRAD_TOL, bwd=True,
             nbytes=f * (cn_rows * (2 * cn_row_io + 4) + 2 * cn_prm),
-            flops=4 * 13648 * cn_rows),
+            # the backward's own work (input and weight gradients), and in
+            # the log also the work with the forward it recomputes
+            flops=4 * 13648 * cn_rows,
+            flops_recompute=6 * 13648 * cn_rows, pieces=True),
         "occupancy_fwd": dict(
             replaces="catnerf_tpu/experimental/fused_field.py:435",
+            source="catnerf_torch/csrc/occupancy.cu",
             kernel=lambda: (ff.occupancy_fwd_cuda(
                 oc["flat"], oc["B"], oc["pts"], inv_oc),),
             plain=lambda: (ff.occupancy_fwd_plain(
                 oc["flat"], oc["B"], oc["pts"], inv_oc),),
             tol=FWD_TOL, bwd=False,
             nbytes=f * (oc_rows * (3 + 4) + oc_prm),
-            flops=2 * 93696 * oc_rows),
+            flops=2 * 93696 * oc_rows, pieces=True),
         "occupancy_bwd": dict(
             replaces="catnerf_tpu/experimental/fused_field.py:445",
-            source="catnerf_torch/csrc/occupancy_bwd.cu",
+            source="catnerf_torch/csrc/occupancy.cu",
             kernel=lambda: _flatten(ff.occupancy_bwd_cuda(
                 oc["flat"], oc["B"], oc["pts"], oc["dout"], inv_oc)),
             plain=lambda: _flatten(ff.occupancy_bwd_plain(
@@ -277,14 +327,53 @@ def check_kernels(dev) -> list[dict]:
             # the backward's own work (input and weight gradients), and in
             # the log also the work with the forward it recomputes
             flops=4 * 93696 * oc_rows,
-            flops_recompute=6 * 93696 * oc_rows),
+            flops_recompute=6 * 93696 * oc_rows, pieces=True),
     }
-    return [dict(name=name, route="cuda",
+    rows = [dict(name=name, route="cuda",
                  source=spec.get("source",
                                  "catnerf_torch/csrc/fused_field.cu"),
                  replaces=spec["replaces"], launches=None,
                  **check_and_time(name, spec))
             for name, spec in specs.items()]
+    for name, spec in specs.items():
+        if spec.get("pieces"):
+            trace_pieces(name, spec["kernel"])
+    return rows
+
+
+def trace_pieces(name, fn, n: int = 20) -> None:
+    """The device time of each kernel a call of `fn` launches (a GEMM
+    chain's pieces), from torch.profiler over n calls back to back: per
+    call, by kernel name, with its launches a call. Prints "not measured"
+    when the profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us: dict[str, float] = {}
+    count: dict[str, int] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = re.sub(r"\(anonymous namespace\)::|^void ", "", e.name)
+        key = re.sub(r"\(.*\)$", "", key)
+        us[key] = us.get(key, 0.0) + e.time_range.elapsed_us()
+        count[key] = count.get(key, 0) + 1
+    if not us:
+        log(f"pieces of {name}: the profiler recorded no device activity; "
+            f"not measured")
+        return
+    log(f"pieces of {name}: {sum(us.values()) / n / 1e3:.4f} ms of device "
+        f"time a call in {sum(count.values()) / n:.0f} launches, by kernel "
+        f"(launches a call, ms a call): " + "; ".join(
+            f"{k} x{count[k] / n:g} {v / n / 1e3:.4f}"
+            for k, v in sorted(us.items(), key=lambda kv: -kv[1])))
 
 
 def ptxas_report(text: str) -> dict[str, tuple[int, int]]:
@@ -302,69 +391,88 @@ def ptxas_report(text: str) -> dict[str, tuple[int, int]]:
     return out
 
 
-def check_gemm_registers(log_text: str) -> None:
-    """Log each instantiation of the GEMM block (gemm_kernel<layout,
-    epilogue>, the grouped wgrad_kernel) with its registers and stack
-    frame; fail on a stack frame (a spill of the 8 x 8 accumulators)."""
+# library -> the GEMM block's instantiations it builds: gemm_kernel<width,
+# layout, epilogue> for each pair its chain (and its test entry) uses, and
+# the grouped weight-gradient kernel
+GEMM_LIBS = {"occupancy": 10, "codenerf_bwd": 8}
+
+
+def check_gemm_registers(lib: str, log_text: str, expected: int) -> None:
+    """Log each instantiation of the GEMM block in library `lib`
+    (gemm_kernel<width, layout, epilogue>, the grouped wgrad_kernel) with
+    its registers and stack frame; fail on a stack frame (a spill of the
+    register tile) or a count other than `expected`."""
     if not log_text:
-        log("ptxas occupancy_bwd.cu: library built before this process; "
+        log(f"ptxas {lib}.cu: library built before this process; "
             "registers not read")
         return
-    layouts, epilogues = ("NN", "NT", "TN"), ("bias_relu", "mask", "acc")
+    layouts = ("NN", "NT", "TN")
+    epilogues = ("bias_relu", "mask", "acc", "bias", "bias_relu_add",
+                 "grad_mask")
     found = []
     for name, (regs, frame) in sorted(ptxas_report(log_text).items()):
-        if m := re.search(r"gemm_kernelILi(\d)ELi(\d)E", name):
-            label = (f"gemm_kernel<{layouts[int(m.group(1))]}, "
-                     f"{epilogues[int(m.group(2))]}>")
+        if m := re.search(r"gemm_kernelILi(\d+)ELi(\d)ELi(\d)E", name):
+            label = (f"gemm_kernel<{m.group(1)}, {layouts[int(m.group(2))]}"
+                     f", {epilogues[int(m.group(3))]}>")
         elif "wgrad_kernel" in name:
             label = "wgrad_kernel (TN, grouped)"
         else:
             continue
         found.append((label, regs, frame))
-    log("ptxas occupancy_bwd.cu, GEMM block: " + "; ".join(
+    log(f"ptxas {lib}.cu, GEMM block: " + "; ".join(
         f"{lb} {r} registers, {fr}-byte stack frame" for lb, r, fr in found))
-    if len(found) != 10 or any(fr for _, _, fr in found):
-        raise AssertionError(f"GEMM block: {found}")
+    if len(found) != expected or any(fr for _, _, fr in found):
+        raise AssertionError(f"GEMM block of {lib}: {found}")
 
 
-def time_gemm_block(dev) -> dict:
-    """The background backward's GEMM block alone at 16,800 x 128 x 128
-    (NN, bias + ReLU: a forward layer of the recompute) against its plain
-    version, then timed beside torch.matmul on the same operands, the
-    yardstick of a library's f32 product (the port never calls it)."""
+def time_gemm_block(dev, width: int) -> dict:
+    """The GEMM block alone at a forward layer of its chain (NN, bias +
+    ReLU) against its plain version, then timed beside one library call on
+    the same operands, the yardstick of a library's f32 product (the port
+    never calls it): 128 wide (oc_gemm) at 16,800 x 128 x 128 beside
+    torch.matmul, 32 wide (cn_gemm) at C=8 batches of 3,600 x 32 x 32
+    beside torch.bmm."""
     from catnerf_torch.kernels import fused_field as ff
 
     gen = torch.Generator().manual_seed(5)
-    M, K, N = 16800, 128, 128
-    a = torch.randn(M, K, generator=gen).to(dev)
-    w = (torch.randn(K, N, generator=gen) / math.sqrt(K)).to(dev)
-    bias = torch.randn(N, generator=gen).to(dev)
-    c = torch.empty(M, N, device=dev)
-    kernel = lambda: ff.oc_gemm_cuda("nn", "bias_relu", a, w, c, bias=bias)
+    if width == 128:
+        C, M, K, N = (), 16800, 128, 128
+        run, library, lib_name = ff.oc_gemm_cuda, torch.matmul, "torch.matmul"
+    else:
+        C, M, K, N = (8,), 3600, 32, 32
+        run, library, lib_name = ff.cn_gemm_cuda, torch.bmm, "torch.bmm"
+    a = torch.randn(*C, M, K, generator=gen).to(dev)
+    w = (torch.randn(*C, K, N, generator=gen) / math.sqrt(K)).to(dev)
+    bias = torch.randn(*C, N, generator=gen).to(dev)
+    c = torch.empty(*C, M, N, device=dev)
+    kernel = lambda: run("nn", "bias_relu", a, w, c, bias=bias)
     got = kernel().clone()
     again = kernel().clone()
-    want = ff.oc_gemm_plain("nn", "bias_relu", a, w, torch.empty_like(c),
-                            bias=bias)
+    want = ff.gemm_plain("nn", "bias_relu", a, w, torch.empty_like(c),
+                         bias=bias)
     torch.cuda.synchronize()
-    assert_close("oc_gemm", (got,), (want,), GRAD_TOL, scaled=True)
+    name = f"gemm block {width} wide"
+    assert_close(name, (got,), (want,), GRAD_TOL, scaled=True)
     if not torch.equal(got, again):
-        raise AssertionError("oc_gemm: two runs differ bitwise")
-    library = lambda: torch.matmul(a, w)
-    ms, library_ms = cuda_ms(kernel, n=50), cuda_ms(library, n=50)
-    dev_ms, library_dev_ms = device_ms(kernel), device_ms(library)
-    flops = 2 * M * N * K
-    bound_ms, bound_by = bound(4 * (M * K + K * N + N + M * N), flops)
-    res = dict(shape=[M, N, K], layout="nn", epilogue="bias_relu",
-               max_abs_err=max_err((got,), (want,)), ms=ms,
-               device_ms=dev_ms, tflops=flops / dev_ms / 1e9,
-               bound_ms=bound_ms, bound_by=bound_by, library="torch.matmul",
+        raise AssertionError(f"{name}: two runs differ bitwise")
+    lib_call = lambda: library(a, w)
+    ms, library_ms = cuda_ms(kernel, n=50), cuda_ms(lib_call, n=50)
+    dev_ms, library_dev_ms = device_ms(kernel), device_ms(lib_call)
+    nb = math.prod(C)
+    flops = 2 * nb * M * N * K
+    bound_ms, bound_by = bound(4 * nb * (M * K + K * N + N + M * N), flops)
+    res = dict(width=width, batch=nb, shape=[M, N, K], layout="nn",
+               epilogue="bias_relu", max_abs_err=max_err((got,), (want,)),
+               ms=ms, device_ms=dev_ms, tflops=flops / dev_ms / 1e9,
+               bound_ms=bound_ms, bound_by=bound_by, library=lib_name,
                library_ms=library_ms, library_device_ms=library_dev_ms)
-    log(f"gemm block NN {M}x{N}x{K} bias+relu: {dev_ms:.4f} ms queued back "
-        f"to back, {res['tflops']:.2f} TFLOP/s f32 ({100 * bound_ms / dev_ms:.1f}%"
-        f" of the bound {bound_ms:.4f} ms, {bound_by}), {ms:.4f} ms a call "
-        f"from idle; library_ms (torch.matmul, same operands) "
-        f"{library_dev_ms:.4f} ms queued, {library_ms:.4f} ms a call; "
-        f"max_abs_err {res['max_abs_err']:.3e}, bitwise repeatable")
+    log(f"{name} NN {nb} x {M}x{N}x{K} bias+relu: {dev_ms:.4f} ms queued "
+        f"back to back, {res['tflops']:.2f} TFLOP/s f32 "
+        f"({100 * bound_ms / dev_ms:.1f}% of the bound {bound_ms:.4f} ms, "
+        f"{bound_by}), {ms:.4f} ms a call from idle; library_ms ({lib_name},"
+        f" same operands) {library_dev_ms:.4f} ms queued, {library_ms:.4f} "
+        f"ms a call; max_abs_err {res['max_abs_err']:.3e}, bitwise "
+        f"repeatable")
     log(json.dumps({"gemm_block": res}))
     return res
 
@@ -375,8 +483,18 @@ def check_and_time(name, spec, label="") -> dict:
     got = spec["kernel"]()
     torch.cuda.synchronize()
     want = spec["plain"]()
-    assert_close(name + label, got, want, spec["tol"],
-                 spec.get("scaled", False))
+    if "exact" in spec:
+        exact = spec["exact"]()
+        assert_close_exact(name + label, got, exact, want, spec["tol"],
+                           spec["layers"])
+        log(f"kernel {name}{label}: max_abs_err {max_err(got, exact):.3e} "
+            f"against the float64 plain version, whose float32 run misses "
+            f"it by up to {max_err(want, exact):.3e}; "
+            f"{max_err(got, want):.3e} against the float32 one")
+        want = exact
+    else:
+        assert_close(name + label, got, want, spec["tol"],
+                     spec.get("scaled", False))
     if spec["bwd"]:
         again = spec["kernel"]()
         torch.cuda.synchronize()
@@ -716,10 +834,12 @@ def main() -> int:
         out = "ptxas.txt" if name == "fused_field" else f"ptxas_{name}.txt"
         with open(os.path.join(ROOT, "chiprun_out", out), "w") as fh:
             fh.write(build.build_log(name))
-    check_gemm_registers(build.build_log("occupancy_bwd"))
+    for name, count in GEMM_LIBS.items():
+        check_gemm_registers(name, build.build_log(name), count)
 
     rows = check_kernels(dev) + check_packed_kernels(dev)
-    time_gemm_block(dev)
+    for width in (128, 32):
+        time_gemm_block(dev, width)
     check_step(dev, fused_config(), "fused")
     check_step(dev, strict_config(), "strict-parity")
     scene = make_scene(**SCENE)

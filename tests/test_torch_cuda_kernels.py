@@ -7,13 +7,20 @@ without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
-Forward within 1e-5, every gradient within 2e-4, and the backward run twice
+Forward within 1e-5, every gradient within 2e-4 (the CodeNeRF backward's:
+of its plain version in float64, widened by the float32 plain version's own
+error within each layer's block, `grad_bound`), and the backward run twice
 bitwise equal (the weight gradients are reduced in a fixed order): the four
-kernels of the fused trainer, the packed-ensemble pair (ragged N included)
-and the MLP-only kernel. The background backward's GEMM block alone, for
-each layout and epilogue, at 1, 16,800 and 16,801 rows: within 2e-4 of the
-output's scale (sums of up to 16,800 terms), bitwise repeatable. One
-kernel's tests alone: `-k "gemm or occupancy"`.
+kernels of the fused trainer (the CodeNeRF pair at C=8 and N = 1, 77,
+3,600, 3,601; the background pair at N = 1, 77, 16,800, 16,801), the
+packed-ensemble pair (ragged N included) and the MLP-only kernel. The GEMM
+block of csrc/gemm_f32.cuh alone, for each layout and epilogue its chains
+use: 128 wide (the background's) at 1, 16,800 and 16,801 rows, 32 wide and
+batched over C=8 categories (the CodeNeRF backward's) at 1, 3,600 and 3,601
+rows; within 2e-4 of the output's scale (sums of up to 16,800 terms),
+bitwise repeatable. One piece's tests alone, the quick loop for an edit:
+`-k codenerf_kernel` (kernels 1-2), `-k occupancy_kernel` (3-4),
+`-k gemm_block` (the 128-wide block), `-k cn_gemm` (the 32-wide block).
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from catnerf_torch.kernels import fused_field as tff
 from catnerf_torch.models.codenerf import CodeNeRF
 from catnerf_torch.models.embedding import UniDirsEmbed
 from catnerf_torch.models.occupancy import OccupancyMap
+from test_torch_codenerf_gemm import (CASE_LIST, block_epilogue,
+                                     cn_gemm_case)
 from test_torch_occupancy_gemm import EPILOGUES, gemm_case, gemm_epilogue
 
 torch.set_num_threads(1)
@@ -48,16 +57,18 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [100, 3600])
+@pytest.mark.parametrize("N", [1, 77, 3600, 3601])
 def test_cuda_codenerf_kernel_matches_plain(cuda_device, N):
     gen = torch.Generator().manual_seed(N)
-    C = 3
+    C = 8
     flat = tff.pack(tff._cn_modules(CodeNeRF.init(gen, C))).detach()
     B = UniDirsEmbed.init((C,)).B.detach()
     pts = torch.randn(C, N, 3, generator=gen)
     zs = tuple(torch.relu(torch.randn(C, N, 32, generator=gen))
                for _ in range(4))
     dout = torch.randn(C, N, 4, generator=gen)
+    # no gradient from rows at a ReLU's kink (codenerf_relu_margin)
+    dout *= (tff.codenerf_relu_margin(flat, B, pts, zs, 0.5) >= 1e-5)[..., None]
     args = [x.to(cuda_device) for x in (flat, B, pts)]
     zd = tuple(z.to(cuda_device) for z in zs)
     dd = dout.to(cuda_device)
@@ -66,11 +77,19 @@ def test_cuda_codenerf_kernel_matches_plain(cuda_device, N):
     assert tff.LAUNCHES["codenerf_fwd"] == before + 1
     _close(out, tff.codenerf_fwd_plain(*args, zd, 0.5), FWD_TOL)
     got = tff.codenerf_bwd(*args, zd, dd, 0.5)
-    want = tff.codenerf_bwd_plain(*args, zd, dd, 0.5)
+    plain = tff.codenerf_bwd_plain(*args, zd, dd, 0.5)
+    exact = tff.codenerf_bwd_plain(*(x.double() for x in args),
+                                   tuple(z.double() for z in zd),
+                                   dd.double(), 0.5)
     again = tff.codenerf_bwd_cuda(*args, zd, dd, 0.5)
-    for x, y, z in zip(got[:3] + got[3], want[:3] + want[3],
-                       again[:3] + again[3]):
-        _close(x, y, GRAD_TOL)
+    flat3 = lambda r: r[:3] + r[3]
+    for i, (x, y, e, z) in enumerate(zip(flat3(got), flat3(plain),
+                                         flat3(exact), flat3(again))):
+        err = (x.double() - e).abs()
+        lim = tff.grad_bound(e, y, GRAD_TOL, tff.CN_LAYERS if i == 0 else None)
+        assert bool((err <= lim).all()), (
+            f"output {i}: max error {float(err.max()):.3e}, "
+            f"{float((err / lim).max()):.2f} x its bound")
         assert torch.equal(x, z)
 
 
@@ -98,9 +117,10 @@ def test_cuda_occupancy_kernel_matches_plain(cuda_device, N):
 
 def _copy_view(v):
     """A copy of a column view inside a buffer as wide as its own."""
-    off = v.storage_offset() % v.stride(0)
-    buf = torch.zeros(v.shape[0], v.stride(0), device=v.device)
-    out = buf[:, off:off + v.shape[1]]
+    ld = v.stride(-2)
+    off = v.storage_offset() % ld
+    buf = torch.zeros(*v.shape[:-1], ld, device=v.device)
+    out = buf[..., off:off + v.shape[-1]]
     return out.copy_(v)
 
 
@@ -111,7 +131,7 @@ def _copy_view(v):
 @pytest.mark.parametrize("layout", tff.GEMM_LAYOUTS)
 def test_cuda_gemm_block_matches_plain(cuda_device, layout, epilogue, layer,
                                        M):
-    """The GEMM block of csrc/occupancy_bwd.cu against oc_gemm_plain on the
+    """The 128-wide GEMM block of csrc/occupancy.cu against gemm_plain on the
     card (views at the backward's leading dimensions, ragged edges), and
     twice, bitwise equal."""
     kw, _ = gemm_case(layout, epilogue, layer, M, seed=M, device=cuda_device)
@@ -124,13 +144,48 @@ def test_cuda_gemm_block_matches_plain(cuda_device, layout, epilogue, layer,
         tff.oc_gemm(layout, epi, c=c, **kw)
         assert tff.LAUNCHES["oc_gemm"] == before + 1
         runs.append(c)
-    want = tff.oc_gemm_plain(layout, epi, c=c0.clone(), **kw)
+    want = tff.gemm_plain(layout, epi, c=c0.clone(), **kw)
     torch.cuda.synchronize()
     assert runs[0].stride() == c0.stride()
     scale = max(1.0, float(want.abs().max()))
     np.testing.assert_allclose(runs[0].cpu().numpy(), want.cpu().numpy(),
                                rtol=GRAD_TOL, atol=GRAD_TOL * scale)
     assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 3600, 3601])
+@pytest.mark.parametrize("layer", ["e", "c", "r0"])
+@pytest.mark.parametrize("layout,epilogue", CASE_LIST)
+def test_cuda_cn_gemm_block_matches_plain(cuda_device, layout, epilogue,
+                                          layer, M):
+    """The 32-wide GEMM block of csrc/codenerf_bwd.cu, batched over C=8
+    categories, against gemm_plain on the card (views at the chain's
+    leading dimensions, ragged edges), both outputs of the two-output
+    epilogues, and twice, bitwise equal."""
+    kw, _ = cn_gemm_case(layout, epilogue, layer, 8, M, seed=M,
+                         device=cuda_device)
+    epi = block_epilogue(epilogue)
+    c0, c20 = kw.pop("c"), kw.pop("c2", None)
+    runs = []
+    for _ in range(2):
+        c = _copy_view(c0)
+        c2 = None if c20 is None else _copy_view(c20)
+        before = tff.LAUNCHES["cn_gemm"]
+        tff.cn_gemm(layout, epi, c=c, c2=c2, **kw)
+        assert tff.LAUNCHES["cn_gemm"] == before + 1
+        runs.append((c, c2))
+    want2 = None if c20 is None else c20.clone()
+    want = tff.gemm_plain(layout, epi, c=c0.clone(), c2=want2, **kw)
+    torch.cuda.synchronize()
+    for got, ref in zip(runs[0], (want, want2)):
+        if ref is None:
+            continue
+        scale = max(1.0, float(ref.abs().max()))
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL * scale)
+    for x, y in zip(*runs):
+        assert x is None or torch.equal(x, y)
 
 
 @pytest.mark.cuda

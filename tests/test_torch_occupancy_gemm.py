@@ -1,10 +1,12 @@
-"""The background backward's GEMM block (csrc/occupancy_bwd.cu) in its
-plain version, and the ctypes signatures of every kernel library.
+"""The background chain's GEMM block (csrc/gemm_f32.cuh at its 128-wide
+tile, `oc_gemm` of csrc/occupancy.cu) in its plain version, and the ctypes
+signatures of every kernel library.
 
-`oc_gemm_plain` is held against numpy float64 for its three operand layouts
-and its epilogues (the mask one with and without its rank-1 term), at the
-five layers' shapes of the backward (K, the leading dimension of the
-layer's input buffer, that of its output buffer) and a ragged row count.
+`gemm_plain` is held against numpy float64 for its three operand layouts
+and the epilogues oc_gemm builds (the mask one with and without its rank-1
+term), at the five layers' shapes of the backward (K, the leading dimension
+of the layer's input buffer, that of its output buffer) and a ragged row
+count.
 The CUDA block is held against it on the card by
 tests/test_torch_cuda_kernels.py, on the cases `gemm_case` makes. This
 file imports no jax.
