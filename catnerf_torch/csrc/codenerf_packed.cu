@@ -1,24 +1,24 @@
-// The packed-ensemble CodeNeRF ("categories in lanes"), forward and
-// backward, for Hopper (sm_90a), float32 throughout.
+// The packed-ensemble CodeNeRF ("categories in lanes") backward for Hopper
+// (sm_90a), float32 throughout.
 //
-// Replaces the Pallas TPU kernels of catnerf_tpu/experimental/fused_field.py:
-//   cn2_fwd_kernel <- _cn2_fwd_kernel (:773), called at :900
+// Replaces the Pallas TPU kernel of catnerf_tpu/experimental/fused_field.py:
 //   cn2_bwd_kernel <- _cn2_bwd_kernel (:786), called at :929
-// reduce_tiles (field_common.cuh) then sums the backward's partials.
+// reduce_tiles (field_common.cuh) then sums its partials. (The packed
+// forward, _cn2_fwd_kernel :773, is cn2_fwd in codenerf_fwd.cu.)
 //
-// The contract is the TPU kernels': point-major rows with the C categories
-// side by side, pts [N, 3C], z* [N, 32C], sigma [N, C], rgb [N, 3C]; the PE
-// is one product with the folded basis B2[k, f*21+d] = B[d,k] * f32(pi 2^f)
-// (slots f0..f3 | f4..f5), S = sin(t @ B2); the concat layers are split
-// products over [y | t | S] (_cn2_chain :739). On the TPU every layer is one
-// block-diagonal matmul over all categories in lanes. Here the categories'
-// weights (55.6 KB each, 445 KB for eight) do not fit one block's 227 KB of
-// shared memory, and the zeros of a block diagonal would be work for
-// nothing; so, as cn_fwd_kernel / cn_bwd_kernel (fused_field.cu), the grid
-// is (row tiles, C), one thread runs one point of one category through the
-// whole chain, that category's weights and B2 sit in shared memory, and the
-// point-major rows are read at strides 3C and 32C. What bounds the work is
-// the operations (13,648 + 378 multiply-adds per point and category).
+// The contract is the TPU kernel's: point-major rows with the C categories
+// side by side, pts [N, 3C], z* [N, 32C], dsigma [N, C], drgb [N, 3C]; the
+// PE is one product with the folded basis B2[k, f*21+d] = B[d,k] *
+// f32(pi 2^f) (slots f0..f3 | f4..f5, fold_b2), S = sin(t @ B2); the concat
+// layers are split products over [y | t | S] (_cn2_chain :739). On the TPU
+// every layer is one block-diagonal matmul over all categories in lanes.
+// Here the categories' weights (55.6 KB each, 445 KB for eight) do not fit
+// one block's 227 KB of shared memory, and the zeros of a block diagonal
+// would be work for nothing; so the grid is (row tiles, C), one thread
+// runs one point of one category through the recompute and the backward,
+// that category's weights and B2 sit in shared memory, and the point-major
+// rows are read at strides 3C and 32C. What bounds the work is the
+// operations (3 x 13,648 + 2 x 378 multiply-adds per point and category).
 //
 // The block size is the caller's `tile` (rows per block, a multiple of 32,
 // at most kMaxT). The backward stages each layer's inputs and deltas 32
@@ -37,8 +37,6 @@
 
 namespace {
 
-constexpr int kS = 6 * kDirs;      // 126 folded PE slots
-constexpr int kB2 = 3 * kS;        // 378
 constexpr int kB2Pad = 384;        // keeps what follows 16-byte aligned
 constexpr int kMaxT = 384;         // rows per block at most
 constexpr int kRows = 32;          // rows staged at a time in the backward
@@ -46,27 +44,8 @@ constexpr int PP2 = cn::P + kB2;   // partial row: params then dB2
 // staging: the widest layer's [x | d] rows (cat_layer: 119 + 32)
 constexpr int kStage = (((cn::W + kE1) | 1) + (cn::W | 1)) * kRows;
 constexpr int kAcc = (cn::W + kE1) * cn::W + cn::W;
-constexpr size_t kSmemFwd = (cn::P + kB2Pad) * sizeof(float);
 constexpr size_t kSmemBwd = (cn::P + kB2Pad + kStage + kAcc) * sizeof(float);
 static_assert(kSmemBwd <= 232448, "smem");
-
-// B2[j][f*21+d] = B[d][j] * f32(pi 2^f) for this block's category.
-__device__ __forceinline__ void fold_b2(const float* __restrict__ B,
-                                        float* B2) {
-  for (int e = threadIdx.x; e < kB2; e += blockDim.x) {
-    const int j = e / kS;
-    const int s = e - j * kS;
-    const int f = s / kDirs;
-    const int d = s - f * kDirs;
-    B2[e] = B[3 * d + j] * (kPi * static_cast<float>(1 << f));
-  }
-}
-
-// sinarg[s] = (t @ B2)[s], an FMA chain over k = 0, 1, 2 (as a K=3 matmul).
-__device__ __forceinline__ float sinarg(const float t[3], const float* B2,
-                                        int s) {
-  return fmaf(t[2], B2[2 * kS + s], fmaf(t[1], B2[kS + s], t[0] * B2[s]));
-}
 
 // emb1 = [t, S[0:84]], emb2 = S[84:126], S = sin(t @ B2).
 __device__ __forceinline__ void packed_embed(const float t[3],
@@ -78,39 +57,6 @@ __device__ __forceinline__ void packed_embed(const float t[3],
   for (int s = 0; s < kE1 - 3; ++s) emb1[3 + s] = sinf(sinarg(t, B2, s));
   for (int s = 0; s < kE2; ++s)
     emb2[s] = sinf(sinarg(t, B2, kE1 - 3 + s));
-}
-
-// grid (ceil(N / tile), C), blockDim.x = tile
-__global__ void __launch_bounds__(kMaxT)
-    cn2_fwd_kernel(const float* __restrict__ pts,
-                   const float* __restrict__ zs0, const float* __restrict__ zc,
-                   const float* __restrict__ zs1,
-                   const float* __restrict__ zt0,
-                   const float* __restrict__ params,
-                   const float* __restrict__ Bg, float* __restrict__ sg_out,
-                   float* __restrict__ col_out, int N, int C,
-                   float inv_scale) {
-  extern __shared__ float4 smem4[];
-  float* sW = reinterpret_cast<float*>(smem4);
-  float* sB2 = sW + cn::P;
-  const int c = blockIdx.y;
-  block_copy(sW, params + static_cast<size_t>(c) * cn::P, cn::P);
-  fold_b2(Bg + c * kBSize, sB2);
-  __syncthreads();
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
-  const size_t r = row;
-  constexpr int W = cn::W;
-  const size_t zoff = r * W * C + static_cast<size_t>(W) * c;
-
-  float t[3], emb1[kE1], emb2[kE2];
-  for (int j = 0; j < 3; ++j) t[j] = pts[r * 3 * C + 3 * c + j] * inv_scale;
-  packed_embed(t, sB2, emb1, emb2);
-  float sg, a7[3];
-  cn_chain<true>(sW, emb1, emb2, zs0 + zoff, zc + zoff, zs1 + zoff,
-                 zt0 + zoff, sg, a7);
-  sg_out[r * C + c] = sg * 10.f;
-  for (int j = 0; j < 3; ++j) col_out[r * 3 * C + 3 * c + j] = sigmoidf(a7[j]);
 }
 
 // + dsg [N, C], dcol [N, 3C] -> dpts [N, 3C], dz* [N, 32C], and one partial
@@ -261,23 +207,6 @@ int packed_layout(int* out) {
   out[2] = kMaxT;
   out[3] = kRows;
   return 0;
-}
-
-// pts [N,3C], z* [N,32C], params [C,P], B [C,21,3] -> sg [N,C], col [N,3C]
-int cn2_fwd(const float* pts, const float* zs0, const float* zc,
-            const float* zs1, const float* zt0, const float* params,
-            const float* B, float* sg, float* col, int C, int N, int tile,
-            float inv_scale, void* stream) {
-  if (tile <= 0 || tile > kMaxT || tile % kRows != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(
-      cn2_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemFwd));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((N + tile - 1) / tile, C);
-  cn2_fwd_kernel<<<grid, tile, kSmemFwd, static_cast<cudaStream_t>(stream)>>>(
-      pts, zs0, zc, zs1, zt0, params, B, sg, col, N, C, inv_scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // + dsg [N,C], dcol [N,3C] -> dpts [N,3C], dz* [N,32C], grads [C, P + 378]

@@ -1,8 +1,9 @@
 // Building blocks shared by the field kernels (fused_field.cu,
-// codenerf_packed.cu, codenerf_bwd.cu, occupancy.cu): the flat parameter
-// layouts, the per-thread positional encoding and its backward, dense
-// layers and their transposes, the CodeNeRF chain, the block-level weight
-// gradients and the fixed-order reduction of the per-block partials.
+// codenerf_fwd.cu, codenerf_packed.cu, codenerf_bwd.cu, occupancy.cu): the
+// flat parameter layouts, the per-thread positional encoding and its
+// backward, the packed kernels' folded basis, dense layers and their
+// transposes, the CodeNeRF chain, the block-level weight gradients and the
+// fixed-order reduction of the per-block partials.
 // Float32 throughout, no fast math; the GEMM block of the chains is
 // gemm_f32.cuh.
 
@@ -219,6 +220,30 @@ __device__ __forceinline__ void embed_bwd(const float* demb1,
   }
 }
 
+// The packed kernels' folded basis (codenerf_fwd.cu cn2_fwd,
+// codenerf_packed.cu cn2_bwd): B2[j][f*21+d] = B[d][j] * f32(pi 2^f), the
+// category's PE as one K = 3 product, S = sin(t @ B2) (_cn2_chain :739).
+constexpr int kS = 6 * kDirs;  // 126 folded PE slots
+constexpr int kB2 = 3 * kS;    // 378
+
+// B2 of one category from its B [21, 3], with the whole block.
+__device__ __forceinline__ void fold_b2(const float* __restrict__ B,
+                                        float* B2) {
+  for (int e = threadIdx.x; e < kB2; e += blockDim.x) {
+    const int j = e / kS;
+    const int s = e - j * kS;
+    const int f = s / kDirs;
+    const int d = s - f * kDirs;
+    B2[e] = B[3 * d + j] * (kPi * static_cast<float>(1 << f));
+  }
+}
+
+// sinarg[s] = (t @ B2)[s], an FMA chain over k = 0, 1, 2 (as a K=3 matmul).
+__device__ __forceinline__ float sinarg(const float t[3], const float* B2,
+                                        int s) {
+  return fmaf(t[2], B2[2 * kS + s], fmaf(t[1], B2[kS + s], t[0] * B2[s]));
+}
+
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
@@ -227,9 +252,6 @@ __device__ __forceinline__ float sigmoidf(float x) {
 // fused_field.py:81): emb1 = [t, sin f0..f3] (87), emb2 = [sin f4, f5]
 // (42), z* the row's four injections (32 each, in device memory), weights
 // in shared memory. Gives sg (before the x10) and a7 (before the sigmoid).
-// SPLIT_T sums the t rows and the sin rows of encoding_xyz and cat_layer
-// apart, as the packed kernel's split matmuls (_cn2_chain :739).
-template <bool SPLIT_T>
 __device__ __forceinline__ void cn_chain(const float* sW, const float* emb1,
                                          const float* emb2,
                                          const float* __restrict__ zs0,
@@ -239,18 +261,11 @@ __device__ __forceinline__ void cn_chain(const float* sW, const float* emb1,
                                          float& sg, float a7[3]) {
   constexpr int W = cn::W;
   float x[W], y[W], h[W];
-  if constexpr (SPLIT_T)
-    dense<3, kE1 - 3, W, true>(sW + cn::e_w, sW + cn::e_b, emb1, emb1 + 3, y);
-  else
-    dense<kE1, 0, W, true>(sW + cn::e_w, sW + cn::e_b, emb1, nullptr, y);
+  dense<kE1, 0, W, true>(sW + cn::e_w, sW + cn::e_b, emb1, nullptr, y);
   for (int k = 0; k < W; ++k) x[k] = y[k] + zs0[k];
   dense<W, 0, W, true>(sW + cn::s0_w, sW + cn::s0_b, x, nullptr, y);
   for (int k = 0; k < W; ++k) x[k] = y[k] + zc[k];
-  if constexpr (SPLIT_T)
-    dense3<W, 3, kE1 - 3, W, true>(sW + cn::c_w, sW + cn::c_b, x, emb1,
-                                   emb1 + 3, y);
-  else
-    dense<W, kE1, W, true>(sW + cn::c_w, sW + cn::c_b, x, emb1, y);
+  dense<W, kE1, W, true>(sW + cn::c_w, sW + cn::c_b, x, emb1, y);
   for (int k = 0; k < W; ++k) x[k] = y[k] + zs1[k];
   dense<W, 0, W, true>(sW + cn::s1_w, sW + cn::s1_b, x, nullptr, y);
   dense<W, 0, W, false>(sW + cn::en_w, sW + cn::en_b, y, nullptr, h);

@@ -13,10 +13,11 @@ Replaces the Pallas TPU kernels of the JAX package's
   codenerf_mlp_fwd     <- exp_kernel2.py mlp_kernel :73 (main.mlp_only)
 
 with CUDA C++ kernels for Hopper, one library per source: `csrc/
-fused_field.cu` (the CodeNeRF forward, the MLP-only kernel),
-`csrc/codenerf_packed.cu` (the packed pair), `csrc/codenerf_bwd.cu` (the
-CodeNeRF backward) and `csrc/occupancy.cu` (the background forward and
-backward). Each public function keeps the JAX contract
+codenerf_fwd.cu` (the CodeNeRF forward and the packed forward, one tiled
+chain kernel), `csrc/codenerf_bwd.cu` (the CodeNeRF backward),
+`csrc/occupancy.cu` (the background forward and backward),
+`csrc/codenerf_packed.cu` (the packed backward) and `csrc/fused_field.cu`
+(the MLP-only kernel). Each public function keeps the JAX contract
 (`codenerf_fused_apply` :384, `occupancy_fused_apply` :631,
 `codenerf_packed_apply` :958) and is differentiable through an
 `autograd.Function` whose backward is a kernel too; the MLP-only kernel
@@ -24,13 +25,19 @@ has no backward, as in the JAX script.
 
 What bounds them on an H100: the operations. Per sample point the
 CodeNeRF forward does 13,648 multiply-adds against 55.6 KB of weights that
-every point shares, and the background 93,696 against 377 KB. Two designs:
+every point shares, and the background 93,696 against 377 KB. Three
+designs:
 
-* the forwards of CodeNeRF and the packed pair run one thread per sample
+* the CodeNeRF forward and the packed forward are one chain kernel: a
+  block owns one category and 64 rows, stages the category's weights in
+  shared memory, computes the PE there, and runs each layer as a
+  register-tiled product out of shared memory (`TILE_LAYERS`), nothing in
+  device memory between layers;
+* the MLP-only kernel and the packed backward run one thread per sample
   point through the whole chain, activations in registers and local
   memory, the weights in shared memory (every lane of a warp reads the
-  same weight, a broadcast), and the packed backward as well, summing the
-  weight gradients of a block's rows in shared memory into one partial per
+  same weight, a broadcast), the packed backward summing the weight
+  gradients of a block's rows in shared memory into one partial per
   block;
 * the CodeNeRF backward and the background forward and backward are chains
   of tiled float32 GEMMs (`csrc/gemm_f32.cuh`: a 128 x 32 tile for the
@@ -62,7 +69,8 @@ import torch
 LAUNCHES = {"codenerf_fwd": 0, "codenerf_bwd": 0,
             "occupancy_fwd": 0, "occupancy_bwd": 0,
             "codenerf_packed_fwd": 0, "codenerf_packed_bwd": 0,
-            "codenerf_mlp_fwd": 0, "oc_gemm": 0, "cn_gemm": 0}
+            "codenerf_mlp_fwd": 0, "oc_gemm": 0, "cn_gemm": 0, "cn_tile": 0,
+            "cn_sin": 0}
 
 
 def reset_launch_counts() -> None:
@@ -76,8 +84,8 @@ B_SIZE = N_DIRS * 3
 N_SLOTS = _N_FREQS * N_DIRS  # 126 folded PE slots of the packed kernel
 B2_SIZE = 3 * N_SLOTS
 _LOW = 4 * N_DIRS  # 84: the slots of frequencies 2^0..2^3
-# the packed kernel's rows per block (`tile`): a multiple of PACKED_ROWS
-# (the rows its backward stages at a time), at most PACKED_MAX_TILE
+# the packed backward's rows per block (`tile`): a multiple of PACKED_ROWS
+# (the rows it stages at a time), at most PACKED_MAX_TILE
 PACKED_ROWS = 32
 PACKED_MAX_TILE = 384
 
@@ -359,6 +367,56 @@ def codenerf_mlp_fwd_plain(flat, emb1, emb2, zs):
     return torch.cat([sg, color], dim=-1)
 
 
+# --- one layer of the forward chain kernel (csrc/codenerf_fwd.cu) ---
+
+# The layers of the chain kernel in its order (its enum Layer): (name, the
+# widths of the pieces of the layer's input, output width, epilogue). The
+# last two are the packed forward's forms of the encoding and cat layers,
+# which sum the products of t and of the PE apart (_cn2_chain :739); each
+# takes the weights of the layer it splits.
+TILE_LAYERS = (("e", (87,), 32, "relu_add"), ("s0", (32,), 32, "relu_add"),
+               ("c", (32, 87), 32, "relu_add"), ("s1", (32,), 32, "relu"),
+               ("en", (32,), 32, "bias"), ("sg", (32,), 1, "sigma"),
+               ("vd", (32, 42), 32, "relu_add"), ("t0", (32,), 32, "relu"),
+               ("r0", (32,), 16, "relu"), ("r1", (16,), 3, "sigmoid"),
+               ("e_split", (3, 84), 32, "relu_add"),
+               ("c_split", (32, 3, 84), 32, "relu_add"))
+TILE_LAYER_NAMES = tuple(name for name, *_ in TILE_LAYERS)
+
+
+def tile_layer_spec(layer: str):
+    """(index in TILE_LAYERS, pieces, output width, epilogue) of a layer."""
+    if layer not in TILE_LAYER_NAMES:
+        raise ValueError(f"layer {layer!r} not in {TILE_LAYER_NAMES}")
+    i = TILE_LAYER_NAMES.index(layer)
+    return (i, *TILE_LAYERS[i][1:])
+
+
+def tile_layer_plain(layer, x, w, bias, z=None):
+    """One layer of the chain kernel, batched over leading dims: x [..., N,
+    K] (the layer's pieces side by side), w [..., K, OUT], bias [..., OUT],
+    z [..., N, OUT] (relu_add only):
+      y = epi(((x_1 w_1 + x_2 w_2) + x_3 w_3) + bias), the products of the
+    pieces added in order; relu_add: relu(.) + z; relu; bias: as it is;
+    sigma: . x10; sigmoid."""
+    _, pieces, _, epi = tile_layer_spec(layer)
+    acc, k0 = None, 0
+    for k in pieces:
+        part = x[..., k0:k0 + k] @ w[..., k0:k0 + k, :]
+        acc = part if acc is None else acc + part
+        k0 += k
+    y = acc + bias.unsqueeze(-2)
+    if epi in ("relu", "relu_add"):
+        y = torch.relu(y)
+    if epi == "relu_add":
+        y = y + z
+    elif epi == "sigma":
+        y = y * 10.0
+    elif epi == "sigmoid":
+        y = torch.sigmoid(y)
+    return y
+
+
 # --- the packed ensemble ("categories in lanes", ref: fused_field.py:640) ---
 
 
@@ -496,21 +554,27 @@ def codenerf_packed_bwd_plain(flat, B, pts, zs, dsg, dcol, inv_scale):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/fused_field.cu, csrc/codenerf_packed.cu,
-# csrc/codenerf_bwd.cu, csrc/occupancy.cu)
+# CUDA kernels (csrc/codenerf_fwd.cu, csrc/codenerf_bwd.cu,
+# csrc/occupancy.cu, csrc/codenerf_packed.cu, csrc/fused_field.cu)
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "fused_field": {
+    "codenerf_fwd": {
         "cn_fwd": [_P] * 8 + [_I, _I, _F, _P],
+        "cn2_fwd": [_P] * 9 + [_I, _I, _F, _P],
+        # layer (TILE_LAYERS index); x, w, bias, z, y; N; stream
+        "cn_tile_layer": [_I] + [_P] * 5 + [_I, _P],
+        "cn_sin": [_P, _P, _I, _P],
+        "codenerf_fwd_layout": [ctypes.POINTER(ctypes.c_int)],
+    },
+    "fused_field": {
         "cn_mlp_fwd": [_P] * 8 + [_I, _I, _P],
         "catnerf_layout": [ctypes.POINTER(ctypes.c_int)],
     },
     "codenerf_packed": {
-        "cn2_fwd": [_P] * 9 + [_I, _I, _I, _F, _P],
         "cn2_bwd": [_P] * 16 + [_I, _I, _I, _F, _P],
         "packed_layout": [ctypes.POINTER(ctypes.c_int)],
     },
@@ -536,7 +600,11 @@ LIBRARIES = tuple(_SIGNATURES)
 # library -> (its layout function, the names of the ints it writes, the
 # values the wrapper relies on)
 _LAYOUT_FNS = {
-    "fused_field": ("catnerf_layout", ("cn_p", "cn_fwd_t"), {"cn_p": CN_P}),
+    "codenerf_fwd": ("codenerf_fwd_layout",
+                     ("cn_fwd_p", "cn_fwd_rows", "cn_fwd_threads",
+                      "cn_fwd_smem"),
+                     {"cn_fwd_p": CN_P}),
+    "fused_field": ("catnerf_layout", ("cn_p", "mlp_rows"), {"cn_p": CN_P}),
     "codenerf_packed": ("packed_layout",
                         ("packed_p", "packed_b2", "packed_max_tile",
                          "packed_rows"),
@@ -603,9 +671,9 @@ def _ptr(x: torch.Tensor) -> int:
     return x.data_ptr()
 
 
-def _check(device, shapes: dict):
+def _check(device, shapes: dict, aligned=("params",)):
     """Every kernel argument: float32, contiguous, on `device`, with the
-    given shape; the flat parameters 16-byte aligned (float4 loads)."""
+    given shape; those named in `aligned` 16-byte aligned (float4 loads)."""
     for name, (x, shape) in shapes.items():
         if x.device != device or x.dtype != torch.float32:
             raise ValueError(f"{name}: need float32 on {device}, got "
@@ -614,8 +682,9 @@ def _check(device, shapes: dict):
             raise ValueError(f"{name}: shape {tuple(x.shape)} != {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
-    if shapes["params"][0].data_ptr() % 16:
-        raise ValueError("params: not 16-byte aligned")
+    for name in aligned:
+        if shapes[name][0].data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -627,12 +696,18 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_Z_NAMES = ("z0", "z1", "z2", "z3")
+
+
 def codenerf_fwd_cuda(flat, B, pts, zs, inv_scale):
-    lib = _lib()
+    """csrc/codenerf_fwd.cu `cn_fwd`: the tiled chain kernel, one launch
+    (grid: row tiles of `cn_fwd_rows` x the categories)."""
+    lib = _lib("codenerf_fwd")
     C, N, _ = pts.shape
     _check(pts.device, {"pts": (pts, (C, N, 3)), "params": (flat, (C, CN_P)),
                         "B": (B, (C, N_DIRS, 3)),
-                        **{f"z{i}": (z, (C, N, 32)) for i, z in enumerate(zs)}})
+                        **{k: (z, (C, N, 32)) for k, z in zip(_Z_NAMES, zs)}},
+           aligned=("params", *_Z_NAMES))
     out = torch.empty(C, N, 4, device=pts.device, dtype=torch.float32)
     if N == 0:
         return out
@@ -886,6 +961,47 @@ def cn_gemm_cuda(layout, epilogue, a, b, c, bias=None, mask=None, z=None,
     return c
 
 
+def cn_tile_layer_cuda(layer, x, w, bias, z=None):
+    """csrc/codenerf_fwd.cu `cn_tile_layer`: one layer of the chain kernel
+    alone (tile_layer_plain's contract without leading dims), through the
+    chain kernel's own code for it; a test entry. x [N, K], w [K, OUT],
+    bias [OUT], z [N, OUT] (relu_add only) -> y [N, OUT], all float32,
+    contiguous, on one CUDA device."""
+    index, pieces, out, epi = tile_layer_spec(layer)
+    N, K = x.shape[0], sum(pieces)
+    if (z is not None) != (epi == "relu_add"):
+        raise ValueError(f"cn_tile_layer: {layer} takes z only with a "
+                         f"relu_add epilogue ({epi})")
+    shapes = {"x": (x, (N, K)), "w": (w, (K, out)), "bias": (bias, (out,)),
+              **({} if z is None else {"z": (z, (N, out))})}
+    _check(x.device, shapes, aligned=() if z is None else ("z",))
+    lib = _lib("codenerf_fwd")
+    y = torch.empty(N, out, device=x.device, dtype=torch.float32)
+    if N == 0:
+        return y
+    err = lib.cn_tile_layer(index, _ptr(x), _ptr(w), _ptr(bias),
+                            0 if z is None else _ptr(z), _ptr(y), N,
+                            _stream(x.device))
+    _raise_on(err, "cn_tile_layer")
+    LAUNCHES["cn_tile"] += 1
+    return y
+
+
+def cn_sin_cuda(x):
+    """csrc/codenerf_fwd.cu `cn_sin`: the chain kernel's sine (`sin_f32`,
+    accurate over all floats, nothing in local memory) alone; a test
+    entry. x float32, contiguous, on a CUDA device."""
+    _check(x.device, {"x": (x, tuple(x.shape))}, aligned=())
+    lib = _lib("codenerf_fwd")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    _raise_on(lib.cn_sin(_ptr(x), _ptr(y), x.numel(), _stream(x.device)),
+              "cn_sin")
+    LAUNCHES["cn_sin"] += 1
+    return y
+
+
 def codenerf_mlp_fwd_cuda(flat, emb1, emb2, zs):
     lib = _lib()
     C, N, _ = emb1.shape
@@ -904,8 +1020,9 @@ def codenerf_mlp_fwd_cuda(flat, emb1, emb2, zs):
 
 
 def check_tile(tile) -> int:
-    """The packed kernel's rows per block: a multiple of PACKED_ROWS, at
-    most PACKED_MAX_TILE; anything else raises."""
+    """The packed kernels' `tile` (the JAX contract's rows per block; the
+    backward's rows per block): a multiple of PACKED_ROWS, at most
+    PACKED_MAX_TILE; anything else raises."""
     if (not isinstance(tile, int) or tile <= 0 or tile > PACKED_MAX_TILE
             or tile % PACKED_ROWS):
         raise ValueError(f"tile={tile!r}: the packed kernel takes a multiple "
@@ -918,21 +1035,25 @@ def _packed_shapes(flat, B, pts, zs):
     N = pts.shape[0]
     return C, N, {"pts": (pts, (N, 3 * C)), "params": (flat, (C, CN_P)),
                   "B": (B, (C, N_DIRS, 3)),
-                  **{f"z{i}": (z, (N, 32 * C)) for i, z in enumerate(zs)}}
+                  **{k: (z, (N, 32 * C)) for k, z in zip(_Z_NAMES, zs)}}
 
 
 def codenerf_packed_fwd_cuda(flat, B, pts, zs, inv_scale, tile):
-    lib = _lib("codenerf_packed")
+    """csrc/codenerf_fwd.cu `cn2_fwd`: the tiled chain kernel at the
+    point-major layout, one launch. `tile` is validated (check_tile) as the
+    JAX contract's argument; the tiled kernel picks its own row tile
+    (`cn_fwd_rows`)."""
+    check_tile(tile)
+    lib = _lib("codenerf_fwd")
     C, N, shapes = _packed_shapes(flat, B, pts, zs)
-    _check(pts.device, shapes)
+    _check(pts.device, shapes, aligned=("params", *_Z_NAMES))
     dev = pts.device
     sg = torch.empty(N, C, device=dev, dtype=torch.float32)
     col = torch.empty(N, 3 * C, device=dev, dtype=torch.float32)
     if N == 0:
         return sg, col
     err = lib.cn2_fwd(_ptr(pts), *(_ptr(z) for z in zs), _ptr(flat), _ptr(B),
-                      _ptr(sg), _ptr(col), C, N, check_tile(tile), inv_scale,
-                      _stream(dev))
+                      _ptr(sg), _ptr(col), C, N, inv_scale, _stream(dev))
     _raise_on(err, "cn2_fwd")
     LAUNCHES["codenerf_packed_fwd"] += 1
     return sg, col
@@ -1030,6 +1151,21 @@ def codenerf_packed_bwd(flat, B, pts, zs, dsg, dcol, inv_scale, tile):
     return codenerf_packed_bwd_plain(flat, B, pts, zs, dsg, dcol, inv_scale)
 
 
+def cn_tile_layer(layer, x, w, bias, z=None):
+    """One layer of the forward chain kernel alone (tile_layer_plain)."""
+    if _on_cuda(x):
+        return cn_tile_layer_cuda(layer, x, w, bias, z)
+    return tile_layer_plain(layer, x, w, bias, z)
+
+
+def cn_sin(x):
+    """The forward chain kernel's sine alone; its plain version is
+    torch.sin."""
+    if _on_cuda(x):
+        return cn_sin_cuda(x)
+    return torch.sin(x)
+
+
 def codenerf_mlp_fwd(flat, emb1, emb2, zs):
     """Kernel 7: the CodeNeRF chain on a precomputed embedding, forward
     only. flat [C, P] (`pack`), emb1 [C, N, 87], emb2 [C, N, 42], zs 4x
@@ -1118,8 +1254,8 @@ def codenerf_packed_apply(fc, pe, pts_packed, zs0, zc, zs1, zt0, *,
 
     pts_packed [N, 3C] (point-major, categories in lanes); z* [N, 32C].
     Returns (sigma [N, C], rgb [N, C, 3]); differentiable w.r.t. the field's
-    layers, pe.B, the points and the injections. `tile` is the kernel's
-    rows per block (check_tile)."""
+    layers, pe.B, the points and the injections. `tile` is the backward
+    kernel's rows per block (check_tile); the forward picks its own."""
     check_tile(tile)
     flat = pack(_cn_modules(fc))
     C = flat.shape[0]

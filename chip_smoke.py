@@ -9,7 +9,9 @@ Phases, each printing one or more lines:
    (one nvcc per source, started together, at first use), ptxas' reports
    into `chiprun_out/ptxas*.txt`, and the registers and stack frame of
    each instantiation of the GEMM block in the two libraries that build it
-   (`occupancy`, `codenerf_bwd`; a stack frame fails the run);
+   (`occupancy`, `codenerf_bwd`) and of the forward chain kernel's tile
+   body (`codenerf_fwd`: the two chain kernels and the twelve layers of
+   its test entry); a stack frame fails the run;
 3. each kernel against its plain PyTorch version on the card (forward
    within 1e-5, gradients within 2e-4 (the CodeNeRF backward's: of its
    plain version in float64, widened by the float32 plain version's own
@@ -20,9 +22,11 @@ Phases, each printing one or more lines:
    four kernels of the fused trainer at the training step's shapes, the
    packed-ensemble pair and the MLP-only kernel at the comparison's shape
    (C=8, N=2,100), at the step's (C=8, N=3,600), and the packed pair at a
-   ragged N (2,101); the two backwards' bounds both without and with their
-   forward recompute; the device time of each piece of the three GEMM
-   chains (kernels 2-4) under torch.profiler; then the GEMM block alone
+   ragged N (2,101), and kernel 1 again at a ragged N (3,601); the two
+   backwards' bounds both without and with their forward recompute; the
+   device time of each piece of the three GEMM chains (kernels 2-4), and
+   of the one launch of the chain kernel (kernels 1 and 5), under
+   torch.profiler; then the GEMM block alone
    against its plain version, timed beside one library call on the same
    operands (a yardstick the port never calls): 128 wide at 16,800 x 128 x
    128 beside `torch.matmul`, and 32 wide at C=8 x 3,600 x 32 x 32 beside
@@ -279,13 +283,14 @@ def check_kernels(dev) -> list[dict]:
     specs = {
         "codenerf_fwd": dict(
             replaces="catnerf_tpu/experimental/fused_field.py:124",
+            source="catnerf_torch/csrc/codenerf_fwd.cu",
             kernel=lambda: (ff.codenerf_fwd_cuda(
                 cn["flat"], cn["B"], cn["pts"], cn["zs"], inv_cn),),
             plain=lambda: (ff.codenerf_fwd_plain(
                 cn["flat"], cn["B"], cn["pts"], cn["zs"], inv_cn),),
             tol=FWD_TOL, bwd=False,
             nbytes=f * (cn_rows * (cn_row_io + 4) + cn_prm),
-            flops=2 * 13648 * cn_rows),
+            flops=2 * 13648 * cn_rows, pieces=True),
         "codenerf_bwd": dict(
             replaces="catnerf_tpu/experimental/fused_field.py:135",
             source="catnerf_torch/csrc/codenerf_bwd.cu",
@@ -329,12 +334,25 @@ def check_kernels(dev) -> list[dict]:
             flops=4 * 93696 * oc_rows,
             flops_recompute=6 * 93696 * oc_rows, pieces=True),
     }
-    rows = [dict(name=name, route="cuda",
-                 source=spec.get("source",
-                                 "catnerf_torch/csrc/fused_field.cu"),
+    rows = [dict(name=name, route="cuda", source=spec["source"],
                  replaces=spec["replaces"], launches=None,
                  **check_and_time(name, spec))
             for name, spec in specs.items()]
+    # kernel 1 at a ragged N: the last row tile of each category holds
+    # 17 rows
+    gen = torch.Generator().manual_seed(1)
+    Nr = N + 1
+    pts_r = (torch.randn(C, Nr, 3, generator=gen) * 0.8).to(dev)
+    zs_r = tuple(torch.relu(torch.randn(C, Nr, 32, generator=gen)).to(dev)
+                 for _ in range(4))
+    check_and_time("codenerf_fwd", dict(
+        kernel=lambda: (ff.codenerf_fwd_cuda(cn["flat"], cn["B"], pts_r,
+                                             zs_r, inv_cn),),
+        plain=lambda: (ff.codenerf_fwd_plain(cn["flat"], cn["B"], pts_r,
+                                             zs_r, inv_cn),),
+        tol=FWD_TOL, bwd=False,
+        nbytes=f * (C * Nr * (cn_row_io + 4) + cn_prm),
+        flops=2 * 13648 * C * Nr), f" (C={C}, N={Nr})")
     for name, spec in specs.items():
         if spec.get("pieces"):
             trace_pieces(name, spec["kernel"])
@@ -423,6 +441,41 @@ def check_gemm_registers(lib: str, log_text: str, expected: int) -> None:
         f"{lb} {r} registers, {fr}-byte stack frame" for lb, r, fr in found))
     if len(found) != expected or any(fr for _, _, fr in found):
         raise AssertionError(f"GEMM block of {lib}: {found}")
+
+
+# the forward chain kernel's tile body in codenerf_fwd.cu: chain_kernel<PE,
+# IO> for kernels 1 and 5, tile_layer_kernel<L> for each of the twelve
+# entries of fused_field.TILE_LAYERS
+TILE_INSTANTIATIONS = 2 + 12
+
+
+def check_tile_registers(log_text: str) -> None:
+    """Log each instantiation of codenerf_fwd.cu's tile body with its
+    registers and stack frame; fail on a stack frame (a spill of the
+    register tile, or a local array) or a count other than
+    TILE_INSTANTIATIONS."""
+    from catnerf_torch.kernels import fused_field as ff
+
+    if not log_text:
+        log("ptxas codenerf_fwd.cu: library built before this process; "
+            "registers not read")
+        return
+    found = []
+    for name, (regs, frame) in sorted(ptxas_report(log_text).items()):
+        if m := re.search(r"chain_kernelIL\w*?PeE(\d)E", name):
+            label = ("chain_kernel<kProj, kCatMajor> (cn_fwd)"
+                     if m.group(1) == "0" else
+                     "chain_kernel<kFolded, kPointMajor> (cn2_fwd)")
+        elif m := re.search(r"tile_layer_kernelILi(\d+)E", name):
+            layer = ff.TILE_LAYER_NAMES[int(m.group(1))]
+            label = f"tile_layer_kernel<{layer}>"
+        else:
+            continue
+        found.append((label, regs, frame))
+    log("ptxas codenerf_fwd.cu, tile body: " + "; ".join(
+        f"{lb} {r} registers, {fr}-byte stack frame" for lb, r, fr in found))
+    if len(found) != TILE_INSTANTIATIONS or any(fr for _, _, fr in found):
+        raise AssertionError(f"tile body of codenerf_fwd: {found}")
 
 
 def time_gemm_block(dev, width: int) -> dict:
@@ -567,7 +620,7 @@ def check_packed_kernels(dev) -> list[dict]:
         specs = {
             "codenerf_packed_fwd": dict(
                 replaces="catnerf_tpu/experimental/fused_field.py:773",
-                source="catnerf_torch/csrc/codenerf_packed.cu",
+                source="catnerf_torch/csrc/codenerf_fwd.cu", pieces=True,
                 kernel=lambda: ff.codenerf_packed_fwd_cuda(
                     x["flat"], x["B"], x["pts"], x["zs"], inv, PACKED_TILE),
                 plain=lambda: ff.codenerf_packed_fwd_plain(
@@ -606,6 +659,8 @@ def check_packed_kernels(dev) -> list[dict]:
                 flops=2 * 13648 * n)
         for name, spec in specs.items():
             res = check_and_time(name, spec, f" (C={C}, N={N})")
+            if spec.get("pieces"):
+                trace_pieces(f"{name} (C={C}, N={N})", spec["kernel"])
             if i == 0:
                 rows[name] = dict(name=name, route="cuda",
                                   source=spec["source"],
@@ -836,6 +891,7 @@ def main() -> int:
             fh.write(build.build_log(name))
     for name, count in GEMM_LIBS.items():
         check_gemm_registers(name, build.build_log(name), count)
+    check_tile_registers(build.build_log("codenerf_fwd"))
 
     rows = check_kernels(dev) + check_packed_kernels(dev)
     for width in (128, 32):

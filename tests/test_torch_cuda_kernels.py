@@ -18,9 +18,15 @@ block of csrc/gemm_f32.cuh alone, for each layout and epilogue its chains
 use: 128 wide (the background's) at 1, 16,800 and 16,801 rows, 32 wide and
 batched over C=8 categories (the CodeNeRF backward's) at 1, 3,600 and 3,601
 rows; within 2e-4 of the output's scale (sums of up to 16,800 terms),
-bitwise repeatable. One piece's tests alone, the quick loop for an edit:
-`-k codenerf_kernel` (kernels 1-2), `-k occupancy_kernel` (3-4),
-`-k gemm_block` (the 128-wide block), `-k cn_gemm` (the 32-wide block).
+bitwise repeatable. One layer of the forward chain kernel of
+csrc/codenerf_fwd.cu alone (`cn_tile_layer`), for each entry of
+`TILE_LAYERS`, at 1, 77 and 3,601 rows, within 1e-5 of the output's scale,
+bitwise repeatable; its sine (`cn_sin`) within 2 ulp of float64 over all
+float32 exponents. One piece's tests alone, the quick loop for an edit:
+`-k codenerf_kernel` (kernels 1-2), `-k packed_kernels` (5-6),
+`-k occupancy_kernel` (3-4), `-k gemm_block` (the 128-wide block),
+`-k cn_gemm` (the 32-wide block), `-k cn_tile` (a layer of the forward
+chain kernel), `-k cn_sin` (its sine).
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from catnerf_torch.models.embedding import UniDirsEmbed
 from catnerf_torch.models.occupancy import OccupancyMap
 from test_torch_codenerf_gemm import (CASE_LIST, block_epilogue,
                                      cn_gemm_case)
+from test_torch_codenerf_tile import (assert_scaled_close, tile_case,
+                                     tile_reference)
 from test_torch_occupancy_gemm import EPILOGUES, gemm_case, gemm_epilogue
 
 torch.set_num_threads(1)
@@ -186,6 +194,56 @@ def test_cuda_cn_gemm_block_matches_plain(cuda_device, layout, epilogue,
                                    rtol=GRAD_TOL, atol=GRAD_TOL * scale)
     for x, y in zip(*runs):
         assert x is None or torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 77, 3601])
+@pytest.mark.parametrize("layer", tff.TILE_LAYER_NAMES)
+def test_cuda_cn_tile_layer_matches_plain(cuda_device, layer, N):
+    """One layer of csrc/codenerf_fwd.cu's chain kernel alone (its tile
+    product and epilogue, or a head) against tile_layer_plain on the card
+    and against float64, ragged rows included, and twice, bitwise equal."""
+    kw, ref = tile_case(layer, N, seed=N, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        before = tff.LAUNCHES["cn_tile"]
+        runs.append(tff.cn_tile_layer(layer, **kw))
+        assert tff.LAUNCHES["cn_tile"] == before + 1
+    want = tff.tile_layer_plain(layer, **kw)
+    torch.cuda.synchronize()
+    got = runs[0].cpu().numpy()
+    assert_scaled_close(got, want.cpu().numpy(), FWD_TOL)
+    assert_scaled_close(got, tile_reference(layer, ref), FWD_TOL)
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_cuda_cn_sin_matches_float64(cuda_device):
+    """The chain kernel's sine (sin_f32, its reduction in registers) within
+    2 ulp of sin in float64, over random float32 bit patterns (every
+    exponent), |x| <= 2,000 densely (the PE's range), multiples of pi/2 up
+    to 110,000 and both sides of the branch at 105,615; inf and NaN give
+    NaN."""
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 2**32, size=200_000, dtype=np.uint64)
+    x = bits.astype(np.uint32).view(np.float32)
+    edge = np.float32(105615)
+    x = np.concatenate([
+        x[np.isfinite(x)],
+        np.linspace(-2000, 2000, 100_001, dtype=np.float32),
+        (np.arange(-70_000, 70_000, 7) * (np.pi / 2)).astype(np.float32),
+        np.float32([0.0, edge, -edge, np.nextafter(edge, np.float32(2e5)),
+                    3.4e38, -3.4e38])])
+    xd = torch.tensor(x, device=cuda_device)
+    before = tff.LAUNCHES["cn_sin"]
+    y = tff.cn_sin(xd)
+    assert tff.LAUNCHES["cn_sin"] == before + 1
+    ref = torch.sin(xd.double()).cpu().numpy()
+    ulp = np.spacing(np.maximum(np.abs(ref), 2.0**-126).astype(np.float32))
+    err = np.abs(y.cpu().numpy() - ref) / ulp
+    assert err.max() <= 2.0, (float(err.max()), float(x[err.argmax()]))
+    special = torch.tensor([np.inf, -np.inf, np.nan], device=cuda_device)
+    assert torch.isnan(tff.cn_sin(special)).all()
 
 
 @pytest.mark.cuda
