@@ -1,9 +1,9 @@
 // Building blocks shared by the field kernels (fused_field.cu,
 // codenerf_fwd.cu, codenerf_packed.cu, codenerf_bwd.cu, occupancy.cu): the
 // flat parameter layouts, the per-thread positional encoding and its
-// backward, the packed kernels' folded basis, dense layers and their
-// transposes, the CodeNeRF chain, the block-level weight gradients and the
-// fixed-order reduction of the per-block partials.
+// backward, the packed kernels' folded basis, dense layers, the CodeNeRF
+// chain and the fixed-order reduction of the per-block partials. The
+// chain kernels' shared-memory tile body is cn_tile.cuh.
 // Float32 throughout, no fast math; the GEMM block of the chains is
 // gemm_f32.cuh.
 
@@ -149,30 +149,6 @@ __device__ __forceinline__ void dense3(const float* __restrict__ W,
   }
 }
 
-// dx[i] = sum_o d[o] W[i, o] for the IN rows of W starting at W.
-template <int IN, int OUT>
-__device__ __forceinline__ void dense_dx(const float* __restrict__ W,
-                                         const float* d, float* dx) {
-  for (int i = 0; i < IN; ++i) {
-    const float* w = W + i * OUT;
-    float acc = 0.f;
-    if constexpr (OUT % 4 == 0) {
-#pragma unroll 8
-      for (int o = 0; o < OUT; o += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(w + o);
-        acc = fmaf(d[o], v.x, acc);
-        acc = fmaf(d[o + 1], v.y, acc);
-        acc = fmaf(d[o + 2], v.z, acc);
-        acc = fmaf(d[o + 3], v.w, acc);
-      }
-    } else {
-#pragma unroll
-      for (int o = 0; o < OUT; ++o) acc = fmaf(d[o], w[o], acc);
-    }
-    dx[i] = acc;
-  }
-}
-
 // t = p * inv_scale; proj = t @ B^T; emb1 = [t, sin(pi 2^f proj), f<4];
 // emb2 = [sin(pi 2^f proj), f=4,5].
 __device__ __forceinline__ void embed(const float p[3], const float* B,
@@ -275,60 +251,6 @@ __device__ __forceinline__ void cn_chain(const float* sW, const float* emb1,
   dense<W, 0, W, true>(sW + cn::t0_w, sW + cn::t0_b, x, nullptr, y);
   dense<W, 0, W / 2, true>(sW + cn::r0_w, sW + cn::r0_b, y, nullptr, x);
   dense<W / 2, 0, 3, false>(sW + cn::r1_w, sW + cn::r1_b, x, nullptr, a7);
-}
-
-// Block-level weight gradient of one layer over a block of any number of
-// rows (blockDim.x, a multiple of CH):
-//   part_w[i*OUT + o] = sum_r x[r][i] d[r][o],  part_b[o] = sum_r d[r][o].
-// Each thread stages its row's input [x1, x2] and delta d into shared
-// memory (odd row strides: no bank conflicts), CH rows at a time, and each
-// element's sum is carried from chunk to chunk in `acc` (shared memory,
-// IN*OUT + OUT floats), where element e belongs to thread e % blockDim.x
-// throughout, so no two threads touch one slot and the order of the sum is
-// fixed.
-template <int CH, int IN1, int IN2, int OUT>
-__device__ __forceinline__ void layer_grad_rows(float* stage, float* acc,
-                                                const float* x1,
-                                                const float* x2,
-                                                const float* d,
-                                                float* __restrict__ part_w,
-                                                float* __restrict__ part_b) {
-  constexpr int IN = IN1 + IN2;
-  constexpr int SX = IN | 1;
-  constexpr int SD = OUT | 1;
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  float* sx = stage;
-  float* sd = stage + CH * SX;
-  for (int c0 = 0; c0 < T; c0 += CH) {
-    if (tid >= c0 && tid < c0 + CH) {
-      float* mx = sx + (tid - c0) * SX;
-      float* md = sd + (tid - c0) * SD;
-      for (int i = 0; i < IN1; ++i) mx[i] = x1[i];
-      for (int i = 0; i < IN2; ++i) mx[IN1 + i] = x2[i];
-      for (int o = 0; o < OUT; ++o) md[o] = d[o];
-    }
-    __syncthreads();
-    for (int e = tid; e < IN * OUT; e += T) {
-      const int i = e / OUT;
-      const int o = e - i * OUT;
-      float s = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < CH; ++r) s = fmaf(sx[r * SX + i], sd[r * SD + o], s);
-      acc[e] = c0 == 0 ? s : acc[e] + s;
-    }
-    if (part_b != nullptr) {
-      for (int o = tid; o < OUT; o += T) {
-        float s = 0.f;
-        for (int r = 0; r < CH; ++r) s += sd[r * SD + o];
-        acc[IN * OUT + o] = c0 == 0 ? s : acc[IN * OUT + o] + s;
-      }
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < IN * OUT; e += T) part_w[e] = acc[e];
-  if (part_b != nullptr)
-    for (int o = tid; o < OUT; o += T) part_b[o] = acc[IN * OUT + o];
 }
 
 template <int N>

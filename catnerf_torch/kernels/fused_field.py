@@ -33,12 +33,16 @@ designs:
   shared memory, computes the PE there, and runs each layer as a
   register-tiled product out of shared memory (`TILE_LAYERS`), nothing in
   device memory between layers;
-* the MLP-only kernel and the packed backward run one thread per sample
-  point through the whole chain, activations in registers and local
-  memory, the weights in shared memory (every lane of a warp reads the
-  same weight, a broadcast), the packed backward summing the weight
-  gradients of a block's rows in shared memory into one partial per
-  block;
+* the packed backward runs on the same tile body: a block recomputes
+  the packed forward for its category's 64 rows, keeps every activation
+  and ReLU mask the backward reads in shared memory, and runs each
+  layer's input gradient (`PACKED_DX_PIECES`) and weight gradient
+  (`PACKED_BWD_LAYERS`) as register-tiled products there, one partial
+  row of weight gradients per block;
+* the MLP-only kernel runs one thread per sample point through the whole
+  chain, activations in registers and local memory, the weights in
+  shared memory (every lane of a warp reads the same weight, a
+  broadcast);
 * the CodeNeRF backward and the background forward and backward are chains
   of tiled float32 GEMMs (`csrc/gemm_f32.cuh`: a 128 x 32 tile for the
   32-wide CodeNeRF layers, `cn_gemm`, with the category as a batch index,
@@ -70,7 +74,7 @@ LAUNCHES = {"codenerf_fwd": 0, "codenerf_bwd": 0,
             "occupancy_fwd": 0, "occupancy_bwd": 0,
             "codenerf_packed_fwd": 0, "codenerf_packed_bwd": 0,
             "codenerf_mlp_fwd": 0, "oc_gemm": 0, "cn_gemm": 0, "cn_tile": 0,
-            "cn_sin": 0}
+            "cn_sin": 0, "cn2_dx": 0, "cn2_wgrad": 0, "cn_cos": 0}
 
 
 def reset_launch_counts() -> None:
@@ -84,10 +88,12 @@ B_SIZE = N_DIRS * 3
 N_SLOTS = _N_FREQS * N_DIRS  # 126 folded PE slots of the packed kernel
 B2_SIZE = 3 * N_SLOTS
 _LOW = 4 * N_DIRS  # 84: the slots of frequencies 2^0..2^3
-# the packed backward's rows per block (`tile`): a multiple of PACKED_ROWS
-# (the rows it stages at a time), at most PACKED_MAX_TILE
+# the packed kernels' `tile` (the JAX contract's rows per block): a multiple
+# of PACKED_ROWS, at most PACKED_MAX_TILE (check_tile)
 PACKED_ROWS = 32
 PACKED_MAX_TILE = 384
+# the rows a block of the tiled packed backward takes, whatever `tile` is
+PACKED_BLOCK_ROWS = 64
 
 # (key, fan_in, fan_out) in kernel order; the flat parameter buffer holds
 # every weight [in, out] row-major in this order, then every bias.
@@ -553,6 +559,90 @@ def codenerf_packed_bwd_plain(flat, B, pts, zs, dsg, dcol, inv_scale):
             tuple(to_point_major(d) for d in (dg0, dg1, dg2, dg4)))
 
 
+# --- the tile pieces of the packed backward (csrc/codenerf_packed.cu) ---
+
+# The input-gradient products of the tiled backward in its order (its enum
+# DxPiece): (name, the layer in CN_LAYERS, the first of the rows of its
+# weight block that the piece reads, their count KOUT, epilogue). Each is
+# dX = D W[k0:k0+KOUT]^T over the layer's output width; the split concat
+# layers take their pieces as the forward does ([g1 | t | S_lo], [t |
+# S_lo], [h | S_hi]). mask: dX [a > 0]; grad_mask: dX (an injection's
+# gradient) and dX [a > 0]; outer: + dsg W_sg^T (the sigma head's term of
+# dh); accumulate: + the cat layer's part of dS[0:84], as
+# codenerf_packed_bwd_plain adds them.
+PACKED_DX_PIECES = (("r1", "r1", 0, 16, "mask"), ("r0", "r0", 0, 32, "mask"),
+                    ("t0", "t0", 0, 32, "grad_mask"),
+                    ("vd_h", "vd", 0, 32, "outer"),
+                    ("vd_s", "vd", 32, 42, "store"),
+                    ("en", "en", 0, 32, "mask"),
+                    ("s1", "s1", 0, 32, "grad_mask"),
+                    ("c_y", "c", 0, 32, "grad_mask"),
+                    ("c_t", "c", 32, 3, "store"),
+                    ("c_s", "c", 35, 84, "store"),
+                    ("s0", "s0", 0, 32, "grad_mask"),
+                    ("e_t", "e", 0, 3, "store"),
+                    ("e_s", "e", 3, 84, "accumulate"))
+PACKED_DX_NAMES = tuple(name for name, *_ in PACKED_DX_PIECES)
+# The weight gradients of the tiled backward in its order (its enum
+# WgLayer): (name, the widths of the pieces of the layer's input, output
+# width, with a bias sum). dW = X^T D over the block's rows, db = the sum
+# of D; "b2" is dB2 = t^T dsinarg.
+PACKED_BWD_LAYERS = (("r1", (16,), 3, True), ("r0", (32,), 16, True),
+                     ("t0", (32,), 32, True), ("vd", (32, 42), 32, True),
+                     ("sg", (32,), 1, True), ("en", (32,), 32, True),
+                     ("s1", (32,), 32, True), ("c", (32, 87), 32, True),
+                     ("s0", (32,), 32, True), ("e", (87,), 32, True),
+                     ("b2", (3,), N_SLOTS, False))
+PACKED_BWD_NAMES = tuple(name for name, *_ in PACKED_BWD_LAYERS)
+
+
+def packed_dx_spec(piece: str):
+    """(index in PACKED_DX_PIECES, layer, k0, KOUT, KIN, epilogue)."""
+    if piece not in PACKED_DX_NAMES:
+        raise ValueError(f"piece {piece!r} not in {PACKED_DX_NAMES}")
+    i = PACKED_DX_NAMES.index(piece)
+    _, layer, k0, kout, epi = PACKED_DX_PIECES[i]
+    kin = next(o for k, _, o in CN_LAYERS if k == layer)
+    return i, layer, k0, kout, kin, epi
+
+
+def packed_wgrad_spec(layer: str):
+    """(index in PACKED_BWD_LAYERS, pieces, output width, bias)."""
+    if layer not in PACKED_BWD_NAMES:
+        raise ValueError(f"layer {layer!r} not in {PACKED_BWD_NAMES}")
+    i = PACKED_BWD_NAMES.index(layer)
+    return (i, *PACKED_BWD_LAYERS[i][1:])
+
+
+def tile_dx_plain(piece, d, w, a=None, d1=None, w1=None, acc=None):
+    """One input-gradient piece of the tiled packed backward, batched over
+    leading dims: d [..., N, KIN], w [..., KOUT, KIN] (its rows of the
+    layer's weight block) -> (y [..., N, KOUT], dz): y = d w^T, then the
+    piece's epilogue: mask (a [..., N, KOUT] the pre-activation) y [a > 0];
+    grad_mask the same, with dz = d w^T (else dz is None); outer + d1 w1^T
+    (d1 [..., N, 1], w1 [..., KOUT, 1]); accumulate + acc [..., N, KOUT]."""
+    epi = packed_dx_spec(piece)[-1]
+    y = d @ w.transpose(-1, -2)
+    dz = None
+    if epi == "outer":
+        y = y + d1 @ w1.transpose(-1, -2)
+    elif epi == "accumulate":
+        y = y + acc
+    elif epi in ("mask", "grad_mask"):
+        dz = y if epi == "grad_mask" else None
+        y = y * (a > 0)
+    return y, dz
+
+
+def tile_wgrad_plain(layer, x, d):
+    """One weight gradient of the tiled packed backward, batched over
+    leading dims: x [..., N, K] (the layer's input pieces side by side),
+    d [..., N, OUT] -> (dw = x^T d [..., K, OUT], db = the sum of d over
+    the rows [..., OUT], or None for b2)."""
+    bias = packed_wgrad_spec(layer)[-1]
+    return x.transpose(-1, -2) @ d, d.sum(-2) if bias else None
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/codenerf_fwd.cu, csrc/codenerf_bwd.cu,
 # csrc/occupancy.cu, csrc/codenerf_packed.cu, csrc/fused_field.cu)
@@ -575,7 +665,13 @@ _SIGNATURES = {
         "catnerf_layout": [ctypes.POINTER(ctypes.c_int)],
     },
     "codenerf_packed": {
-        "cn2_bwd": [_P] * 16 + [_I, _I, _I, _F, _P],
+        "cn2_bwd": [_P] * 16 + [_I, _I, _F, _P],
+        # piece (PACKED_DX_PIECES index); d, w, a, d1, w1, acc, y, dz; N;
+        # stream
+        "cn2_tile_dx": [_I] + [_P] * 8 + [_I, _P],
+        # layer (PACKED_BWD_LAYERS index); x, d, partial, out; N; stream
+        "cn2_tile_wgrad": [_I] + [_P] * 4 + [_I, _P],
+        "cn_cos": [_P, _P, _I, _P],
         "packed_layout": [ctypes.POINTER(ctypes.c_int)],
     },
     "occupancy": {
@@ -606,11 +702,10 @@ _LAYOUT_FNS = {
                      {"cn_fwd_p": CN_P}),
     "fused_field": ("catnerf_layout", ("cn_p", "mlp_rows"), {"cn_p": CN_P}),
     "codenerf_packed": ("packed_layout",
-                        ("packed_p", "packed_b2", "packed_max_tile",
-                         "packed_rows"),
+                        ("packed_p", "packed_b2", "packed_block_rows",
+                         "packed_threads", "packed_smem"),
                         {"packed_p": CN_P, "packed_b2": B2_SIZE,
-                         "packed_max_tile": PACKED_MAX_TILE,
-                         "packed_rows": PACKED_ROWS}),
+                         "packed_block_rows": PACKED_BLOCK_ROWS}),
     "occupancy": ("occupancy_layout",
                   ("oc_p", "oc_pp", "oc_chunks", "oc_ws_cols",
                    "oc_fwd_ws_cols"),
@@ -1021,7 +1116,7 @@ def codenerf_mlp_fwd_cuda(flat, emb1, emb2, zs):
 
 def check_tile(tile) -> int:
     """The packed kernels' `tile` (the JAX contract's rows per block; the
-    backward's rows per block): a multiple of PACKED_ROWS, at most
+    CUDA kernels pick their own): a multiple of PACKED_ROWS, at most
     PACKED_MAX_TILE; anything else raises."""
     if (not isinstance(tile, int) or tile <= 0 or tile > PACKED_MAX_TILE
             or tile % PACKED_ROWS):
@@ -1060,6 +1155,11 @@ def codenerf_packed_fwd_cuda(flat, B, pts, zs, inv_scale, tile):
 
 
 def codenerf_packed_bwd_cuda(flat, B, pts, zs, dsg, dcol, inv_scale, tile):
+    """csrc/codenerf_packed.cu `cn2_bwd`: the tiled backward (64 rows of one
+    category a block, one partial row of weight gradients a block), then
+    `reduce_tiles`. `tile` is validated (check_tile) as the JAX contract's
+    argument; the kernel's rows a block are PACKED_BLOCK_ROWS."""
+    check_tile(tile)
     lib = _lib("codenerf_packed")
     C, N, shapes = _packed_shapes(flat, B, pts, zs)
     _check(pts.device, {**shapes, "dsg": (dsg, (N, C)),
@@ -1071,17 +1171,84 @@ def codenerf_packed_bwd_cuda(flat, B, pts, zs, dsg, dcol, inv_scale, tile):
     if N == 0:
         grads.zero_()
     else:
-        nt = -(-N // check_tile(tile))
+        nt = -(-N // PACKED_BLOCK_ROWS)
         partial = torch.empty(C, nt, CN_P + B2_SIZE, device=dev,
                               dtype=torch.float32)
         err = lib.cn2_bwd(_ptr(pts), *(_ptr(z) for z in zs), _ptr(flat),
                           _ptr(B), _ptr(dsg), _ptr(dcol), _ptr(dpts),
                           *(_ptr(z) for z in dzs), _ptr(partial), _ptr(grads),
-                          C, N, tile, inv_scale, _stream(dev))
+                          C, N, inv_scale, _stream(dev))
         _raise_on(err, "cn2_bwd")
         LAUNCHES["codenerf_packed_bwd"] += 1
     return (grads[:, :CN_P], grads[:, CN_P:].reshape(C, 3, N_SLOTS), dpts,
             tuple(dzs))
+
+
+def cn2_tile_dx_cuda(piece, d, w, a=None, d1=None, w1=None, acc=None):
+    """csrc/codenerf_packed.cu `cn2_tile_dx`: one input-gradient piece of
+    the tiled backward alone (tile_dx_plain's contract without leading
+    dims), through the backward's own code for it; a test entry. Every
+    tensor float32, contiguous, on one CUDA device."""
+    index, _, _, kout, kin, epi = packed_dx_spec(piece)
+    N = d.shape[0]
+    need = {"mask": ("a",), "grad_mask": ("a",), "outer": ("d1", "w1"),
+            "accumulate": ("acc",), "store": ()}[epi]
+    given = {"a": a, "d1": d1, "w1": w1, "acc": acc}
+    if {k for k, v in given.items() if v is not None} != set(need):
+        raise ValueError(f"cn2_tile_dx: {piece} ({epi}) takes "
+                         f"{need or 'no extra input'}")
+    want = {"a": (N, kout), "d1": (N, 1), "w1": (kout, 1),
+            "acc": (N, kout)}
+    shapes = {"d": (d, (N, kin)), "w": (w, (kout, kin)),
+              **{k: (given[k], want[k]) for k in need}}
+    _check(d.device, shapes, aligned=())
+    lib = _lib("codenerf_packed")
+    y = torch.empty(N, kout, device=d.device, dtype=torch.float32)
+    dz = torch.empty_like(y) if epi == "grad_mask" else None
+    if N == 0:
+        return y, dz
+    ptr = lambda x: 0 if x is None else _ptr(x)
+    err = lib.cn2_tile_dx(index, _ptr(d), _ptr(w), ptr(a), ptr(d1), ptr(w1),
+                          ptr(acc), _ptr(y), ptr(dz), N, _stream(d.device))
+    _raise_on(err, "cn2_tile_dx")
+    LAUNCHES["cn2_dx"] += 1
+    return y, dz
+
+
+def cn2_tile_wgrad_cuda(layer, x, d):
+    """csrc/codenerf_packed.cu `cn2_tile_wgrad`: one weight gradient of the
+    tiled backward alone (tile_wgrad_plain's contract without leading
+    dims): one partial a 64-row block, then `reduce_tiles`; a test entry.
+    x [N, K], d [N, OUT], float32, contiguous, on one CUDA device."""
+    index, pieces, out, bias = packed_wgrad_spec(layer)
+    N, K = x.shape[0], sum(pieces)
+    _check(x.device, {"x": (x, (N, K)), "d": (d, (N, out))}, aligned=())
+    lib = _lib("codenerf_packed")
+    pp = K * out + (out if bias else 0)
+    res = torch.zeros(pp, device=x.device, dtype=torch.float32)
+    if N > 0:
+        partial = torch.empty(-(-N // PACKED_BLOCK_ROWS), pp,
+                              device=x.device, dtype=torch.float32)
+        err = lib.cn2_tile_wgrad(index, _ptr(x), _ptr(d), _ptr(partial),
+                                 _ptr(res), N, _stream(x.device))
+        _raise_on(err, "cn2_tile_wgrad")
+        LAUNCHES["cn2_wgrad"] += 1
+    return res[:K * out].reshape(K, out), res[K * out:] if bias else None
+
+
+def cn_cos_cuda(x):
+    """csrc/codenerf_packed.cu `cn_cos`: the packed backward's cosine
+    (`cos_f32`, sin_f32's reduction with the quadrant moved by one, nothing
+    in local memory) alone; a test entry."""
+    _check(x.device, {"x": (x, tuple(x.shape))}, aligned=())
+    lib = _lib("codenerf_packed")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    _raise_on(lib.cn_cos(_ptr(x), _ptr(y), x.numel(), _stream(x.device)),
+              "cn_cos")
+    LAUNCHES["cn_cos"] += 1
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -1164,6 +1331,30 @@ def cn_sin(x):
     if _on_cuda(x):
         return cn_sin_cuda(x)
     return torch.sin(x)
+
+
+def cn2_tile_dx(piece, d, w, a=None, d1=None, w1=None, acc=None):
+    """One input-gradient piece of the packed backward alone
+    (tile_dx_plain)."""
+    if _on_cuda(d):
+        return cn2_tile_dx_cuda(piece, d, w, a, d1, w1, acc)
+    return tile_dx_plain(piece, d, w, a, d1, w1, acc)
+
+
+def cn2_tile_wgrad(layer, x, d):
+    """One weight gradient of the packed backward alone
+    (tile_wgrad_plain)."""
+    if _on_cuda(x):
+        return cn2_tile_wgrad_cuda(layer, x, d)
+    return tile_wgrad_plain(layer, x, d)
+
+
+def cn_cos(x):
+    """The packed backward's cosine alone; its plain version is
+    torch.cos."""
+    if _on_cuda(x):
+        return cn_cos_cuda(x)
+    return torch.cos(x)
 
 
 def codenerf_mlp_fwd(flat, emb1, emb2, zs):
@@ -1254,8 +1445,9 @@ def codenerf_packed_apply(fc, pe, pts_packed, zs0, zc, zs1, zt0, *,
 
     pts_packed [N, 3C] (point-major, categories in lanes); z* [N, 32C].
     Returns (sigma [N, C], rgb [N, C, 3]); differentiable w.r.t. the field's
-    layers, pe.B, the points and the injections. `tile` is the backward
-    kernel's rows per block (check_tile); the forward picks its own."""
+    layers, pe.B, the points and the injections. `tile` is the JAX
+    contract's rows per block (check_tile); the CUDA kernels pick their
+    own."""
     check_tile(tile)
     flat = pack(_cn_modules(fc))
     C = flat.shape[0]

@@ -9,9 +9,12 @@ Phases, each printing one or more lines:
    (one nvcc per source, started together, at first use), ptxas' reports
    into `chiprun_out/ptxas*.txt`, and the registers and stack frame of
    each instantiation of the GEMM block in the two libraries that build it
-   (`occupancy`, `codenerf_bwd`) and of the forward chain kernel's tile
+   (`occupancy`, `codenerf_bwd`), of the forward chain kernel's tile
    body (`codenerf_fwd`: the two chain kernels and the twelve layers of
-   its test entry); a stack frame fails the run;
+   its test entry) and of every kernel of the packed backward's library
+   (`codenerf_packed`: the backward, its test entries' 13 input-gradient
+   pieces and 11 weight gradients, the cosine, `reduce_tiles`); a stack
+   frame fails the run;
 3. each kernel against its plain PyTorch version on the card (forward
    within 1e-5, gradients within 2e-4 (the CodeNeRF backward's: of its
    plain version in float64, widened by the float32 plain version's own
@@ -24,9 +27,9 @@ Phases, each printing one or more lines:
    (C=8, N=2,100), at the step's (C=8, N=3,600), and the packed pair at a
    ragged N (2,101), and kernel 1 again at a ragged N (3,601); the two
    backwards' bounds both without and with their forward recompute; the
-   device time of each piece of the three GEMM chains (kernels 2-4), and
-   of the one launch of the chain kernel (kernels 1 and 5), under
-   torch.profiler; then the GEMM block alone
+   device time of each piece of the three GEMM chains (kernels 2-4), of
+   the one launch of the chain kernel (kernels 1 and 5) and of the packed
+   backward and its reduction (kernel 6), under torch.profiler; then the GEMM block alone
    against its plain version, timed beside one library call on the same
    operands (a yardstick the port never calls): 128 wide at 16,800 x 128 x
    128 beside `torch.matmul`, and 32 wide at C=8 x 3,600 x 32 x 32 beside
@@ -478,6 +481,39 @@ def check_tile_registers(log_text: str) -> None:
         raise AssertionError(f"tile body of codenerf_fwd: {found}")
 
 
+# codenerf_packed.cu: the backward, its test entries (an instantiation for
+# each entry of fused_field.PACKED_DX_PIECES and PACKED_BWD_LAYERS), the
+# cosine's test entry and reduce_tiles
+PACKED_INSTANTIATIONS = 1 + 13 + 11 + 1 + 1
+
+
+def check_packed_registers(log_text: str) -> None:
+    """Log every kernel of codenerf_packed.cu with its registers and stack
+    frame; fail on a stack frame or a count other than
+    PACKED_INSTANTIATIONS."""
+    from catnerf_torch.kernels import fused_field as ff
+
+    if not log_text:
+        log("ptxas codenerf_packed.cu: library built before this process; "
+            "registers not read")
+        return
+    found = []
+    for name, (regs, frame) in sorted(ptxas_report(log_text).items()):
+        if m := re.search(r"dx_test_kernelILi(\d+)E", name):
+            label = f"dx_test_kernel<{ff.PACKED_DX_NAMES[int(m.group(1))]}>"
+        elif m := re.search(r"wgrad_test_kernelILi(\d+)E", name):
+            label = (f"wgrad_test_kernel<"
+                     f"{ff.PACKED_BWD_NAMES[int(m.group(1))]}>")
+        else:
+            label = next((k for k in ("cn2_bwd_kernel", "cos_kernel",
+                                      "reduce_tiles") if k in name), name)
+        found.append((label, regs, frame))
+    log("ptxas codenerf_packed.cu: " + "; ".join(
+        f"{lb} {r} registers, {fr}-byte stack frame" for lb, r, fr in found))
+    if len(found) != PACKED_INSTANTIATIONS or any(fr for _, _, fr in found):
+        raise AssertionError(f"kernels of codenerf_packed: {found}")
+
+
 def time_gemm_block(dev, width: int) -> dict:
     """The GEMM block alone at a forward layer of its chain (NN, bias +
     ReLU) against its plain version, then timed beside one library call on
@@ -559,18 +595,20 @@ def check_and_time(name, spec, label="") -> dict:
     queued_ms = device_ms(spec["kernel"])
     bound_ms, bound_by = bound(spec["nbytes"], spec["flops"])
     bounds = f"bound {bound_ms:.4f} ms ({bound_by}"
+    extra = {}
     if "flops_recompute" in spec:
         full_ms, full_by = bound(spec["nbytes"], spec["flops_recompute"])
         bounds += (f", {spec['flops'] / 1e9:.2f} GFLOP; with the recompute"
                    f" {spec['flops_recompute'] / 1e9:.2f} GFLOP, "
                    f"{full_ms:.4f} ms, {full_by}")
+        extra["bound_recompute_ms"] = full_ms
     log(f"kernel {name}{label}: max_abs_err {err:.3e} (tol {spec['tol']:g}"
         f"{' of the scale' if spec.get('scaled') else ''})"
         f"{', backward bitwise repeatable' if spec['bwd'] else ''}; "
         f"{ms:.4f} ms ({queued_ms:.4f} queued back to back), plain "
         f"{plain_ms:.4f} ms, {bounds})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, **extra)
 
 
 def packed_inputs(dev, C, N, seed):
@@ -630,7 +668,7 @@ def check_packed_kernels(dev) -> list[dict]:
                 flops=fwd_flops),
             "codenerf_packed_bwd": dict(
                 replaces="catnerf_tpu/experimental/fused_field.py:786",
-                source="catnerf_torch/csrc/codenerf_packed.cu",
+                source="catnerf_torch/csrc/codenerf_packed.cu", pieces=True,
                 kernel=lambda: _flatten(ff.codenerf_packed_bwd_cuda(
                     x["flat"], x["B"], x["pts"], x["zs"], x["dsg"],
                     x["dcol"], inv, PACKED_TILE)),
@@ -644,7 +682,9 @@ def check_packed_kernels(dev) -> list[dict]:
                 tol=GRAD_TOL, bwd=True, scaled=True,
                 nbytes=f * (n * (2 * row_io + 4) + 2 * prm
                             + C * (ff.B_SIZE + ff.B2_SIZE)),
-                flops=2 * fwd_flops),
+                # the backward's own work (input and weight gradients), and
+                # with the forward it recomputes
+                flops=2 * fwd_flops, flops_recompute=3 * fwd_flops),
         }
         if N % 100 == 0:  # the MLP-only kernel at the unragged shapes
             specs["codenerf_mlp_fwd"] = dict(
@@ -892,6 +932,7 @@ def main() -> int:
     for name, count in GEMM_LIBS.items():
         check_gemm_registers(name, build.build_log(name), count)
     check_tile_registers(build.build_log("codenerf_fwd"))
+    check_packed_registers(build.build_log("codenerf_packed"))
 
     rows = check_kernels(dev) + check_packed_kernels(dev)
     for width in (128, 32):

@@ -255,10 +255,10 @@ def test_tile_chain_matches_the_jax_kernel(packed, C, N):
         _close(got[..., 1:], r)
 
 
-# --- the chain kernel's sine (csrc/codenerf_fwd.cu sin_f32) ---
+# --- the chain kernel's sine (csrc/cn_tile.cuh sin_f32) ---
 
 _PI_BITS = 400
-_SRC = (build.CSRC / "codenerf_fwd.cu").read_text()
+_SRC = (build.CSRC / "cn_tile.cuh").read_text()  # the tile body
 
 
 def _pi_scaled() -> int:

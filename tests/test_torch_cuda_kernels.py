@@ -22,11 +22,19 @@ bitwise repeatable. One layer of the forward chain kernel of
 csrc/codenerf_fwd.cu alone (`cn_tile_layer`), for each entry of
 `TILE_LAYERS`, at 1, 77 and 3,601 rows, within 1e-5 of the output's scale,
 bitwise repeatable; its sine (`cn_sin`) within 2 ulp of float64 over all
-float32 exponents. One piece's tests alone, the quick loop for an edit:
-`-k codenerf_kernel` (kernels 1-2), `-k packed_kernels` (5-6),
-`-k occupancy_kernel` (3-4), `-k gemm_block` (the 128-wide block),
-`-k cn_gemm` (the 32-wide block), `-k cn_tile` (a layer of the forward
-chain kernel), `-k cn_sin` (its sine).
+float32 exponents. The two tile pieces of the packed backward of
+csrc/codenerf_packed.cu alone: each input-gradient piece (`cn2_tile_dx`,
+every entry of `PACKED_DX_PIECES`) and each weight gradient
+(`cn2_tile_wgrad`, every entry of `PACKED_BWD_LAYERS`) at a full and a
+ragged block and at 3,601 rows, within 1e-5 of the output's scale of its
+plain version and of float64, bitwise repeatable; its cosine (`cn_cos`)
+within 2 ulp of float64 over all float32 exponents. One piece's tests
+alone, the quick loop for an edit: `-k codenerf_kernel` (kernels 1-2),
+`-k packed_kernels` (5-6), `-k occupancy_kernel` (3-4), `-k gemm_block`
+(the 128-wide block), `-k cn_gemm` (the 32-wide block), `-k cn_tile` (a
+layer of the forward chain kernel), `-k cn_sin` (its sine), `-k cn2_dx`
+and `-k cn2_wgrad` (the packed backward's pieces), `-k cn_cos` (its
+cosine).
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ from test_torch_codenerf_gemm import (CASE_LIST, block_epilogue,
 from test_torch_codenerf_tile import (assert_scaled_close, tile_case,
                                      tile_reference)
 from test_torch_occupancy_gemm import EPILOGUES, gemm_case, gemm_epilogue
+from test_torch_packed_tile import (dx_case, dx_reference, wgrad_case,
+                                    wgrad_reference)
 
 torch.set_num_threads(1)
 
@@ -217,13 +227,10 @@ def test_cuda_cn_tile_layer_matches_plain(cuda_device, layer, N):
     assert torch.equal(runs[0], runs[1])
 
 
-@pytest.mark.cuda
-def test_cuda_cn_sin_matches_float64(cuda_device):
-    """The chain kernel's sine (sin_f32, its reduction in registers) within
-    2 ulp of sin in float64, over random float32 bit patterns (every
-    exponent), |x| <= 2,000 densely (the PE's range), multiples of pi/2 up
-    to 110,000 and both sides of the branch at 105,615; inf and NaN give
-    NaN."""
+def _trig_arguments():
+    """Random float32 bit patterns (every exponent), |x| <= 2,000 densely
+    (the PE's range), multiples of pi/2 up to 110,000 and both sides of
+    the reduction's branch at 105,615."""
     rng = np.random.default_rng(0)
     bits = rng.integers(0, 2**32, size=200_000, dtype=np.uint64)
     x = bits.astype(np.uint32).view(np.float32)
@@ -234,16 +241,87 @@ def test_cuda_cn_sin_matches_float64(cuda_device):
         (np.arange(-70_000, 70_000, 7) * (np.pi / 2)).astype(np.float32),
         np.float32([0.0, edge, -edge, np.nextafter(edge, np.float32(2e5)),
                     3.4e38, -3.4e38])])
-    xd = torch.tensor(x, device=cuda_device)
-    before = tff.LAUNCHES["cn_sin"]
-    y = tff.cn_sin(xd)
-    assert tff.LAUNCHES["cn_sin"] == before + 1
-    ref = torch.sin(xd.double()).cpu().numpy()
+    return x
+
+
+def _check_trig(device, kernel, key, fn):
+    """kernel(x) within 2 ulp of torch.<fn> in float64 over
+    _trig_arguments, launched once; inf and NaN give NaN."""
+    x = _trig_arguments()
+    xd = torch.tensor(x, device=device)
+    before = tff.LAUNCHES[key]
+    y = kernel(xd)
+    assert tff.LAUNCHES[key] == before + 1
+    ref = getattr(torch, fn)(xd.double()).cpu().numpy()
     ulp = np.spacing(np.maximum(np.abs(ref), 2.0**-126).astype(np.float32))
     err = np.abs(y.cpu().numpy() - ref) / ulp
     assert err.max() <= 2.0, (float(err.max()), float(x[err.argmax()]))
-    special = torch.tensor([np.inf, -np.inf, np.nan], device=cuda_device)
-    assert torch.isnan(tff.cn_sin(special)).all()
+    special = torch.tensor([np.inf, -np.inf, np.nan], device=device)
+    assert torch.isnan(kernel(special)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_cn_sin_matches_float64(cuda_device):
+    """The chain kernel's sine (sin_f32, its reduction in registers)."""
+    _check_trig(cuda_device, tff.cn_sin, "cn_sin", "sin")
+
+
+@pytest.mark.cuda
+def test_cuda_cn_cos_matches_float64(cuda_device):
+    """The packed backward's cosine (cos_f32, sin_f32's reduction with the
+    quadrant moved by one)."""
+    _check_trig(cuda_device, tff.cn_cos, "cn_cos", "cos")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 77, 3601])
+@pytest.mark.parametrize("piece", tff.PACKED_DX_NAMES)
+def test_cuda_cn2_dx_piece_matches_plain(cuda_device, piece, N):
+    """One input-gradient piece of csrc/codenerf_packed.cu's backward alone
+    (its tile product and epilogue) against tile_dx_plain on the card and
+    against float64, at a full block, a ragged one and many, and twice,
+    bitwise equal."""
+    kw, ref = dx_case(piece, N, seed=N, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        before = tff.LAUNCHES["cn2_dx"]
+        runs.append(tff.cn2_tile_dx(piece, **kw))
+        assert tff.LAUNCHES["cn2_dx"] == before + 1
+    want = tff.tile_dx_plain(piece, **kw)
+    exact = dx_reference(piece, ref)
+    torch.cuda.synchronize()
+    for got, again, plain, x64 in zip(runs[0], runs[1], want, exact):
+        assert (got is None) == (x64 is None)
+        if got is None:
+            continue
+        assert_scaled_close(got.cpu().numpy(), plain.cpu().numpy(), FWD_TOL)
+        assert_scaled_close(got.cpu().numpy(), x64, FWD_TOL)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 100, 3601])
+@pytest.mark.parametrize("layer", tff.PACKED_BWD_NAMES)
+def test_cuda_cn2_wgrad_matches_plain(cuda_device, layer, N):
+    """One weight gradient of csrc/codenerf_packed.cu's backward alone (a
+    partial a 64-row block, then reduce_tiles) against tile_wgrad_plain on
+    the card and against float64, and twice, bitwise equal."""
+    kw, ref = wgrad_case(layer, N, seed=N, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        before = tff.LAUNCHES["cn2_wgrad"]
+        runs.append(tff.cn2_tile_wgrad(layer, **kw))
+        assert tff.LAUNCHES["cn2_wgrad"] == before + 1
+    want = tff.tile_wgrad_plain(layer, **kw)
+    exact = wgrad_reference(layer, ref)
+    torch.cuda.synchronize()
+    for got, again, plain, x64 in zip(runs[0], runs[1], want, exact):
+        assert (got is None) == (x64 is None)
+        if got is None:
+            continue
+        assert_scaled_close(got.cpu().numpy(), plain.cpu().numpy(), FWD_TOL)
+        assert_scaled_close(got.cpu().numpy(), x64, FWD_TOL)
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
