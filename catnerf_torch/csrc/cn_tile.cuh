@@ -9,7 +9,8 @@
 // (register-tiled product, bias, epilogue); sigma_head and rgb_head the
 // heads, a thread a row; block_embed the PE into shared memory, with
 // sin_f32 (and cos_f32 for the backward), accurate over all floats and kept
-// in registers; stage_async/wait_async the weights' 16-byte cp.async.
+// in registers; stage_async/wait_async the cp.async copies of the weights
+// (and of kernel 7's embedding rows) into shared memory.
 
 #pragma once
 
@@ -23,7 +24,8 @@ constexpr int kT = 128;      // threads a block
 constexpr int kSLo = kE1 - 3;  // 84: the PE slots of emb1
 constexpr int kBPad = 384;   // B [21, 3] or B2 [3, 126], padded to 16 bytes
 
-enum Pe { kProj = 0, kFolded = 1 };       // sin(pi 2^f (t B^T)) / sin(t B2)
+// the PE: sin(pi 2^f (t B^T)) / sin(t B2) / read from device memory
+enum Pe { kProj = 0, kFolded = 1, kLoaded = 2 };
 // tile_layer's epilogues; the *Mask forms also keep the ReLU's derivative
 // [a > 0] (a the pre-activation) for the backward, one byte a (row, column
 // group of 4), bit j for column 4 g + j: mask [OUT / 4][kR] bytes, laid out
@@ -79,7 +81,7 @@ __device__ __forceinline__ void store_rows(float* p, const float (&x)[TM]) {
 }
 
 // acc[i][j] = sum over k < K, in order, of xT[k][r0 + i] w[k][c0 + j]: one
-// FMA chain per output, as field_common's accumulate.
+// FMA chain per output.
 template <int K, int OUT, int TM>
 __device__ __forceinline__ void tile_mac(const float* xT, const float* w,
                                          int r0, int c0, float (&acc)[TM][4]) {
@@ -289,22 +291,35 @@ __device__ __forceinline__ float cos_f32(float a) {
   return sincos_f32<true>(a);
 }
 
-// Copies n floats (n % 4 == 0, both 16-byte aligned) into shared memory,
-// 16 bytes a cp.async, with the whole block; one commit group.
+// Copies n floats into shared memory (dst 16-byte aligned) with the whole
+// block, one commit group: 16 bytes a cp.async where src is 16-byte aligned
+// too (the 4-float tail 4 bytes a copy), else 4 bytes a copy.
 __device__ __forceinline__ void stage_async(float* dst,
                                             const float* __restrict__ src,
                                             int n) {
   const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  for (int k = threadIdx.x; k < n / 4; k += blockDim.x)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     base + 16u * k),
-                 "l"(src + 4 * k)
+  int k0 = 0;
+  if ((reinterpret_cast<size_t>(src) & 15) == 0) {
+    for (int k = threadIdx.x; k < n / 4; k += blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       base + 16u * k),
+                   "l"(src + 4 * k)
+                   : "memory");
+    k0 = n & ~3;
+  }
+  for (int k = k0 + threadIdx.x; k < n; k += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     base + 4u * k),
+                 "l"(src + k)
                  : "memory");
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// Waits until at most `Pending` of this thread's newest commit groups are
+// still in flight.
+template <int Pending = 0>
 __device__ __forceinline__ void wait_async() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
 }
 
 // The PE of the block's rows into emb1T / emb2T (k-major), one thread a

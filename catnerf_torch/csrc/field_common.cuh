@@ -1,9 +1,8 @@
-// Building blocks shared by the field kernels (fused_field.cu,
-// codenerf_fwd.cu, codenerf_packed.cu, codenerf_bwd.cu, occupancy.cu): the
-// flat parameter layouts, the per-thread positional encoding and its
-// backward, the packed kernels' folded basis, dense layers, the CodeNeRF
-// chain and the fixed-order reduction of the per-block partials. The
-// chain kernels' shared-memory tile body is cn_tile.cuh.
+// Building blocks shared by the field kernels (codenerf_fwd.cu,
+// codenerf_packed.cu, codenerf_bwd.cu, occupancy.cu): the flat parameter
+// layouts, the per-thread positional encoding and its backward, the packed
+// kernels' folded basis and the fixed-order reduction of the per-block
+// partials. The chain kernels' shared-memory tile body is cn_tile.cuh.
 // Float32 throughout, no fast math; the GEMM block of the chains is
 // gemm_f32.cuh.
 
@@ -46,7 +45,6 @@ constexpr int r0_b = t0_b + W;
 constexpr int r1_b = r0_b + W / 2;
 constexpr int P = r1_b + 3;  // 13,892
 constexpr int PP = P + kBSize;  // partial row: params then dB
-constexpr int kFwdT = 64;
 }  // namespace cn
 
 namespace oc {
@@ -74,80 +72,6 @@ static_assert(cn::P == 13892 && oc::P == 94340, "layout");
 // ---------------------------------------------------------------------------
 // Per-thread building blocks
 // ---------------------------------------------------------------------------
-
-// acc[o] = sum_i x[i] W[i, oc + o] for o < CH, over the IN rows from W.
-template <int IN, int OUT, int CH>
-__device__ __forceinline__ void accumulate(const float* __restrict__ W,
-                                           const float* x, int oc,
-                                           float (&acc)[CH]) {
-#pragma unroll
-  for (int o = 0; o < CH; ++o) acc[o] = 0.f;
-#pragma unroll 2
-  for (int i = 0; i < IN; ++i) {
-    const float xi = x[i];
-    const float* w = W + i * OUT + oc;
-    if constexpr (CH % 4 == 0) {
-#pragma unroll
-      for (int o = 0; o < CH; o += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(w + o);
-        acc[o] = fmaf(xi, v.x, acc[o]);
-        acc[o + 1] = fmaf(xi, v.y, acc[o + 1]);
-        acc[o + 2] = fmaf(xi, v.z, acc[o + 2]);
-        acc[o + 3] = fmaf(xi, v.w, acc[o + 3]);
-      }
-    } else {
-#pragma unroll
-      for (int o = 0; o < CH; ++o) acc[o] = fmaf(xi, w[o], acc[o]);
-    }
-  }
-}
-
-// y[o] = act((x1 @ W[:IN1] + x2 @ W[IN1:]) + b), W [IN1+IN2, OUT] row-major.
-// W and b are the same for every lane of the warp (broadcast reads).
-template <int IN1, int IN2, int OUT, bool RELU>
-__device__ __forceinline__ void dense(const float* __restrict__ W,
-                                      const float* __restrict__ bias,
-                                      const float* x1, const float* x2,
-                                      float* y) {
-  constexpr int CH = OUT < 32 ? OUT : 32;
-  static_assert(OUT % CH == 0, "output chunking");
-  for (int oc = 0; oc < OUT; oc += CH) {
-    float acc1[CH], acc2[CH];
-    accumulate<IN1, OUT, CH>(W, x1, oc, acc1);
-    if constexpr (IN2 > 0) {
-      accumulate<IN2, OUT, CH>(W + IN1 * OUT, x2, oc, acc2);
-    } else {
-#pragma unroll
-      for (int o = 0; o < CH; ++o) acc2[o] = 0.f;
-    }
-#pragma unroll
-    for (int o = 0; o < CH; ++o) {
-      const float v = (acc1[o] + acc2[o]) + bias[oc + o];
-      y[oc + o] = RELU ? fmaxf(v, 0.f) : v;
-    }
-  }
-}
-
-// The same over three row blocks: act(((x1 @ W1 + x2 @ W2) + x3 @ W3) + b).
-template <int IN1, int IN2, int IN3, int OUT, bool RELU>
-__device__ __forceinline__ void dense3(const float* __restrict__ W,
-                                       const float* __restrict__ bias,
-                                       const float* x1, const float* x2,
-                                       const float* x3, float* y) {
-  constexpr int CH = OUT < 32 ? OUT : 32;
-  static_assert(OUT % CH == 0, "output chunking");
-  for (int oc = 0; oc < OUT; oc += CH) {
-    float acc1[CH], acc2[CH], acc3[CH];
-    accumulate<IN1, OUT, CH>(W, x1, oc, acc1);
-    accumulate<IN2, OUT, CH>(W + IN1 * OUT, x2, oc, acc2);
-    accumulate<IN3, OUT, CH>(W + (IN1 + IN2) * OUT, x3, oc, acc3);
-#pragma unroll
-    for (int o = 0; o < CH; ++o) {
-      const float v = ((acc1[o] + acc2[o]) + acc3[o]) + bias[oc + o];
-      y[oc + o] = RELU ? fmaxf(v, 0.f) : v;
-    }
-  }
-}
 
 // t = p * inv_scale; proj = t @ B^T; emb1 = [t, sin(pi 2^f proj), f<4];
 // emb2 = [sin(pi 2^f proj), f=4,5].
@@ -224,49 +148,11 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// The CodeNeRF chain from the embedding (ref: _codenerf_chain,
-// fused_field.py:81): emb1 = [t, sin f0..f3] (87), emb2 = [sin f4, f5]
-// (42), z* the row's four injections (32 each, in device memory), weights
-// in shared memory. Gives sg (before the x10) and a7 (before the sigmoid).
-__device__ __forceinline__ void cn_chain(const float* sW, const float* emb1,
-                                         const float* emb2,
-                                         const float* __restrict__ zs0,
-                                         const float* __restrict__ zc,
-                                         const float* __restrict__ zs1,
-                                         const float* __restrict__ zt0,
-                                         float& sg, float a7[3]) {
-  constexpr int W = cn::W;
-  float x[W], y[W], h[W];
-  dense<kE1, 0, W, true>(sW + cn::e_w, sW + cn::e_b, emb1, nullptr, y);
-  for (int k = 0; k < W; ++k) x[k] = y[k] + zs0[k];
-  dense<W, 0, W, true>(sW + cn::s0_w, sW + cn::s0_b, x, nullptr, y);
-  for (int k = 0; k < W; ++k) x[k] = y[k] + zc[k];
-  dense<W, kE1, W, true>(sW + cn::c_w, sW + cn::c_b, x, emb1, y);
-  for (int k = 0; k < W; ++k) x[k] = y[k] + zs1[k];
-  dense<W, 0, W, true>(sW + cn::s1_w, sW + cn::s1_b, x, nullptr, y);
-  dense<W, 0, W, false>(sW + cn::en_w, sW + cn::en_b, y, nullptr, h);
-  dense<W, 0, 1, false>(sW + cn::sg_w, sW + cn::sg_b, h, nullptr, &sg);
-  dense<W, kE2, W, true>(sW + cn::vd_w, sW + cn::vd_b, h, emb2, y);
-  for (int k = 0; k < W; ++k) x[k] = y[k] + zt0[k];
-  dense<W, 0, W, true>(sW + cn::t0_w, sW + cn::t0_b, x, nullptr, y);
-  dense<W, 0, W / 2, true>(sW + cn::r0_w, sW + cn::r0_b, y, nullptr, x);
-  dense<W / 2, 0, 3, false>(sW + cn::r1_w, sW + cn::r1_b, x, nullptr, a7);
-}
-
 template <int N>
 __device__ __forceinline__ void load_row(const float* __restrict__ src,
                                          bool valid, float* dst) {
 #pragma unroll
   for (int k = 0; k < N; ++k) dst[k] = valid ? src[k] : 0.f;
-}
-
-// Copies n floats (n % 4 == 0, both 16-byte aligned) with the whole block.
-__device__ __forceinline__ void block_copy(float* dst,
-                                           const float* __restrict__ src,
-                                           int n) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int k = threadIdx.x; k < n / 4; k += blockDim.x) d4[k] = s4[k];
 }
 
 // out[c][p] = sum over tiles k (in order) of partial[c][k][p].

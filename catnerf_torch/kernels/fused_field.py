@@ -13,11 +13,11 @@ Replaces the Pallas TPU kernels of the JAX package's
   codenerf_mlp_fwd     <- exp_kernel2.py mlp_kernel :73 (main.mlp_only)
 
 with CUDA C++ kernels for Hopper, one library per source: `csrc/
-codenerf_fwd.cu` (the CodeNeRF forward and the packed forward, one tiled
-chain kernel), `csrc/codenerf_bwd.cu` (the CodeNeRF backward),
-`csrc/occupancy.cu` (the background forward and backward),
-`csrc/codenerf_packed.cu` (the packed backward) and `csrc/fused_field.cu`
-(the MLP-only kernel). Each public function keeps the JAX contract
+codenerf_fwd.cu` (the CodeNeRF forward, the packed forward and the
+MLP-only forward, one tiled chain kernel), `csrc/codenerf_bwd.cu` (the
+CodeNeRF backward), `csrc/occupancy.cu` (the background forward and
+backward) and `csrc/codenerf_packed.cu` (the packed backward). Each public
+function keeps the JAX contract
 (`codenerf_fused_apply` :384, `occupancy_fused_apply` :631,
 `codenerf_packed_apply` :958) and is differentiable through an
 `autograd.Function` whose backward is a kernel too; the MLP-only kernel
@@ -28,21 +28,18 @@ CodeNeRF forward does 13,648 multiply-adds against 55.6 KB of weights that
 every point shares, and the background 93,696 against 377 KB. Three
 designs:
 
-* the CodeNeRF forward and the packed forward are one chain kernel: a
-  block owns one category and 64 rows, stages the category's weights in
-  shared memory, computes the PE there, and runs each layer as a
-  register-tiled product out of shared memory (`TILE_LAYERS`), nothing in
-  device memory between layers;
+* the CodeNeRF forward, the packed forward and the MLP-only forward are
+  one chain kernel: a block owns one category and 64 rows, stages the
+  category's weights in shared memory, computes the PE there (the MLP-only
+  kernel loads it, `cn_emb_load`), and runs each layer as a register-tiled
+  product out of shared memory (`TILE_LAYERS`), nothing in device memory
+  between layers;
 * the packed backward runs on the same tile body: a block recomputes
   the packed forward for its category's 64 rows, keeps every activation
   and ReLU mask the backward reads in shared memory, and runs each
   layer's input gradient (`PACKED_DX_PIECES`) and weight gradient
   (`PACKED_BWD_LAYERS`) as register-tiled products there, one partial
   row of weight gradients per block;
-* the MLP-only kernel runs one thread per sample point through the whole
-  chain, activations in registers and local memory, the weights in
-  shared memory (every lane of a warp reads the same weight, a
-  broadcast);
 * the CodeNeRF backward and the background forward and backward are chains
   of tiled float32 GEMMs (`csrc/gemm_f32.cuh`: a 128 x 32 tile for the
   32-wide CodeNeRF layers, `cn_gemm`, with the category as a batch index,
@@ -74,7 +71,8 @@ LAUNCHES = {"codenerf_fwd": 0, "codenerf_bwd": 0,
             "occupancy_fwd": 0, "occupancy_bwd": 0,
             "codenerf_packed_fwd": 0, "codenerf_packed_bwd": 0,
             "codenerf_mlp_fwd": 0, "oc_gemm": 0, "cn_gemm": 0, "cn_tile": 0,
-            "cn_sin": 0, "cn2_dx": 0, "cn2_wgrad": 0, "cn_cos": 0}
+            "cn_sin": 0, "cn_emb": 0, "cn2_dx": 0, "cn2_wgrad": 0,
+            "cn_cos": 0}
 
 
 def reset_launch_counts() -> None:
@@ -373,6 +371,25 @@ def codenerf_mlp_fwd_plain(flat, emb1, emb2, zs):
     return torch.cat([sg, color], dim=-1)
 
 
+# --- the MLP-only kernel's load of its embedding (csrc/codenerf_fwd.cu) ---
+
+EMB_BLOCK_ROWS = 64  # rows a block of the chain kernel
+
+
+def emb_load_plain(emb1, emb2):
+    """emb1 [N, 87], emb2 [N, 42] -> (out1 [ceil(N / 64), 87, 64], out2
+    [ceil(N / 64), 42, 64]): each 64-row block k-major, as the chain kernel
+    holds it in shared memory, rows past N zero."""
+    nb = -(-emb1.shape[0] // EMB_BLOCK_ROWS)
+
+    def image(x):
+        pad = nb * EMB_BLOCK_ROWS - x.shape[0]
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        return x.reshape(nb, EMB_BLOCK_ROWS, -1).transpose(1, 2).contiguous()
+
+    return image(emb1), image(emb2)
+
+
 # --- one layer of the forward chain kernel (csrc/codenerf_fwd.cu) ---
 
 # The layers of the chain kernel in its order (its enum Layer): (name, the
@@ -645,7 +662,7 @@ def tile_wgrad_plain(layer, x, d):
 
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/codenerf_fwd.cu, csrc/codenerf_bwd.cu,
-# csrc/occupancy.cu, csrc/codenerf_packed.cu, csrc/fused_field.cu)
+# csrc/occupancy.cu, csrc/codenerf_packed.cu)
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -655,14 +672,13 @@ _SIGNATURES = {
     "codenerf_fwd": {
         "cn_fwd": [_P] * 8 + [_I, _I, _F, _P],
         "cn2_fwd": [_P] * 9 + [_I, _I, _F, _P],
+        "cn_mlp_fwd": [_P] * 8 + [_I, _I, _P],
         # layer (TILE_LAYERS index); x, w, bias, z, y; N; stream
         "cn_tile_layer": [_I] + [_P] * 5 + [_I, _P],
+        # emb1, emb2, out1, out2; N; stream
+        "cn_emb_load": [_P] * 4 + [_I, _P],
         "cn_sin": [_P, _P, _I, _P],
         "codenerf_fwd_layout": [ctypes.POINTER(ctypes.c_int)],
-    },
-    "fused_field": {
-        "cn_mlp_fwd": [_P] * 8 + [_I, _I, _P],
-        "catnerf_layout": [ctypes.POINTER(ctypes.c_int)],
     },
     "codenerf_packed": {
         "cn2_bwd": [_P] * 16 + [_I, _I, _F, _P],
@@ -699,8 +715,7 @@ _LAYOUT_FNS = {
     "codenerf_fwd": ("codenerf_fwd_layout",
                      ("cn_fwd_p", "cn_fwd_rows", "cn_fwd_threads",
                       "cn_fwd_smem"),
-                     {"cn_fwd_p": CN_P}),
-    "fused_field": ("catnerf_layout", ("cn_p", "mlp_rows"), {"cn_p": CN_P}),
+                     {"cn_fwd_p": CN_P, "cn_fwd_rows": EMB_BLOCK_ROWS}),
     "codenerf_packed": ("packed_layout",
                         ("packed_p", "packed_b2", "packed_block_rows",
                          "packed_threads", "packed_smem"),
@@ -737,7 +752,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 _BOUND: set[str] = set()
 
 
-def _lib(name: str = "fused_field") -> ctypes.CDLL:
+def _lib(name: str) -> ctypes.CDLL:
     from catnerf_torch.kernels import build
 
     lib = build.load(name)
@@ -1098,12 +1113,16 @@ def cn_sin_cuda(x):
 
 
 def codenerf_mlp_fwd_cuda(flat, emb1, emb2, zs):
-    lib = _lib()
+    """csrc/codenerf_fwd.cu `cn_mlp_fwd`: the tiled chain kernel with the
+    embedding loaded from device memory, one launch (grid: row tiles of
+    `cn_fwd_rows` x the categories)."""
+    lib = _lib("codenerf_fwd")
     C, N, _ = emb1.shape
     _check(emb1.device, {"emb1": (emb1, (C, N, 87)),
                          "emb2": (emb2, (C, N, 42)),
                          "params": (flat, (C, CN_P)),
-                         **{f"z{i}": (z, (C, N, 32)) for i, z in enumerate(zs)}})
+                         **{k: (z, (C, N, 32)) for k, z in zip(_Z_NAMES, zs)}},
+           aligned=("params", *_Z_NAMES))
     out = torch.empty(C, N, 4, device=emb1.device, dtype=torch.float32)
     if N == 0:
         return out
@@ -1112,6 +1131,27 @@ def codenerf_mlp_fwd_cuda(flat, emb1, emb2, zs):
     _raise_on(err, "cn_mlp_fwd")
     LAUNCHES["codenerf_mlp_fwd"] += 1
     return out
+
+
+def cn_emb_load_cuda(emb1, emb2):
+    """csrc/codenerf_fwd.cu `cn_emb_load`: the MLP-only kernel's load of
+    its embedding alone (its `load_emb`, staging no weights); a test entry.
+    emb1 [N, 87], emb2 [N, 42] -> the k-major image of each 64-row block
+    (emb_load_plain's contract)."""
+    N = emb1.shape[0]
+    _check(emb1.device, {"emb1": (emb1, (N, 87)), "emb2": (emb2, (N, 42))},
+           aligned=())
+    lib = _lib("codenerf_fwd")
+    nb = -(-N // EMB_BLOCK_ROWS)
+    out1 = torch.empty(nb, 87, EMB_BLOCK_ROWS, device=emb1.device)
+    out2 = torch.empty(nb, 42, EMB_BLOCK_ROWS, device=emb1.device)
+    if N == 0:
+        return out1, out2
+    err = lib.cn_emb_load(_ptr(emb1), _ptr(emb2), _ptr(out1), _ptr(out2), N,
+                          _stream(emb1.device))
+    _raise_on(err, "cn_emb_load")
+    LAUNCHES["cn_emb"] += 1
+    return out1, out2
 
 
 def check_tile(tile) -> int:
@@ -1355,6 +1395,14 @@ def cn_cos(x):
     if _on_cuda(x):
         return cn_cos_cuda(x)
     return torch.cos(x)
+
+
+def cn_emb_load(emb1, emb2):
+    """The MLP-only kernel's load of its embedding alone
+    (emb_load_plain)."""
+    if _on_cuda(emb1):
+        return cn_emb_load_cuda(emb1, emb2)
+    return emb_load_plain(emb1, emb2)
 
 
 def codenerf_mlp_fwd(flat, emb1, emb2, zs):

@@ -10,26 +10,31 @@ Phases, each printing one or more lines:
    into `chiprun_out/ptxas*.txt`, and the registers and stack frame of
    each instantiation of the GEMM block in the two libraries that build it
    (`occupancy`, `codenerf_bwd`), of the forward chain kernel's tile
-   body (`codenerf_fwd`: the two chain kernels and the twelve layers of
-   its test entry) and of every kernel of the packed backward's library
+   body (`codenerf_fwd`: the three chain kernels, the twelve layers of
+   its test entry and its load entry) and of every
+   kernel of the packed backward's library
    (`codenerf_packed`: the backward, its test entries' 13 input-gradient
    pieces and 11 weight gradients, the cosine, `reduce_tiles`); a stack
    frame fails the run;
 3. each kernel against its plain PyTorch version on the card (forward
    within 1e-5, gradients within 2e-4 (the CodeNeRF backward's: of its
    plain version in float64, widened by the float32 plain version's own
-   error within each layer's block, `grad_bound`), each backward run
-   twice and bitwise equal), then timed beside its plain version and its bound
+   error within each layer's block, `grad_bound`), each kernel run twice
+   and bitwise equal), then timed beside its plain version and its bound
    (CUDA events around one call from an idle device, and per call with
    50 calls queued back to back, the device's time alone): the
    four kernels of the fused trainer at the training step's shapes, the
    packed-ensemble pair and the MLP-only kernel at the comparison's shape
-   (C=8, N=2,100), at the step's (C=8, N=3,600), and the packed pair at a
-   ragged N (2,101), and kernel 1 again at a ragged N (3,601); the two
-   backwards' bounds both without and with their forward recompute; the
-   device time of each piece of the three GEMM chains (kernels 2-4), of
-   the one launch of the chain kernel (kernels 1 and 5) and of the packed
-   backward and its reduction (kernel 6), under torch.profiler; then the GEMM block alone
+   (C=8, N=2,100), at the step's (C=8, N=3,600) and at a ragged N
+   (2,101), and kernel 1 again at a ragged N (3,601); the two backwards'
+   bounds both without and with their forward recompute; the device time
+   of each piece of the three GEMM chains (kernels 2-4), of the one launch
+   of the chain kernel (kernels 1, 5 and 7) and of the packed backward and
+   its reduction (kernel 6), under torch.profiler; the MLP-only kernel's
+   load of its embedding alone (`cn_emb_load`, 16,800 rows, from an
+   aligned and an unaligned start); kernel 1 beside the MLP-only kernel
+   fed the embedding kernel 1 computes (C=8, N=3,600: the PE's share of
+   kernel 1); then the GEMM block alone
    against its plain version, timed beside one library call on the same
    operands (a yardstick the port never calls): 128 wide at 16,800 x 128 x
    128 beside `torch.matmul`, and 32 wide at C=8 x 3,600 x 32 x 32 beside
@@ -291,7 +296,7 @@ def check_kernels(dev) -> list[dict]:
                 cn["flat"], cn["B"], cn["pts"], cn["zs"], inv_cn),),
             plain=lambda: (ff.codenerf_fwd_plain(
                 cn["flat"], cn["B"], cn["pts"], cn["zs"], inv_cn),),
-            tol=FWD_TOL, bwd=False,
+            tol=FWD_TOL,
             nbytes=f * (cn_rows * (cn_row_io + 4) + cn_prm),
             flops=2 * 13648 * cn_rows, pieces=True),
         "codenerf_bwd": dict(
@@ -307,7 +312,7 @@ def check_kernels(dev) -> list[dict]:
             exact=lambda: _flatten(ff.codenerf_bwd_plain(
                 *(_f64(cn[k]) for k in ("flat", "B", "pts", "zs", "dout")),
                 inv_cn)),
-            tol=GRAD_TOL, bwd=True,
+            tol=GRAD_TOL,
             nbytes=f * (cn_rows * (2 * cn_row_io + 4) + 2 * cn_prm),
             # the backward's own work (input and weight gradients), and in
             # the log also the work with the forward it recomputes
@@ -320,7 +325,7 @@ def check_kernels(dev) -> list[dict]:
                 oc["flat"], oc["B"], oc["pts"], inv_oc),),
             plain=lambda: (ff.occupancy_fwd_plain(
                 oc["flat"], oc["B"], oc["pts"], inv_oc),),
-            tol=FWD_TOL, bwd=False,
+            tol=FWD_TOL,
             nbytes=f * (oc_rows * (3 + 4) + oc_prm),
             flops=2 * 93696 * oc_rows, pieces=True),
         "occupancy_bwd": dict(
@@ -330,7 +335,7 @@ def check_kernels(dev) -> list[dict]:
                 oc["flat"], oc["B"], oc["pts"], oc["dout"], inv_oc)),
             plain=lambda: _flatten(ff.occupancy_bwd_plain(
                 oc["flat"], oc["B"], oc["pts"], oc["dout"], inv_oc)),
-            tol=GRAD_TOL, bwd=True,
+            tol=GRAD_TOL,
             nbytes=f * (oc_rows * (2 * 3 + 4) + 2 * oc_prm),
             # the backward's own work (input and weight gradients), and in
             # the log also the work with the forward it recomputes
@@ -353,7 +358,7 @@ def check_kernels(dev) -> list[dict]:
                                              zs_r, inv_cn),),
         plain=lambda: (ff.codenerf_fwd_plain(cn["flat"], cn["B"], pts_r,
                                              zs_r, inv_cn),),
-        tol=FWD_TOL, bwd=False,
+        tol=FWD_TOL,
         nbytes=f * (C * Nr * (cn_row_io + 4) + cn_prm),
         flops=2 * 13648 * C * Nr), f" (C={C}, N={Nr})")
     for name, spec in specs.items():
@@ -447,9 +452,13 @@ def check_gemm_registers(lib: str, log_text: str, expected: int) -> None:
 
 
 # the forward chain kernel's tile body in codenerf_fwd.cu: chain_kernel<PE,
-# IO> for kernels 1 and 5, tile_layer_kernel<L> for each of the twelve
-# entries of fused_field.TILE_LAYERS
-TILE_INSTANTIATIONS = 2 + 12
+# IO> for kernels 1, 5 and 7, tile_layer_kernel<L> for each of the twelve
+# entries of fused_field.TILE_LAYERS, and emb_load_kernel (kernel 7's load
+# alone)
+TILE_INSTANTIATIONS = 3 + 12 + 1
+CHAIN_LABELS = {"0": "chain_kernel<kProj, kCatMajor> (cn_fwd)",
+                "1": "chain_kernel<kFolded, kPointMajor> (cn2_fwd)",
+                "2": "chain_kernel<kLoaded, kCatMajor> (cn_mlp_fwd)"}
 
 
 def check_tile_registers(log_text: str) -> None:
@@ -466,12 +475,12 @@ def check_tile_registers(log_text: str) -> None:
     found = []
     for name, (regs, frame) in sorted(ptxas_report(log_text).items()):
         if m := re.search(r"chain_kernelIL\w*?PeE(\d)E", name):
-            label = ("chain_kernel<kProj, kCatMajor> (cn_fwd)"
-                     if m.group(1) == "0" else
-                     "chain_kernel<kFolded, kPointMajor> (cn2_fwd)")
+            label = CHAIN_LABELS[m.group(1)]
         elif m := re.search(r"tile_layer_kernelILi(\d+)E", name):
             layer = ff.TILE_LAYER_NAMES[int(m.group(1))]
             label = f"tile_layer_kernel<{layer}>"
+        elif "emb_load_kernel" in name:
+            label = "emb_load_kernel"
         else:
             continue
         found.append((label, regs, frame))
@@ -567,8 +576,8 @@ def time_gemm_block(dev, width: int) -> dict:
 
 
 def check_and_time(name, spec, label="") -> dict:
-    """One kernel against its plain version (and, for a backward, against
-    itself a second time, bitwise), then both timed, beside the bound."""
+    """One kernel against its plain version and against itself a second
+    time (bitwise), then both timed, beside the bound."""
     got = spec["kernel"]()
     torch.cuda.synchronize()
     want = spec["plain"]()
@@ -584,11 +593,10 @@ def check_and_time(name, spec, label="") -> dict:
     else:
         assert_close(name + label, got, want, spec["tol"],
                      spec.get("scaled", False))
-    if spec["bwd"]:
-        again = spec["kernel"]()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"{name}{label}: two runs differ bitwise")
+    again = spec["kernel"]()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}{label}: two runs differ bitwise")
     err = max_err(got, want)
     ms = cuda_ms(spec["kernel"])
     plain_ms = cuda_ms(spec["plain"])
@@ -604,7 +612,7 @@ def check_and_time(name, spec, label="") -> dict:
         extra["bound_recompute_ms"] = full_ms
     log(f"kernel {name}{label}: max_abs_err {err:.3e} (tol {spec['tol']:g}"
         f"{' of the scale' if spec.get('scaled') else ''})"
-        f"{', backward bitwise repeatable' if spec['bwd'] else ''}; "
+        ", bitwise repeatable; "
         f"{ms:.4f} ms ({queued_ms:.4f} queued back to back), plain "
         f"{plain_ms:.4f} ms, {bounds})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -640,8 +648,8 @@ def packed_inputs(dev, C, N, seed):
 
 def check_packed_kernels(dev) -> list[dict]:
     """Kernels 5-7 against their plain versions on the card at
-    PACKED_SHAPES (the MLP-only kernel at the first two), then timed; the
-    rows of the first shape go into the kernels line."""
+    PACKED_SHAPES, then timed; the rows of the first shape go into the
+    kernels line."""
     from catnerf_torch.kernels import fused_field as ff
 
     inv = 1.0 / 2.0
@@ -663,7 +671,7 @@ def check_packed_kernels(dev) -> list[dict]:
                     x["flat"], x["B"], x["pts"], x["zs"], inv, PACKED_TILE),
                 plain=lambda: ff.codenerf_packed_fwd_plain(
                     x["flat"], x["B"], x["pts"], x["zs"], inv),
-                tol=FWD_TOL, bwd=False,
+                tol=FWD_TOL,
                 nbytes=f * (n * (row_io + 4) + prm + C * ff.B_SIZE),
                 flops=fwd_flops),
             "codenerf_packed_bwd": dict(
@@ -679,24 +687,23 @@ def check_packed_kernels(dev) -> list[dict]:
                 # summation orders differ by ~1e-3 on elements that cancel
                 # (4.7e-4 on one of 0.17 at N=3,600), so the bound is 2e-4
                 # of each tensor's scale
-                tol=GRAD_TOL, bwd=True, scaled=True,
+                tol=GRAD_TOL, scaled=True,
                 nbytes=f * (n * (2 * row_io + 4) + 2 * prm
                             + C * (ff.B_SIZE + ff.B2_SIZE)),
                 # the backward's own work (input and weight gradients), and
                 # with the forward it recomputes
                 flops=2 * fwd_flops, flops_recompute=3 * fwd_flops),
-        }
-        if N % 100 == 0:  # the MLP-only kernel at the unragged shapes
-            specs["codenerf_mlp_fwd"] = dict(
+            "codenerf_mlp_fwd": dict(
                 replaces="scripts/exp_kernel2.py:73",
-                source="catnerf_torch/csrc/fused_field.cu",
+                source="catnerf_torch/csrc/codenerf_fwd.cu", pieces=True,
                 kernel=lambda: (ff.codenerf_mlp_fwd_cuda(
                     x["flat"], x["emb1"], x["emb2"], x["zs_cat"]),),
                 plain=lambda: (ff.codenerf_mlp_fwd_plain(
                     x["flat"], x["emb1"], x["emb2"], x["zs_cat"]),),
-                tol=FWD_TOL, bwd=False,
+                tol=FWD_TOL,
                 nbytes=f * (n * (87 + 42 + 4 * 32 + 4) + prm),
-                flops=2 * 13648 * n)
+                flops=2 * 13648 * n),
+        }
         for name, spec in specs.items():
             res = check_and_time(name, spec, f" (C={C}, N={N})")
             if spec.get("pieces"):
@@ -707,6 +714,74 @@ def check_packed_kernels(dev) -> list[dict]:
                                   replaces=spec["replaces"], launches=None,
                                   **res)
     return list(rows.values())
+
+
+def time_emb_load(dev, rows: int = 8 * 2100) -> None:
+    """The MLP-only kernel's load of its embedding alone (`cn_emb_load`),
+    against its plain version (bitwise) and then timed queued twice, at the
+    comparison's 16,800 rows: from a 16-byte aligned start, as every block
+    of the chain kernel at C=8, N=2,100 starts, and from one row in, where
+    no block does. Bound: each input byte read once, the k-major image
+    written once."""
+    from catnerf_torch.kernels import fused_field as ff
+
+    gen = torch.Generator().manual_seed(4)
+    full = tuple((torch.rand(rows + 1, k, generator=gen) * 2 - 1).to(dev)
+                 for k in (87, 42))
+    nb = -(-rows // ff.EMB_BLOCK_ROWS)
+    nbytes = 4 * (rows + nb * ff.EMB_BLOCK_ROWS) * (87 + 42)
+    bound_ms, bound_by = bound(nbytes, 0)
+    for offset, what in ((0, "aligned"), (1, "unaligned")):
+        emb = tuple(x[offset:offset + rows] for x in full)
+        want = ff.emb_load_plain(*emb)
+        fn = lambda: ff.cn_emb_load_cuda(*emb)
+        got = fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"cn_emb_load ({what}): not bitwise equal "
+                                 "to its input")
+        runs = [device_ms(fn), device_ms(fn)]
+        log(f"emb load ({rows} rows, {what} start), bitwise equal to its "
+            f"input: {', '.join(f'{t:.4f}' for t in runs)} ms queued; bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB)")
+
+
+def pe_share(dev, C: int = 8, N: int = 3600) -> None:
+    """Kernel 1 beside the MLP-only kernel fed the embedding kernel 1
+    computes (`_embed`): the same chain on the same inputs, so the two agree
+    within FWD_TOL, and the difference of their times is the PE's (its
+    sines and the basis) less the MLP-only kernel's load of the embedding.
+    Timed queued, in turns (1, 7, 7, 1)."""
+    from catnerf_torch.kernels import fused_field as ff
+    from catnerf_torch.models.codenerf import CodeNeRF
+    from catnerf_torch.models.embedding import UniDirsEmbed
+
+    gen = torch.Generator().manual_seed(3)
+    flat = ff.pack(ff._cn_modules(CodeNeRF.init(gen, C))).detach().to(dev)
+    B = (UniDirsEmbed.init((C,)).B.detach()
+         + 0.05 * torch.randn(C, 21, 3, generator=gen)).to(dev)
+    pts = (torch.randn(C, N, 3, generator=gen) * 0.8).to(dev)
+    zs = tuple(torch.relu(torch.randn(C, N, 32, generator=gen)).to(dev)
+               for _ in range(4))
+    _, _, emb1, emb2 = ff._embed(pts, B, 0.5)
+    emb1, emb2 = emb1.contiguous(), emb2.contiguous()
+    k1 = lambda: ff.codenerf_fwd_cuda(flat, B, pts, zs, 0.5)
+    k7 = lambda: ff.codenerf_mlp_fwd_cuda(flat, emb1, emb2, zs)
+    out1, out7 = k1(), k7()
+    torch.cuda.synchronize()
+    assert_close("kernel 7 on kernel 1's embedding", (out7,), (out1,),
+                 FWD_TOL)
+    t1, t7 = [device_ms(k1)], [device_ms(k7)]
+    t7.append(device_ms(k7))
+    t1.append(device_ms(k1))
+    m1, m7 = statistics.mean(t1), statistics.mean(t7)
+    log(f"PE share of kernel 1 (C={C}, N={N}): kernel 1 "
+        f"{t1[0]:.4f}, {t1[1]:.4f} ms queued; kernel 7 on kernel 1's "
+        f"embedding {t7[0]:.4f}, {t7[1]:.4f} (max_abs_err "
+        f"{max_err((out7,), (out1,)):.3e}, reading "
+        f"{4 * (emb1.numel() + emb2.numel()) / 1e6:.1f} MB of it); kernel 1 "
+        f"less kernel 7: {m1 - m7:.4f} ms, {100 * (m1 - m7) / m1:.1f}% of "
+        f"kernel 1 (the PE's sines and basis, less kernel 7's load)")
 
 
 def check_step(dev, cfg, what: str) -> None:
@@ -926,8 +1001,8 @@ def main() -> int:
         f"{time.time() - t0:.1f} s; layout {json.dumps(ff.layout())}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     for name in ff.LIBRARIES:
-        out = "ptxas.txt" if name == "fused_field" else f"ptxas_{name}.txt"
-        with open(os.path.join(ROOT, "chiprun_out", out), "w") as fh:
+        with open(os.path.join(ROOT, "chiprun_out", f"ptxas_{name}.txt"),
+                  "w") as fh:
             fh.write(build.build_log(name))
     for name, count in GEMM_LIBS.items():
         check_gemm_registers(name, build.build_log(name), count)
@@ -935,6 +1010,8 @@ def main() -> int:
     check_packed_registers(build.build_log("codenerf_packed"))
 
     rows = check_kernels(dev) + check_packed_kernels(dev)
+    time_emb_load(dev)
+    pe_share(dev)
     for width in (128, 32):
         time_gemm_block(dev, width)
     check_step(dev, fused_config(), "fused")

@@ -1,4 +1,4 @@
-"""The forward chain kernel of csrc/codenerf_fwd.cu (kernels 1 and 5) in
+"""The forward chain kernel of csrc/codenerf_fwd.cu (kernels 1, 5 and 7) in
 its plain version, one layer at a time and as a whole chain.
 
 `tile_layer_plain`, one layer of the chain kernel (the products of the
@@ -13,14 +13,21 @@ makes.
 
 The chain test composes `tile_layer_plain` in csrc/codenerf_fwd.cu's
 order (each form's PE, then the layers with their pieces, injections and
-epilogues, the heads last), for both PE forms and both I/O layouts, and
-holds it within 1e-5 against the port's plain versions
-(`codenerf_fwd_plain`, `codenerf_packed_fwd_plain`) and the JAX package's
-Pallas kernels in interpret mode (`codenerf_fused_apply`,
-`codenerf_packed_apply`, as tests/test_torch_fused_field.py and
-tests/test_torch_packed_field.py run them), at C=2-3 and N=37-130. This
-file imports jax only inside the tests that compare with it, so that the
-card tests can import `tile_case` on a machine without jax.
+epilogues, the heads last), for the kernel's three forms (kernel 1's PE
+and kernel 5's, each at its I/O layout, and kernel 7's embedding given as
+it is), and holds it within 1e-5 against the port's plain versions
+(`codenerf_fwd_plain`, `codenerf_packed_fwd_plain`,
+`codenerf_mlp_fwd_plain`) and the JAX package's Pallas kernels in
+interpret mode (`codenerf_fused_apply`, `codenerf_packed_apply`, as
+tests/test_torch_fused_field.py and tests/test_torch_packed_field.py run
+them; for kernel 7, whose Pallas kernel is a closure of
+scripts/exp_kernel2.py, the chain it runs, `_codenerf_chain` over
+`_cn_param_arrays`), at C=2-3 and N=37-130. Kernel 7's load of its
+embedding (`emb_load_plain`: each 64-row block k-major, as the chain kernel
+holds it) is held against numpy here, and the CUDA load (`cn_emb_load`)
+against it on the card (`-k cn_emb`). This file imports jax only inside
+the tests that compare with it, so that the card tests can import
+`tile_case` on a machine without jax.
 
 The chain kernel's sine (`sin_f32`, which keeps its Payne-Hanek reduction
 in registers) is held on the card against float64 by
@@ -48,6 +55,9 @@ RAGGED_N = 77
 CPU_TOL = 1e-5   # float32 against float64, relative to the output's scale
 FWD_TOL = 1e-5   # the chain against the plain versions and the JAX kernels
 CHAIN_SHAPES = ((2, 37), (3, 130))
+# the chain kernel's forms: kernel 1 (cn_fwd), kernel 5 (cn2_fwd), kernel 7
+# (cn_mlp_fwd)
+FORMS = ("cn_fwd", "cn2_fwd", "cn_mlp_fwd")
 
 
 def tile_case(layer, N, seed, device="cpu"):
@@ -154,21 +164,25 @@ def _point_major(x):
     return np.ascontiguousarray(np.swapaxes(x, 0, 1).reshape(x.shape[1], -1))
 
 
-def tile_chain(flat, B, pts, zs, inv_scale, packed):
+def tile_chain(form, flat, zs, B=None, pts=None, inv_scale=None, emb=None):
     """csrc/codenerf_fwd.cu's chain_kernel with tile_layer_plain, layer by
-    layer in its order. packed=False: cn_fwd (category-major pts [C,N,3],
-    z* [C,N,32]; proj = t B^T rounded as written, sin(pi 2^f proj))
-    -> [C,N,4]; packed=True: cn2_fwd (point-major pts [N,3C], z* [N,32C];
-    S = sin(t B2), the encoding and cat layers split) -> (sg [N,C],
-    col [N,3C])."""
+    layer in its order. cn_fwd: category-major pts [C,N,3], z* [C,N,32];
+    proj = t B^T rounded as written, sin(pi 2^f proj) -> [C,N,4]; cn2_fwd:
+    point-major pts [N,3C], z* [N,32C]; S = sin(t B2), the encoding and cat
+    layers split -> (sg [N,C], col [N,3C]); cn_mlp_fwd: emb = (emb1
+    [C,N,87], emb2 [C,N,42]) as given, z* [C,N,32] -> [C,N,4]."""
     C = flat.shape[0]
     W, b = tff._unpack(flat, tff.CN_LAYERS)
+    packed = form == "cn2_fwd"
     if packed:
         t = tff._to_cat_major(pts, C) * inv_scale
         S = torch.sin(t @ tff.fold_b2(B))
         emb1 = torch.cat([t, S[..., :tff._LOW]], dim=-1)
         emb2 = S[..., tff._LOW:]
         z0, z1, z2, z3 = (tff._to_cat_major(z, C) for z in zs)
+    elif form == "cn_mlp_fwd":
+        emb1, emb2 = emb
+        z0, z1, z2, z3 = zs
     else:
         _, _, emb1, emb2 = tff._embed(pts, B, inv_scale)
         z0, z1, z2, z3 = zs
@@ -205,17 +219,42 @@ def _port_inputs(fc, B, pts, zs, packed):
             tuple(torch.tensor(lay(z)) for z in zs))
 
 
+def _mlp_embedding(B, pts):
+    """Kernel 7's embedding as exp_kernel2.py:96 computes it: the XLA
+    path's `embedding.apply` (sinpi polynomial) at scale 2, per category;
+    (emb1 [C,N,87], emb2 [C,N,42]) in numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from catnerf_tpu.models import embedding
+
+    emb = np.asarray(jax.vmap(
+        lambda b, p: embedding.apply({"B": b}, p, scale=2.0))(
+            jnp.asarray(B), jnp.asarray(pts)))
+    return (np.ascontiguousarray(emb[..., :87]),
+            np.ascontiguousarray(emb[..., 87:]))
+
+
 def _close(got, want):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=FWD_TOL, atol=FWD_TOL)
 
 
-@pytest.mark.parametrize("packed", [False, True], ids=["cn_fwd", "cn2_fwd"])
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("C,N", CHAIN_SHAPES)
-def test_tile_chain_matches_the_plain_forward(packed, C, N):
+def test_tile_chain_matches_the_plain_forward(form, C, N):
     fc, B, pts, zs = _chain_inputs(C, N, seed=N)
+    packed = form == "cn2_fwd"
     flat, tB, tpts, tzs = _port_inputs(fc, B, pts, zs, packed)
-    got = tile_chain(flat, tB, tpts, tzs, 0.5, packed)
+    if form == "cn_mlp_fwd":  # fed the port's PE of kernel 1 (scale 2)
+        _, _, emb1, emb2 = tff._embed(tpts, tB, 0.5)
+        emb = (emb1.contiguous(), emb2.contiguous())
+        got = tile_chain(form, flat, tzs, emb=emb)
+        want = tff.codenerf_mlp_fwd_plain(flat, *emb, tzs)
+        assert got.shape == (C, N, 4)
+        _close(got, want)
+        return
+    got = tile_chain(form, flat, tzs, tB, tpts, 0.5)
     if packed:
         want = tff.codenerf_packed_fwd_plain(flat, tB, tpts, tzs, 0.5)
         assert got[0].shape == (N, C) and got[1].shape == (N, 3 * C)
@@ -227,19 +266,42 @@ def test_tile_chain_matches_the_plain_forward(packed, C, N):
         _close(got, want)
 
 
-@pytest.mark.parametrize("packed", [False, True], ids=["cn_fwd", "cn2_fwd"])
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("C,N", CHAIN_SHAPES)
-def test_tile_chain_matches_the_jax_kernel(packed, C, N):
+def test_tile_chain_matches_the_jax_kernel(form, C, N):
     """Against the Pallas kernel of each form in interpret mode: kernel 1's
     `_codenerf_fwd_kernel` (:124) and kernel 5's `_cn2_fwd_kernel` (:773,
-    tile 32: a ragged last tile at both N)."""
+    tile 32: a ragged last tile at both N); kernel 7's `mlp_kernel`
+    (exp_kernel2.py:73) is a closure of the script's `main`, so its form
+    is held against the chain that kernel runs, `_codenerf_chain` (:81)
+    over the stacked weights of `_cn_param_arrays` (:245), fed the same
+    embedding (as tests/test_torch_packed_field.py holds its plain
+    version)."""
+    import jax
     import jax.numpy as jnp
 
     from catnerf_tpu.experimental import fused_field as jff
 
     fc, B, pts, zs = _chain_inputs(C, N, seed=N)
+    packed = form == "cn2_fwd"
     flat, tB, tpts, tzs = _port_inputs(fc, B, pts, zs, packed)
-    got = tile_chain(flat, tB, tpts, tzs, 0.5, packed)
+    if form == "cn_mlp_fwd":
+        emb1, emb2 = _mlp_embedding(B, pts)
+        Wl, bl = jff._cn_param_arrays(fc)
+
+        def one(e1, e2, z0, z1, z2, z3, Ws, bs):
+            sg, col, _ = jff._codenerf_chain(
+                e1, e2, z0, z1, z2, z3, dict(zip(jff._CN_WKEYS, Ws)),
+                dict(zip(jff._CN_WKEYS, bs)))
+            return jnp.concatenate([sg, col], axis=-1)
+
+        want = jax.vmap(one)(jnp.asarray(emb1), jnp.asarray(emb2),
+                             *(jnp.asarray(z) for z in zs), Wl, bl)
+        got = tile_chain(form, flat, tzs,
+                         emb=(torch.tensor(emb1), torch.tensor(emb2)))
+        _close(got, want)
+        return
+    got = tile_chain(form, flat, tzs, tB, tpts, 0.5)
     if packed:
         s, r = jff.codenerf_packed_apply(
             fc, {"B": jnp.asarray(B)}, jnp.asarray(_point_major(pts)),
@@ -253,6 +315,46 @@ def test_tile_chain_matches_the_jax_kernel(packed, C, N):
             *(jnp.asarray(z) for z in zs), scale=2.0, interpret=True)
         _close(got[..., 0], s)
         _close(got[..., 1:], r)
+
+
+# --- kernel 7's load of its embedding (csrc/codenerf_fwd.cu load_emb) ---
+
+EMB_LOAD_ROWS = (1, 77, 130)
+
+
+def emb_case(N, seed, device="cpu"):
+    """Kernel 7's embedding rows: emb1 [N, 87], emb2 [N, 42], uniform in
+    [-1, 1] (float32, on `device`)."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.uniform(-1.0, 1.0, size=(N, k)).astype(
+        np.float32), device=device) for k in (87, 42))
+
+
+@pytest.mark.parametrize("N", EMB_LOAD_ROWS)
+def test_emb_load_plain_is_each_blocks_k_major_image(N):
+    emb1, emb2 = emb_case(N, seed=N)
+    before = dict(tff.LAUNCHES)
+    got = tff.cn_emb_load(emb1, emb2)
+    assert tff.LAUNCHES == before  # the CPU takes the plain version
+    rows = tff.EMB_BLOCK_ROWS
+    nb = -(-N // rows)
+    for x, y in zip((emb1, emb2), got):
+        k = x.shape[1]
+        assert y.shape == (nb, k, rows)
+        for blk in range(nb):
+            part = x[blk * rows:(blk + 1) * rows].numpy()
+            np.testing.assert_array_equal(y[blk, :, :len(part)].numpy(),
+                                          part.T)
+            assert not y[blk, :, len(part):].any()  # rows past N zero
+
+
+def test_emb_load_rejects_emb2_padded_for_the_tpu():
+    """exp_kernel2.py pads emb2 to 48 columns for the TPU's lanes; the
+    kernel reads 42 a row and takes nothing else."""
+    emb1, emb2 = emb_case(4, seed=0)
+    padded = torch.nn.functional.pad(emb2, (0, 6))
+    with pytest.raises(ValueError, match=r"emb2: shape \(4, 48\)"):
+        tff.cn_emb_load_cuda(emb1, padded)
 
 
 # --- the chain kernel's sine (csrc/cn_tile.cuh sin_f32) ---

@@ -13,7 +13,8 @@ error within each layer's block, `grad_bound`), and the backward run twice
 bitwise equal (the weight gradients are reduced in a fixed order): the four
 kernels of the fused trainer (the CodeNeRF pair at C=8 and N = 1, 77,
 3,600, 3,601; the background pair at N = 1, 77, 16,800, 16,801), the
-packed-ensemble pair (ragged N included) and the MLP-only kernel. The GEMM
+packed-ensemble pair (ragged N included) and the MLP-only kernel (C=8 and
+N = 1, 77, 2,100, 2,101, 3,600, bitwise repeatable). The GEMM
 block of csrc/gemm_f32.cuh alone, for each layout and epilogue its chains
 use: 128 wide (the background's) at 1, 16,800 and 16,801 rows, 32 wide and
 batched over C=8 categories (the CodeNeRF backward's) at 1, 3,600 and 3,601
@@ -28,13 +29,17 @@ every entry of `PACKED_DX_PIECES`) and each weight gradient
 (`cn2_tile_wgrad`, every entry of `PACKED_BWD_LAYERS`) at a full and a
 ragged block and at 3,601 rows, within 1e-5 of the output's scale of its
 plain version and of float64, bitwise repeatable; its cosine (`cn_cos`)
-within 2 ulp of float64 over all float32 exponents. One piece's tests
+within 2 ulp of float64 over all float32 exponents. The MLP-only kernel's
+load of its embedding alone (`cn_emb_load`) at 1, 77 and 2,101 rows, from a 16-byte aligned start and from one that is not:
+bitwise equal to its input, laid out k-major as the chain kernel holds it.
+One piece's tests
 alone, the quick loop for an edit: `-k codenerf_kernel` (kernels 1-2),
 `-k packed_kernels` (5-6), `-k occupancy_kernel` (3-4), `-k gemm_block`
 (the 128-wide block), `-k cn_gemm` (the 32-wide block), `-k cn_tile` (a
 layer of the forward chain kernel), `-k cn_sin` (its sine), `-k cn2_dx`
 and `-k cn2_wgrad` (the packed backward's pieces), `-k cn_cos` (its
-cosine).
+cosine), `-k cn_emb` (the MLP-only kernel's load), `-k mlp_kernel` (kernel
+7).
 """
 
 from __future__ import annotations
@@ -49,8 +54,8 @@ from catnerf_torch.models.embedding import UniDirsEmbed
 from catnerf_torch.models.occupancy import OccupancyMap
 from test_torch_codenerf_gemm import (CASE_LIST, block_epilogue,
                                      cn_gemm_case)
-from test_torch_codenerf_tile import (assert_scaled_close, tile_case,
-                                     tile_reference)
+from test_torch_codenerf_tile import (assert_scaled_close, emb_case,
+                                     tile_case, tile_reference)
 from test_torch_occupancy_gemm import EPILOGUES, gemm_case, gemm_epilogue
 from test_torch_packed_tile import (dx_case, dx_reference, wgrad_case,
                                     wgrad_reference)
@@ -380,10 +385,13 @@ def test_cuda_packed_kernels_match_plain(cuda_device, N, tile):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [77, 2100])
+@pytest.mark.parametrize("N", [1, 77, 2100, 2101, 3600])
 def test_cuda_mlp_kernel_matches_plain(cuda_device, N):
+    """At C=8: the chain kernel's embedding rows start 16-byte aligned in
+    every category where 4 divides c N + the block's first row (all of
+    them at N = 2,100 and 3,600, half or fewer at 1, 77 and 2,101)."""
     gen = torch.Generator().manual_seed(N)
-    C = 3
+    C = 8
     flat = tff.pack(tff._cn_modules(CodeNeRF.init(gen, C))).detach()
     emb1 = torch.rand(C, N, 87, generator=gen) * 2 - 1
     emb2 = torch.rand(C, N, 42, generator=gen) * 2 - 1
@@ -395,6 +403,23 @@ def test_cuda_mlp_kernel_matches_plain(cuda_device, N):
     out = tff.codenerf_mlp_fwd(*args, zd)
     assert tff.LAUNCHES["codenerf_mlp_fwd"] == before + 1
     _close(out, tff.codenerf_mlp_fwd_plain(*args, zd), FWD_TOL)
+    assert torch.equal(out, tff.codenerf_mlp_fwd_cuda(*args, zd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("N", [1, 77, 2101])
+def test_cuda_cn_emb_load_matches_plain(cuda_device, N, offset):
+    """offset 1: the rows start one row (348 and 168 bytes) into their
+    buffers, so no block's rows are 16-byte aligned and the load copies 4
+    bytes at a time."""
+    emb1, emb2 = emb_case(N + offset, seed=N, device=cuda_device)
+    emb1, emb2 = emb1[offset:], emb2[offset:]
+    before = tff.LAUNCHES["cn_emb"]
+    got = tff.cn_emb_load(emb1, emb2)
+    assert tff.LAUNCHES["cn_emb"] == before + 1
+    for x, y in zip(got, tff.emb_load_plain(emb1, emb2)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
