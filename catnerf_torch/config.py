@@ -185,7 +185,8 @@ class Config:
     # Store inter-fusion TRAINING activations (PE embedding, ReLU outputs,
     # latent injections) in bfloat16; params, optimizer state, sigma/rgb
     # heads, render math and losses stay f32. Disable for strict parity.
-    # The port does not support it yet (ROADMAP.md Queue 1) and raises.
+    # The port runs it on the XLA-path modules; with the fused kernels it
+    # raises (train/step.py::check_supported).
     bf16_activations: bool = True
     # Fused PE+MLP kernels for the training hot path, specialised for the
     # shipped hyperparams (train/step.py::fused_eligible); every other

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from catnerf_torch.models.layers import lead_matmul
+from catnerf_torch.models.layers import lead_matmul, store
 
 # 21 icosahedral unit directions (ref: src/embedding.py:51-73).
 ICOSAHEDRON_DIRS = np.array(
@@ -141,15 +141,15 @@ def apply(pe: UniDirsEmbed, x: torch.Tensor, *, scale: float,
 
     Frequency-major flattening ([f0 d0..d20, f1 d0..d20, ...]), so the 87/42
     split picks the low and high bands. The projection is a full float32
-    matmul (K=3; TF32 off), as the JAX package's HIGHEST precision."""
-    if act_dtype is not None:
-        raise NotImplementedError(
-            "act_dtype (bf16_activations=True) is not ported yet: ROADMAP.md "
-            "Queue 1, item 1")
+    matmul (K=3; TF32 off), as the JAX package's HIGHEST precision.
+
+    act_dtype: the storage dtype of the result (bf16 with
+    `Config.bf16_activations`); the encoding is computed in float32 either
+    way and cast once at the end (ref: embedding.py:153)."""
     t = x / scale
     proj = lead_matmul(t, pe.B.transpose(-1, -2))  # [..., 21]
     bands = frequency_bands(0, max_deg, proj.device)
     xb = proj[..., None, :] * bands[:, None]  # [..., n_freqs, 21]
     xb = xb.reshape(*proj.shape[:-1], -1)
     s = sinpi(xb) if _FAST_SINPI else torch.sin(math.pi * xb)
-    return torch.cat([t, s], dim=-1)
+    return store(torch.cat([t, s], dim=-1), act_dtype)

@@ -7,6 +7,12 @@ transposes. `lead` is () for one model and (C,) for the stacked category
 ensemble, whose layers then run as batched matmuls in place of `jax.vmap`
 (`linear`, `linear_relu`: the XLA-path field modules).
 
+bf16 activation storage (`Config.bf16_activations`, the JAX package's
+`act_dtype`): a layer's output may be stored as bf16 (`linear_relu(...,
+act_dtype=torch.bfloat16)`), and the next product upcasts it to float32
+first (`affine`), as the JAX package's bf16 x f32 promotion does. No
+product runs in bf16.
+
 The reference initialises Linear weights with xavier_normal_ (applied via
 model.init_weights, ref: src/model.py:4-6) and leaves biases at the torch
 default uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)).
@@ -51,8 +57,22 @@ def lead_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return rows.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """A stored bf16 activation as the float32 operand of a product (its
+    backward rounds the gradient to bf16, as the transpose of the JAX
+    package's `astype(bf16)` does); a float32 tensor as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def store(x: torch.Tensor, act_dtype) -> torch.Tensor:
+    """x in the storage dtype `act_dtype` (None: as it is)."""
+    return x if act_dtype is None else x.to(act_dtype)
+
+
 def affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x @ w + b for x [*lead, *mid, in], w [*lead, in, out], b [*lead, out]."""
+    """x @ w + b for x [*lead, *mid, in], w [*lead, in, out], b [*lead, out];
+    a bf16 x is upcast first, so that the product runs in float32."""
+    x = upcast(x)
     for _ in range(x.dim() - b.dim()):
         b = b.unsqueeze(-2)
     return lead_matmul(x, w) + b
@@ -64,5 +84,7 @@ def linear(layer: Linear, x: torch.Tensor) -> torch.Tensor:
     return affine(x, layer.w, layer.b)
 
 
-def linear_relu(layer: Linear, x: torch.Tensor) -> torch.Tensor:
-    return torch.relu(linear(layer, x))
+def linear_relu(layer: Linear, x: torch.Tensor,
+                act_dtype=None) -> torch.Tensor:
+    """relu(x @ w + b), computed in float32 and stored in `act_dtype`."""
+    return store(torch.relu(linear(layer, x)), act_dtype)

@@ -43,25 +43,25 @@ def apply(fc: OccupancyMap, emb: torch.Tensor, *, emb_size1: int = EMB_SIZE1,
           act_dtype=None):
     """Forward pass (ref: occupancy.py:43-76). emb [..., 129]. Returns
     (alpha [..., 1] | None, color [..., 3] | None); alpha carries the x10
-    UniSurf logit scale."""
-    if act_dtype is not None:
-        raise NotImplementedError(
-            "act_dtype (bf16_activations=True) is not ported yet: ROADMAP.md "
-            "Queue 1, item 1")
+    UniSurf logit scale. act_dtype: the storage dtype of every ReLU layer's
+    output and of both concats (bf16 with `Config.bf16_activations`); the
+    products and the heads run in float32 (ref: occupancy.py:53-73)."""
     x1 = emb[..., :emb_size1]
     x2 = emb[..., emb_size1:]
 
-    h = linear_relu(fc.in_layer, x1)
+    h = linear_relu(fc.in_layer, x1, act_dtype)
     for layer in fc.mid1:
-        h = linear_relu(layer, h)
+        h = linear_relu(layer, h, act_dtype)
     if do_cat:
-        h = linear_relu(fc.cat_layer, torch.cat([h, x1], dim=-1))
+        h = linear_relu(fc.cat_layer, torch.cat([h, x1.to(h.dtype)], dim=-1),
+                        act_dtype)
     for layer in fc.mid2:
-        h = linear_relu(layer, h)
+        h = linear_relu(layer, h, act_dtype)
 
     alpha = linear(fc.out_alpha, h) * 10.0 if do_alpha else None
     color = None
     if do_color and hasattr(fc, "out_color"):
-        hc = linear_relu(fc.color_linear, torch.cat([h, x2], dim=-1))
+        hc = linear_relu(fc.color_linear,
+                         torch.cat([h, x2.to(h.dtype)], dim=-1), act_dtype)
         color = torch.sigmoid(linear(fc.out_color, hc))
     return alpha, color

@@ -7,12 +7,15 @@
 
 The scene and config are the JAX package's `--synthetic` ones (ref:
 loaders.py:24-33): 3 categories x 2 instances, 8 frames of 160x120,
-latent_dim 32, seeded by `Config.seed`; the port runs them with the fused
-kernels (use_fused_kernels=True, bf16_activations=False), or, with
---strict-parity, in the JAX package's strict-parity configuration
+`Config()` with latent_dim 32, seeded by `Config.seed`. That is the
+reference's default trainer: the XLA-path field modules with bf16
+activation storage (bf16_activations=True, use_fused_kernels=False).
+With --strict-parity it is the JAX package's strict-parity configuration
 (`Config.apply_strict_parity()`, train.py --strict-parity: the XLA-path
-field modules, float32 activations). Prints one JSON
-line of metrics per log step. The device is cuda unless --device names
+field modules, float32 activations). The fused-kernel trainer
+(use_fused_kernels=True, bf16_activations=False) is reached through
+`TrainingSession` with such a config. Prints one JSON line of metrics per
+log step. The device is cuda unless --device names
 another. Dataset configs and meshing are not ported yet (ROADMAP.md
 Queue 1).
 """
@@ -39,8 +42,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--strict-parity", action="store_true",
-                    help="Config.apply_strict_parity(): the XLA-path field "
-                    "modules instead of the fused kernels")
+                    help="Config.apply_strict_parity(): float32 "
+                    "activations instead of bf16 storage")
     args = ap.parse_args(argv)
     if not args.synthetic:
         ap.error("only --synthetic is ported so far (dataset configs: "
@@ -50,9 +53,6 @@ def main(argv=None) -> int:
     cfg.net_hyperparams.latent_dim = 32
     if args.strict_parity:
         cfg.apply_strict_parity()
-    else:
-        cfg.use_fused_kernels = True
-        cfg.bf16_activations = False
     scene = make_scene(n_frames=8, width=160, height=120, n_categories=3,
                        insts_per_cat=2, seed=cfg.seed)
     sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,

@@ -6,7 +6,7 @@ ray store (`enable_fast_path` + `run_fast`).
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -20,6 +20,16 @@ from catnerf_torch.train.state import TrainState, init_train_state
 from catnerf_torch.train.step import (BackgroundBatch, CategoryBatch,
                                       StepDraws, StepMetrics)
 from catnerf_torch.utils import phase_timer, resolve_device
+
+
+class FastDraws(NamedTuple):
+    """One device-store step's random draws: the window offsets, [n_cls]
+    (int64, each in [0, its buffer's length)) and the background's scalar
+    (None without a background), and the step's sampling uniforms."""
+
+    offs: torch.Tensor
+    boff: torch.Tensor | None
+    step: StepDraws
 
 
 class TrainingSession:
@@ -114,19 +124,29 @@ class TrainingSession:
         check_window_pad(self._store, self.n_per_cls,
                          self.cfg.n_per_optim_bg)
 
-    def run_fast(self, n_steps: int) -> StepMetrics:
+    def run_fast(self, n_steps: int,
+                 draws: Sequence[FastDraws] | None = None) -> StepMetrics:
         """Advance n_steps iterations on batches drawn from the device
-        store. Returns the last step's metrics."""
+        store. Returns the last step's metrics. `draws` injects each
+        step's window offsets and sampling uniforms (n_steps of them, on
+        the session's device); by default they come from the session's
+        generator."""
         from catnerf_torch.data.device_buffer import draw_offsets, sample_batch
 
         if self._store is None:
             raise RuntimeError("call enable_fast_path() first")
+        if draws is not None and len(draws) != n_steps:
+            raise ValueError(f"{len(draws)} draws for {n_steps} steps")
         metrics = None
-        for _ in range(n_steps):
-            offs, boff = draw_offsets(self._store, self.draw_gen)
+        for i in range(n_steps):
+            if draws is None:
+                offs, boff = draw_offsets(self._store, self.draw_gen)
+                step_draws = self._draws()
+            else:
+                offs, boff, step_draws = draws[i]
             cat, bg = sample_batch(self._store, self.n_per_cls,
                                    self.cfg.n_per_optim_bg, offs, boff)
-            metrics = step_mod.train_step(self.state, cat, bg, self._draws(),
+            metrics = step_mod.train_step(self.state, cat, bg, step_draws,
                                           self.cfg, self.obj_mask)
             self.iteration += 1
         return metrics

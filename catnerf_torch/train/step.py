@@ -23,6 +23,7 @@ import torch
 from catnerf_torch.config import Config
 from catnerf_torch.kernels import fused_field
 from catnerf_torch.models import codenerf, embedding, occupancy
+from catnerf_torch.models.layers import store, upcast
 from catnerf_torch.ops import losses, sampling
 from catnerf_torch.train.state import FieldParams, TrainState
 
@@ -83,13 +84,22 @@ def fused_eligible(cfg: Config) -> bool:
             and cfg.n_unidir_funcs == 5)
 
 
+def act_dtype(cfg: Config):
+    """The XLA path's activation storage dtype (ref: step.py:118, :183)."""
+    return torch.bfloat16 if cfg.bf16_activations else None
+
+
 def check_supported(cfg: Config) -> None:
     """Raise for the configs the port does not run yet. A rule on the
     static config: a supported config never falls back at run time."""
-    if cfg.bf16_activations:
+    if fused_eligible(cfg) and cfg.bf16_activations:
         raise NotImplementedError(
-            "bf16_activations=True is not ported yet: ROADMAP.md Queue 1, "
-            "item 1 (set cfg.bf16_activations = False)")
+            "bf16_activations=True with the fused kernels is not ported: "
+            "the JAX package's fused backward declares float32 injection "
+            "gradients for bf16 injections (experimental/fused_field.py:359), "
+            "so the reference does not run that combination either (set "
+            "cfg.bf16_activations = False, or cfg.use_fused_kernels = False "
+            "for the XLA path in bf16)")
     if fused_eligible(cfg) and cfg.hidden_feature_size_bg != 128:
         raise NotImplementedError(
             "the port's background kernels take hidden_feature_size_bg=128 "
@@ -115,10 +125,15 @@ def gather_injections(inj_s_inst: torch.Tensor, inj_t_inst: torch.Tensor,
     values equal a gather's (in full f32: TF32 must be off), and the
     backward is a deterministic contraction instead of a scatter-add. The
     one-hot is a comparison, which needs no range check on the host (and
-    so no device sync)."""
+    so no device sync).
+
+    bf16 injections are upcast and contracted with a float32 one-hot, and
+    the result is stored as bf16: the same values, and a backward that sums
+    in float32 and rounds once, as the reference's bf16 dot accumulates."""
     slots = torch.arange(inj_s_inst.shape[1], device=obj_indices.device)
-    onehot = (obj_indices.long()[..., None] == slots).to(inj_s_inst.dtype)
-    return onehot @ inj_s_inst, onehot @ inj_t_inst
+    onehot = (obj_indices.long()[..., None] == slots).float()
+    return tuple(store(onehot @ upcast(inj), inj.dtype)
+                 for inj in (inj_s_inst, inj_t_inst))
 
 
 def category_forward(params: FieldParams, batch: CategoryBatch,
@@ -132,16 +147,21 @@ def category_forward(params: FieldParams, batch: CategoryBatch,
         min_depth=cfg.min_depth, surface_eps=cfg.surface_eps,
         stop_eps=cfg.stop_eps)
     # project-then-gather (ref: train.py:136-137 gathers the codes per ray)
+    # bf16 storage (ref: step.py:114-118) on the XLA path only: the fused
+    # kernels take float32 (check_supported)
+    dt = act_dtype(cfg)
     inj_s_inst, inj_t_inst = codenerf.project_codes(
-        params.cat_fc, params.codes.shape, params.codes.texture)
+        params.cat_fc, params.codes.shape, params.codes.texture,
+        act_dtype=dt)
     inj_s, inj_t = gather_injections(inj_s_inst, inj_t_inst,
                                      batch.obj_indices)
     if not fused_eligible(cfg):
         emb = embedding.apply(params.cat_pe, rays.input_pcs,
                               scale=cfg.obj_scale,
-                              max_deg=cfg.n_unidir_funcs)
+                              max_deg=cfg.n_unidir_funcs, act_dtype=dt)
         alpha, color = codenerf.apply_with_injections(
-            params.cat_fc, emb, inj_s[:, :, None, :], inj_t[:, :, None, :])
+            params.cat_fc, emb, inj_s[:, :, None, :], inj_t[:, :, None, :],
+            act_dtype=dt)
         return alpha[..., 0], color, rays
     C, R, Bt, _ = rays.input_pcs.shape
     N = R * Bt
@@ -173,9 +193,11 @@ def background_forward(params: FieldParams, batch: BackgroundBatch,
     fc = params.bg_fc
     if not (fused_eligible(cfg) and len(fc.mid1) == 1
             and len(fc.mid2) == 1):
+        dt = act_dtype(cfg)
         emb = embedding.apply(params.bg_pe, rays.input_pcs,
-                              scale=cfg.bg_scale, max_deg=cfg.n_unidir_funcs)
-        alpha, color = occupancy.apply(fc, emb)
+                              scale=cfg.bg_scale, max_deg=cfg.n_unidir_funcs,
+                              act_dtype=dt)
+        alpha, color = occupancy.apply(fc, emb, act_dtype=dt)
         return alpha[..., 0], color, rays
     R, Bt, _ = rays.input_pcs.shape
     alpha, color = fused_field.occupancy_fused_apply(

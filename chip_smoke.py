@@ -40,9 +40,12 @@ Phases, each printing one or more lines:
    128 beside `torch.matmul`, and 32 wide at C=8 x 3,600 x 32 x 32 beside
    `torch.bmm` (NN, bias + ReLU: a forward layer of each chain);
 4. one training step on the card against the same step on the CPU (plain
-   versions), on a small scene, for the fused config and for the
-   strict-parity config (the XLA-path modules): every metric within 1e-5
-   relative, those weighted by the depth variance within 1e-4;
+   versions), on a small scene, for the fused config, the strict-parity
+   config (the XLA-path modules) and the reference's default `Config()`
+   (the XLA-path modules with bf16 activation storage): every metric
+   within 1e-5 relative, those weighted by the depth variance within 1e-4;
+   for bf16 storage each bound widened by FLIP_SHARE x one bf16 ulp (the
+   flips of tests/test_torch_bf16.py);
 5. the trainer's main path: a `TrainingSession` on the bench scene (8
    categories x 3 instances, 360 rays x 10 bins per category and 1,200
    background rays x 14 bins, 45,600 ray samples a step), 5 host-staged
@@ -57,9 +60,13 @@ Phases, each printing one or more lines:
    each of its kernels must have run;
 8. the strict-parity trainer on the bench scene: 2 host-staged steps and
    50 on the device ray store, the loss finite, its colour and opacity
-   terms falling, no fused kernel launched, then 30 steps traced.
+   terms falling, no fused kernel launched, then 30 steps traced;
+9. the reference's default trainer (`Config()`: bf16 activation storage
+   on the XLA-path modules, as the JAX package's `train.py --synthetic`
+   and `bench.py` run it) on the bench scene, as 8; then one line with
+   each trainer's unprofiled steps/s and device busy ms a step.
 
-Each path (5, 7, 8) is driven with the launch counts set to 0 just before
+Each path (5, 7, 8, 9) is driven with the launch counts set to 0 just before
 it and read just after. Then a `{"kernels": [...]}` line, the card line
 again, and as the last line `{"ok": true, "device": {...}}`. Exits
 non-zero, with no result, when there is no CUDA device, when the port
@@ -112,6 +119,13 @@ N_FAST = 300
 N_STRICT_ONCE = 2
 N_STRICT_FAST = 50
 N_STRICT_TRACE = 30
+# bf16 activation storage: where a float32 result lies within float32
+# summation noise of a bf16 rounding boundary, the card and the CPU store
+# values one bf16 ulp (2^-7 relative) apart; at most FLIP_SHARE of a stored
+# tensor flips (tests/test_torch_bf16.py), which moves a mean-type metric by
+# at most FLIP_SHARE * BF16_ULP relative at unit sensitivity
+FLIP_SHARE = 0.01
+BF16_ULP = 2.0 ** -7
 # the packed kernels' shapes: the comparison's (exp_kernel3.py:10), the
 # step's, and a ragged one; the comparison's goes into the kernels line
 PACKED_SHAPES = ((8, 2100), (8, 3600), (8, 2101))
@@ -226,6 +240,13 @@ def strict_config():
     from catnerf_torch.config import Config
 
     return Config().apply_strict_parity()
+
+
+def default_config():
+    """The reference's default: bf16 storage on the XLA-path modules."""
+    from catnerf_torch.config import Config
+
+    return Config()
 
 
 def kernel_inputs(dev):
@@ -791,7 +812,8 @@ def check_step(dev, cfg, what: str) -> None:
     scene of tests/test_torch_step.py. This holds the step's operators on
     the card (sampling, injections, fields, render, loss) to the CPU path
     that the tests hold against the JAX package; the kernel phase checks
-    only the kernels."""
+    only the kernels. With bf16 storage each bound gains FLIP_SHARE x
+    BF16_ULP."""
     from catnerf_torch import convert
     from catnerf_torch.data.synthetic import make_scene
     from catnerf_torch.train import step as step_mod
@@ -823,6 +845,8 @@ def check_step(dev, cfg, what: str) -> None:
                      / want[k].abs().clamp_min(1e-12)).max())
         worst[k] = rel
         tol = DEPTH_STEP_TOL if k in DEPTH_WEIGHTED else STEP_TOL
+        if cfg.bf16_activations:
+            tol += FLIP_SHARE * BF16_ULP
         if rel > tol:
             raise AssertionError(f"{what} step metric {k}: card vs CPU "
                                  f"relative difference {rel:.3e} > {tol:g}")
@@ -837,10 +861,10 @@ FUSED_KERNELS = ("codenerf_fwd", "codenerf_bwd", "occupancy_fwd",
 def main_path(dev, scene, cfg, kernels, what="main path",
               n_step_once=N_STEP_ONCE, n_inner=N_INNER, n_fast=N_FAST):
     """A trainer's path on `scene` (the bench scene), through the session's
-    own device choice on the card: `cfg` the fused config (the main path)
-    or the strict-parity one. Every kernel named in `kernels` must launch
-    once a step and no other kernel at all. Returns the session and the
-    kernel launches of the run."""
+    own device choice on the card: `cfg` the fused config (the main path),
+    the strict-parity one or the default one. Every kernel named in
+    `kernels` must launch once a step and no other kernel at all. Returns
+    the session, the kernel launches of the run and run_fast's steps/s."""
     from catnerf_torch.kernels import fused_field as ff
     from catnerf_torch.train.loop import TrainingSession
     from catnerf_torch.utils import phase_timings
@@ -906,7 +930,7 @@ def main_path(dev, scene, cfg, kernels, what="main path",
             raise AssertionError(f"{what}: launches {launches}, want {want}")
     log(f"{what}: launches {json.dumps(launches)}; set-up seconds "
         f"{json.dumps(phase_timings('session') | phase_timings('fast_path'))}")
-    return sess, launches
+    return sess, launches, n_fast / t_fast
 
 
 COMPARE_KERNELS = ("codenerf_packed_fwd", "codenerf_packed_bwd",
@@ -932,12 +956,12 @@ def compare_path(dev) -> dict:
     return {k: launches[k] for k in COMPARE_KERNELS}
 
 
-def trace_steps(sess, n_steps: int = N_INNER) -> None:
+def trace_steps(sess, n_steps: int = N_INNER) -> float | None:
     """n_steps more run_fast steps under torch.profiler: the device's busy
     share of the window and its time by kernel, per step, and the host's
     operators by their own time (inflated by the profiler). Prints "not
     measured" for the device when the profiler records no device
-    activity."""
+    activity. Returns the device's busy ms a step (None: not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -967,7 +991,7 @@ def trace_steps(sess, n_steps: int = N_INNER) -> None:
     if not dev_us:
         log("trace: the profiler recorded no device activity; device busy "
             "share not measured")
-        return
+        return None
     busy = sum(dev_us.values())
     log(f"trace: device busy {busy / n_steps / 1e3:.3f} ms/step "
         f"({100 * busy / wall_us:.1f}% of the profiled window), "
@@ -976,6 +1000,7 @@ def trace_steps(sess, n_steps: int = N_INNER) -> None:
     for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:20]:
         log(f"trace:   {us / n_steps / 1e3:8.4f} ms/step "
             f"{100 * us / busy:5.1f}%  {name[:110]}")
+    return busy / n_steps / 1e3
 
 
 def main() -> int:
@@ -1016,15 +1041,26 @@ def main() -> int:
         time_gemm_block(dev, width)
     check_step(dev, fused_config(), "fused")
     check_step(dev, strict_config(), "strict-parity")
+    check_step(dev, default_config(), "default (bf16)")
     scene = make_scene(**SCENE)
-    sess, launches = main_path(dev, scene, fused_config(), FUSED_KERNELS)
-    trace_steps(sess)
+    rates = {}
+    sess, launches, rate = main_path(dev, scene, fused_config(),
+                                     FUSED_KERNELS)
+    rates["fused"] = (rate, trace_steps(sess))
     del sess
     launches.update(compare_path(dev))
-    strict, _ = main_path(dev, scene, strict_config(), (),
-                          "strict-parity trainer",
-                          n_step_once=N_STRICT_ONCE, n_fast=N_STRICT_FAST)
-    trace_steps(strict, N_STRICT_TRACE)
+    for what, cfg in (("strict-parity", strict_config()),
+                      ("default (bf16)", default_config())):
+        sess, _, rate = main_path(dev, scene, cfg, (), f"{what} trainer",
+                                  n_step_once=N_STRICT_ONCE,
+                                  n_fast=N_STRICT_FAST)
+        rates[what] = (rate, trace_steps(sess, N_STRICT_TRACE))
+        del sess
+    log("trainers (run_fast steps/s unprofiled; device busy ms/step under "
+        "the profiler): " + "; ".join(
+            f"{k} {r:.2f} steps/s, "
+            + (f"{b:.3f} ms" if b is not None else "busy not measured")
+            for k, (r, b) in rates.items()))
     for r in rows:
         r["launches"] = launches[r["name"]]
         if not r["launches"] > 0:

@@ -8,16 +8,33 @@ import math
 import pytest
 import torch
 
+from catnerf_torch.train import __main__ as cli
 from catnerf_torch.train.__main__ import main
 
 torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("extra", [[], ["--strict-parity"]],
-                         ids=["fused", "strict_parity"])
-def test_synthetic_run_prints_one_json_line_per_log_step(capsys, extra):
+                         ids=["default", "strict_parity"])
+def test_synthetic_run_prints_one_json_line_per_log_step(capsys,
+                                                        monkeypatch, extra):
+    """The default trains `Config()` (bf16 storage on the XLA path), as the
+    JAX package's `train.py --synthetic`; --strict-parity its float32
+    strict-parity configuration."""
+    cfgs = []
+    session = cli.TrainingSession
+
+    def spy(cfg, *args, **kw):
+        cfgs.append(cfg)
+        return session(cfg, *args, **kw)
+
+    monkeypatch.setattr(cli, "TrainingSession", spy)
     assert main(["--synthetic", "--max-iter", "2", "--log-iter", "1",
                  "--device", "cpu", *extra]) == 0
+    (cfg,) = cfgs
+    assert not cfg.use_fused_kernels
+    assert cfg.bf16_activations == (not extra)
+    assert cfg.net_hyperparams.latent_dim == 32
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [r["iteration"] for r in rows] == [1, 2]
     for r in rows:

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import ast
 import json
+import math
 import os
 import subprocess
 import sys
@@ -115,8 +116,6 @@ def test_session_without_device_raises_when_there_is_no_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(use_fused_kernels=False, bf16_activations=True),
-     "bf16_activations"),
     (dict(bf16_activations=True), "bf16_activations"),
     (dict(hidden_feature_size_bg=64), "hidden_feature_size_bg=128"),
 ])
@@ -131,6 +130,19 @@ def test_unsupported_configuration_raises(change, match):
     with pytest.raises(NotImplementedError, match=match):
         TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
                         cam=scene.cam, device="cpu")
+
+
+def test_default_configuration_trains_on_the_cpu():
+    """`Config()` as it ships (bf16_activations=True on the XLA path,
+    use_fused_kernels=False) builds a session and takes a step."""
+    cfg = Config()
+    assert cfg.bf16_activations and not cfg.use_fused_kernels
+    scene = make_scene(n_frames=1, width=16, height=12, n_categories=1,
+                       insts_per_cat=1, seed=0)
+    sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
+                           cam=scene.cam, device="cpu")
+    assert math.isfinite(float(sess.step_once().total))
+    assert sess.state.step == 1
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

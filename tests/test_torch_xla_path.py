@@ -6,7 +6,8 @@ apply_with_injections` and `occupancy.apply`, on the same inputs
 These are the modules of the strict-parity configuration
 (`Config.apply_strict_parity()`: use_fused_kernels=False,
 bf16_activations=False); the step itself on that configuration is held
-against the JAX step in tests/test_torch_step.py.
+against the JAX step in tests/test_torch_step.py. The same modules with bf16
+activation storage (`act_dtype`) are held in tests/test_torch_bf16.py.
 """
 
 from __future__ import annotations
@@ -118,12 +119,6 @@ def test_embedding_apply_and_grads_match_jax(fast_sinpi, lead):
     _close(xt.grad, gx, 1e-4)
 
 
-def test_embedding_act_dtype_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        embedding.apply(UniDirsEmbed.init(), torch.zeros(2, 3), scale=2.0,
-                        act_dtype=torch.bfloat16)
-
-
 # (name, codenerf.init_params kwargs, do_cat): the shipped architecture and
 # two the fused kernels do not take
 CN_ARCHS = [
@@ -196,13 +191,6 @@ def test_apply_with_injections_matches_jax():
         tfc, torch.tensor(emb), torch.tensor(inj_s), torch.tensor(inj_t))
     _close(ts.detach(), s, FWD_TOL)
     _close(tr.detach(), r, FWD_TOL)
-
-
-def test_codenerf_act_dtype_raises():
-    fc = CodeNeRF.init(torch.Generator().manual_seed(0), 1)
-    z = torch.zeros(1, 2, 129)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        codenerf.apply_with_injections(fc, z, z, z, act_dtype=torch.bfloat16)
 
 
 # (name, init kwargs, apply kwargs): the shipped background and others
