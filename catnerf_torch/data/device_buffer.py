@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from catnerf_torch.data.scene import CategoryScene
-from catnerf_torch.train.step import BackgroundBatch, CategoryBatch
+from catnerf_torch.train.step import (BackgroundBatch, CategoryBatch,
+                                      StepDraws)
 from catnerf_torch.utils import phase_add
 
 _CAT_COLS = 12  # origins 0:3 | dirs 3:6 | rgb 6:9 | depth 9 | state 10 | obj 11
@@ -141,3 +142,14 @@ def sample_batch(store: DeviceRayStore, n_per_cls: int, n_bg: int,
         bg = _unpack_bg(store.bg_packed[boff + torch.arange(n_bg,
                                                             device=dev)])
     return _unpack_cat(rows), bg
+
+
+class FastDraws(NamedTuple):
+    """One device-store step's random draws: the window offsets, [n_cls]
+    (int64, each in [0, its buffer's length)) and the background's scalar
+    (None without a background), and the step's sampling uniforms."""
+
+    offs: torch.Tensor
+    boff: torch.Tensor | None
+    step: StepDraws
+

@@ -56,17 +56,26 @@ path's sinpi polynomial), no fast math and no TF32, as the TPU kernels.
 Dispatch: a tensor on the CPU takes the plain PyTorch version below; a
 tensor on a CUDA device launches the kernel or raises. The plain version
 of each kernel also serves as its reference on the card.
+
+Under a CUDA graph (train/graph.py): each wrapper launches on the current
+stream and allocates its outputs and workspace with torch.empty, so a
+capture records its launch and takes that memory from the graph's pool.
+The sources call no cudaMalloc, synchronisation or blocking copy; the
+chain kernel's launch sets its dynamic shared memory size
+(cudaFuncSetAttribute) at every call, first in the eager warm-up steps.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
 import torch
 
 # kernel launches by the wrappers below (one per forward or backward call
-# that reaches the CUDA kernel; the plain versions never count)
+# that reaches the CUDA kernel; the plain versions never count), and by
+# each replay of a CUDA graph that captured them (count_replay)
 LAUNCHES = {"codenerf_fwd": 0, "codenerf_bwd": 0,
             "occupancy_fwd": 0, "occupancy_bwd": 0,
             "codenerf_packed_fwd": 0, "codenerf_packed_bwd": 0,
@@ -78,6 +87,29 @@ LAUNCHES = {"codenerf_fwd": 0, "codenerf_bwd": 0,
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def launches_captured():
+    """Around a CUDA graph's capture, which launches nothing: the wrappers
+    count what they enqueue into the graph, and this takes those counts
+    back out of LAUNCHES and yields them, filled in on exit, as the
+    launches of one replay (`count_replay`)."""
+    before = dict(LAUNCHES)
+    captured: dict[str, int] = {}
+    try:
+        yield captured
+    finally:
+        captured.update({k: n - before[k] for k, n in LAUNCHES.items()
+                         if n != before[k]})
+        LAUNCHES.update(before)
+
+
+def count_replay(captured: dict[str, int]) -> None:
+    """One replay of a CUDA graph launches the kernels its capture
+    enqueued (`launches_captured`)."""
+    for k, n in captured.items():
+        LAUNCHES[k] += n
 
 
 _N_FREQS = 6  # 2^0..2^5

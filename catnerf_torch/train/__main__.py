@@ -5,7 +5,12 @@
         --device cpu
     python -m catnerf_torch.train --synthetic --strict-parity
 
-The scene and config are the JAX package's `--synthetic` ones (ref:
+It trains through the session's fast path, as the JAX package's `train.py`
+does: the device ray store and the superstep, `--log-iter` steps a call
+(`TrainingSession.run_fast`; on a CUDA session each step a replayed CUDA
+graph). --strict-parity trains on host-staged batches, one `step_once` a
+step (the reference's execution shape), as `train.py --strict-parity`
+does. The scene and config are the JAX package's `--synthetic` ones (ref:
 loaders.py:24-33): 3 categories x 2 instances, 8 frames of 160x120,
 `Config()` with latent_dim 32, seeded by `Config.seed`. That is the
 reference's default trainer: the XLA-path field modules with bf16
@@ -43,7 +48,8 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     ap.add_argument("--strict-parity", action="store_true",
                     help="Config.apply_strict_parity(): float32 "
-                    "activations instead of bf16 storage")
+                    "activations instead of bf16 storage, on host-staged "
+                    "batches (step_once) instead of the fast path")
     args = ap.parse_args(argv)
     if not args.synthetic:
         ap.error("only --synthetic is ported so far (dataset configs: "
@@ -57,9 +63,17 @@ def main(argv=None) -> int:
                        insts_per_cat=2, seed=cfg.seed)
     sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
                            cam=scene.cam, device=args.device)
+    fast = not args.strict_parity
+    if fast:
+        sess.enable_fast_path(args.log_iter)
     t0 = time.time()
-    for it in range(1, args.max_iter + 1):
-        metrics = sess.step_once()
+    while sess.iteration < args.max_iter:
+        if fast:
+            metrics = sess.run_fast(min(args.log_iter,
+                                        args.max_iter - sess.iteration))
+        else:
+            metrics = sess.step_once()
+        it = sess.iteration
         if it % args.log_iter == 0 or it == args.max_iter:
             row = sess.metrics_to_dict(metrics)
             row["elapsed_s"] = time.time() - t0

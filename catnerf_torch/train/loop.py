@@ -1,35 +1,28 @@
 """Training session driver (ref: train.py:15-243; the JAX package's
 `train/loop.py`): builds the per-category ray buffers, the stacked train
 state, and runs the step — host-staged (`step_once`) or from the device
-ray store (`enable_fast_path` + `run_fast`).
+ray store (`enable_fast_path` + `run_fast`), on a CUDA session as a
+replayed CUDA graph of the step.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 from catnerf_torch.config import Config
 from catnerf_torch.data.camera import CameraInfo
+from catnerf_torch.data.device_buffer import FastDraws, build_device_store
 from catnerf_torch.data.scene import CategoryScene, SceneBatcher
 from catnerf_torch.models.codes import obj_validity_mask
 from catnerf_torch.train import step as step_mod
+from catnerf_torch.train.graph import make_superstep
 from catnerf_torch.train.state import TrainState, init_train_state
 from catnerf_torch.train.step import (BackgroundBatch, CategoryBatch,
                                       StepDraws, StepMetrics)
 from catnerf_torch.utils import phase_timer, resolve_device
-
-
-class FastDraws(NamedTuple):
-    """One device-store step's random draws: the window offsets, [n_cls]
-    (int64, each in [0, its buffer's length)) and the background's scalar
-    (None without a background), and the step's sampling uniforms."""
-
-    offs: torch.Tensor
-    boff: torch.Tensor | None
-    step: StepDraws
 
 
 class TrainingSession:
@@ -75,6 +68,8 @@ class TrainingSession:
         self.n_per_cls = self.batcher.rays_per_category(cfg.n_per_optim)
         self.iteration = 0
         self._store = None
+        self._superstep = None
+        self._fast_state = None
 
     def _device_batch(self):
         cat_np, bg_np = self.batcher.next_batch(self.n_per_cls,
@@ -87,11 +82,11 @@ class TrainingSession:
         return (put(cat_np, CategoryBatch),
                 put(bg_np, BackgroundBatch) if bg_np is not None else None)
 
-    def _draws(self) -> StepDraws:
+    def _draws(self, gen: torch.Generator | None = None) -> StepDraws:
         return step_mod.draw_uniforms(
             self.cfg, len(self.cls_ids), self.n_per_cls,
             self.cfg.n_per_optim_bg if self.background is not None else None,
-            self.draw_gen, self.device)
+            self.draw_gen if gen is None else gen, self.device)
 
     def step_once(self, draws: StepDraws | None = None) -> StepMetrics:
         """One optimizer step on the next host batch (the reference's
@@ -106,50 +101,63 @@ class TrainingSession:
         return metrics
 
     # ------------------------------------------------------------------
-    # Fast path: the device-resident ray store, one window draw per step.
-    # The steps run as a plain Python loop; capturing them in a CUDA graph
-    # is later work (ROADMAP.md Queue 1).
-    def enable_fast_path(self, n_inner: int) -> None:
-        """Build the device ray store. `n_inner` is the superstep length
-        of the JAX API (the steps one `lax.scan` runs); it is reserved for
-        the CUDA-graph capture, and the plain loop of `run_fast` does not
-        use it."""
-        from catnerf_torch.data.device_buffer import (build_device_store,
-                                                      check_window_pad)
-
+    # Fast path: the device-resident ray store, one window draw per step,
+    # the superstep of the JAX API (ref: train/loop.py:174-236).
+    def enable_fast_path(self, n_inner: int,
+                         graph: bool | None = None) -> None:
+        """Build the device ray store and the superstep: `n_inner` steps
+        per call (`run_fast` accepts any number of steps all the same).
+        graph: the step as a CUDA graph, replayed (train/graph.py); None
+        means a graph on a CUDA session and the eager loop on a CPU one,
+        True on a CPU session raises. graph=False runs the eager loop on
+        any device, the reference a graph is held against. The superstep
+        runs on the state the session holds now: after replacing
+        `self.state`, call this again."""
+        if graph is None:
+            graph = self.device.type == "cuda"
         with phase_timer("fast_path", "store_build"):
-            self._store = build_device_store(
+            store = build_device_store(
                 self.categories, self.background, window_pad=self.n_per_cls,
                 bg_window_pad=self.cfg.n_per_optim_bg, device=self.device)
-        check_window_pad(self._store, self.n_per_cls,
-                         self.cfg.n_per_optim_bg)
+        state = self.state
+
+        def step_fn(cat, bg, draws):
+            if isinstance(draws, torch.Generator):
+                draws = self._draws(draws)
+            return step_mod.update(state, cat, bg, draws, self.cfg,
+                                   self.obj_mask)
+
+        self._superstep = make_superstep(
+            step_fn, store, self.n_per_cls, self.cfg.n_per_optim_bg,
+            n_inner, graph=graph)
+        self._store, self._fast_state = store, state
 
     def run_fast(self, n_steps: int,
                  draws: Sequence[FastDraws] | None = None) -> StepMetrics:
         """Advance n_steps iterations on batches drawn from the device
-        store. Returns the last step's metrics. `draws` injects each
-        step's window offsets and sampling uniforms (n_steps of them, on
-        the session's device); by default they come from the session's
-        generator."""
-        from catnerf_torch.data.device_buffer import draw_offsets, sample_batch
-
-        if self._store is None:
+        store, as supersteps of `n_inner` steps and one shorter one for
+        the rest. Returns the last step's metrics, a copy that no later
+        step overwrites. `draws` injects each step's window offsets and
+        sampling uniforms (n_steps of them, on the session's device); by
+        default they come from the session's generator."""
+        if self._superstep is None:
             raise RuntimeError("call enable_fast_path() first")
+        if self.state is not self._fast_state:
+            raise RuntimeError("the session's state was replaced after "
+                               "enable_fast_path(): call it again")
         if draws is not None and len(draws) != n_steps:
             raise ValueError(f"{len(draws)} draws for {n_steps} steps")
         metrics = None
-        for i in range(n_steps):
-            if draws is None:
-                offs, boff = draw_offsets(self._store, self.draw_gen)
-                step_draws = self._draws()
-            else:
-                offs, boff, step_draws = draws[i]
-            cat, bg = sample_batch(self._store, self.n_per_cls,
-                                   self.cfg.n_per_optim_bg, offs, boff)
-            metrics = step_mod.train_step(self.state, cat, bg, step_draws,
-                                          self.cfg, self.obj_mask)
-            self.iteration += 1
-        return metrics
+        n_inner = self._superstep.n_inner
+        for s in range(0, n_steps, n_inner):
+            k = min(n_inner, n_steps - s)
+            metrics = self._superstep(
+                self.draw_gen if draws is None else draws[s:s + k], k)
+            self.iteration += k
+            self.state.step += k
+        if metrics is None:
+            return None
+        return StepMetrics(*(m.clone() for m in metrics))
 
     def metrics_to_dict(self, m: StepMetrics) -> dict[str, Any]:
         d = {"iteration": self.iteration, "total": float(m.total)}

@@ -59,7 +59,13 @@ class FieldParams(nn.Module):
 def make_optimizer(cfg: Config, params: FieldParams) -> torch.optim.AdamW:
     """AdamW with the reference's two param groups. betas, eps and both
     weight decays are set explicitly: torch's default weight decay (1e-2)
-    is not the config's. Decoupled decay scaled by lr, as optax.adamw."""
+    is not the config's. Decoupled decay scaled by lr, as optax.adamw.
+
+    On a CUDA device it is built capturable (its step counts and bias
+    corrections live on the device), so that a CUDA graph can capture its
+    step (train/graph.py); it is built so from the start, so that the
+    state of earlier eager steps already lies on the device. torch has no
+    capturable AdamW on the CPU."""
     codes = list(params.codes.parameters())
     code_ids = {id(p) for p in codes}
     model = [p for p in params.parameters() if id(p) not in code_ids]
@@ -68,7 +74,7 @@ def make_optimizer(cfg: Config, params: FieldParams) -> torch.optim.AdamW:
           "weight_decay": cfg.weight_decay, "name": "model"},
          {"params": codes, "lr": cfg.code_learning_rate,
           "weight_decay": cfg.code_weight_decay, "name": "codes"}],
-        betas=(0.9, 0.999), eps=1e-8)
+        betas=(0.9, 0.999), eps=1e-8, capturable=codes[0].is_cuda)
 
 
 @dataclasses.dataclass

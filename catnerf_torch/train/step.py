@@ -245,15 +245,24 @@ def loss_fn(params: FieldParams, cat_batch: CategoryBatch,
     return total, metrics
 
 
-def train_step(state: TrainState, cat_batch: CategoryBatch,
-               bg_batch: BackgroundBatch | None, draws: StepDraws,
-               cfg: Config, obj_mask: torch.Tensor) -> StepMetrics:
-    """One optimizer step in place on `state` (ref: step.py:242-252).
-    Returns the step's metrics, detached."""
+def update(state: TrainState, cat_batch: CategoryBatch,
+           bg_batch: BackgroundBatch | None, draws: StepDraws, cfg: Config,
+           obj_mask: torch.Tensor) -> StepMetrics:
+    """`train_step`'s work on the device, without the host's step count:
+    the body that a CUDA graph captures (train/graph.py)."""
     state.optimizer.zero_grad(set_to_none=True)
     total, metrics = loss_fn(state.params, cat_batch, bg_batch, draws, cfg,
                              obj_mask)
     total.backward()
     state.optimizer.step()
-    state.step += 1
     return StepMetrics(*(m.detach() for m in metrics))
+
+
+def train_step(state: TrainState, cat_batch: CategoryBatch,
+               bg_batch: BackgroundBatch | None, draws: StepDraws,
+               cfg: Config, obj_mask: torch.Tensor) -> StepMetrics:
+    """One optimizer step in place on `state` (ref: step.py:242-252).
+    Returns the step's metrics, detached."""
+    metrics = update(state, cat_batch, bg_batch, draws, cfg, obj_mask)
+    state.step += 1
+    return metrics

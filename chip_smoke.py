@@ -46,28 +46,42 @@ Phases, each printing one or more lines:
    within 1e-5 relative, those weighted by the depth variance within 1e-4;
    for bf16 storage each bound widened by FLIP_SHARE x one bf16 ulp (the
    flips of tests/test_torch_bf16.py);
-5. the trainer's main path: a `TrainingSession` on the bench scene (8
-   categories x 3 instances, 360 rays x 10 bins per category and 1,200
-   background rays x 14 bins, 45,600 ray samples a step), 5 host-staged
-   steps, then 300 steps on the device ray store. The loss must be
-   finite, its colour and opacity terms must fall, and every kernel of
-   the path must have run once per step;
+5. the fused trainer's graph phase on the bench scene (8 categories x 3
+   instances, 360 rays x 10 bins per category and 1,200 background rays x
+   14 bins, 45,600 ray samples a step): the eager loop (`enable_fast_path(
+   graph=False)`) twice and the step as a CUDA graph (train/graph.py)
+   once, N_CMP steps each from the same initial state and draws; the host
+   split of one eager step (its parts on the host's clock, before any
+   capture of the trainer); the graph bitwise equal to the eager loop
+   where the two eager runs are (metrics and every parameter), else within
+   the step bounds of 4 with the first operator that differs between the
+   eager runs named; eager and graph steps/s in turns; the eager step
+   traced;
+   then the trainer's main path: a `TrainingSession` on the bench scene,
+   5 host-staged steps, then 300 steps on the device ray store, through
+   the captured step (3 eager warm-up steps, then replays). The loss must
+   be finite, its colour and opacity terms must fall, and every kernel of
+   the path must have run once per step, counted at capture and added at
+   each replay; the graph's node count, capture seconds and pool size;
 6. 100 more steps under torch.profiler: the device's busy share and its
-   time by kernel, and the host's operators per step;
+   time by kernel, and the host's operators per step (graph replays);
 7. the field-kernel comparison path (`catnerf_torch.experimental.
    kernel_compare`): the packed kernels at tiles 128/256/384 and the
    MLP-only kernel, each checked against the XLA-path CodeNeRF and timed;
    each of its kernels must have run;
-8. the strict-parity trainer on the bench scene: 2 host-staged steps and
-   50 on the device ray store, the loss finite, its colour and opacity
-   terms falling, no fused kernel launched, then 30 steps traced;
+8. the strict-parity trainer on the bench scene: its graph phase as in 5,
+   then 2 host-staged steps and 50 on the device ray store (graphed), the
+   loss finite, its colour and opacity terms falling, no fused kernel
+   launched, then 30 steps traced;
 9. the reference's default trainer (`Config()`: bf16 activation storage
    on the XLA-path modules, as the JAX package's `train.py --synthetic`
-   and `bench.py` run it) on the bench scene, as 8; then one line with
-   each trainer's unprofiled steps/s and device busy ms a step.
+   and `bench.py` run it) on the bench scene, as 8; then, for each
+   trainer, the device activities found in only one of its eager and
+   graph traces, and one line with each trainer's unprofiled eager and
+   graph steps/s and device busy ms a step and share of the window.
 
-Each path (5, 7, 8, 9) is driven with the launch counts set to 0 just before
-it and read just after. Then a `{"kernels": [...]}` line, the card line
+Each main path (5, 7, 8, 9) is driven with the launch counts set to 0 just
+before it and read just after. Then a `{"kernels": [...]}` line, the card line
 again, and as the last line `{"ok": true, "device": {...}}`. Exits
 non-zero, with no result, when there is no CUDA device, when the port
 cannot be imported, or when any check fails. Imports nothing of JAX.
@@ -119,6 +133,12 @@ N_FAST = 300
 N_STRICT_ONCE = 2
 N_STRICT_FAST = 50
 N_STRICT_TRACE = 30
+# the graph phase of each trainer: steps of each run compared, eager steps
+# whose host split is taken, steps of each timed run, eager steps traced
+N_CMP = 10
+N_SPLIT = 50
+N_TIME = 50
+N_TRACE_EAGER = 20
 # bf16 activation storage: where a float32 result lies within float32
 # summation noise of a bf16 rounding boundary, the card and the CPU store
 # values one bf16 ulp (2^-7 relative) apart; at most FLIP_SHARE of a stored
@@ -876,8 +896,7 @@ def main_path(dev, scene, cfg, kernels, what="main path",
     log(f"{what}: session on {sess.device} in {time.time() - t0:.2f} s, "
         f"{len(sess.cls_ids)} categories, {sess.n_per_cls} rays per "
         f"category, {cfg.n_per_optim_bg} background rays")
-    samples = (len(sess.cls_ids) * sess.n_per_cls * cfg.bins_per_ray_obj
-               + cfg.n_per_optim_bg * cfg.bins_per_ray_bg)
+    samples = samples_per_step(sess)
 
     def fit(m):
         """The colour and opacity terms of the loss: the fit to the images
@@ -930,7 +949,206 @@ def main_path(dev, scene, cfg, kernels, what="main path",
             raise AssertionError(f"{what}: launches {launches}, want {want}")
     log(f"{what}: launches {json.dumps(launches)}; set-up seconds "
         f"{json.dumps(phase_timings('session') | phase_timings('fast_path'))}")
+    if dev.type == "cuda":
+        graph_stats(sess, what)
     return sess, launches, n_fast / t_fast
+
+
+def samples_per_step(sess) -> int:
+    cfg = sess.cfg
+    return (len(sess.cls_ids) * sess.n_per_cls * cfg.bins_per_ray_obj
+            + cfg.n_per_optim_bg * cfg.bins_per_ray_bg)
+
+
+def graph_stats(sess, what: str) -> None:
+    """The captured step of the session's fast path, each on a line of its
+    own: its graph's nodes, the seconds its capture took (instantiation
+    included) and the graph pool's peak (torch.cuda.max_memory_allocated
+    during the capture less the memory allocated before it)."""
+    from catnerf_torch.train.graph import N_WARMUP
+
+    step = sess._superstep.captured["generator"]
+    log(f"{what}: graph nodes {step.node_count()} (one step)")
+    log(f"{what}: graph capture {step.capture_s:.3f} s (after {N_WARMUP} "
+        f"eager warm-up steps on a side stream)")
+    log(f"{what}: graph pool {step.pool_bytes / 2**20:.1f} MB")
+
+
+def host_split(sess, what: str, n: int = N_SPLIT) -> None:
+    """The host's time in each part of one eager step on the device store,
+    on the host's clock with no sync between the parts (one at the step's
+    end), the median of n steps: draws and sample_batch, loss_fn's forward
+    (after zero_grad), backward(), optimizer.step(); the whole enqueue
+    against the step's wall time. Real steps of `sess`."""
+    from catnerf_torch.data.device_buffer import draw_offsets, sample_batch
+    from catnerf_torch.train import step as step_mod
+
+    st, store, cfg = sess.state, sess._store, sess.cfg
+    parts = {k: [] for k in ("draws+batch", "forward", "backward",
+                             "optimizer", "enqueue", "wall")}
+    torch.cuda.synchronize()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        offs, boff = draw_offsets(store, sess.draw_gen)
+        draws = sess._draws()
+        cat, bg = sample_batch(store, sess.n_per_cls, cfg.n_per_optim_bg,
+                               offs, boff)
+        t1 = time.perf_counter()
+        st.optimizer.zero_grad(set_to_none=True)
+        total, _ = step_mod.loss_fn(st.params, cat, bg, draws, cfg,
+                                    sess.obj_mask)
+        t2 = time.perf_counter()
+        total.backward()
+        t3 = time.perf_counter()
+        st.optimizer.step()
+        t4 = time.perf_counter()
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        sess.iteration += 1
+        st.step += 1
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0,
+                                t5 - t0)):
+            parts[k].append(v)
+    med = {k: 1e3 * statistics.median(v) for k, v in parts.items()}
+    log(f"{what}: host split of one eager step (median of {n}, ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f"; enqueue {100 * med['enqueue'] / med['wall']:.0f}% of the "
+        f"wall time")
+
+
+def fast_session(scene, cfg, graph: bool):
+    from catnerf_torch.train.loop import TrainingSession
+
+    sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
+                           cam=scene.cam)
+    sess.enable_fast_path(N_INNER, graph=graph)
+    return sess
+
+
+def snapshot(sess, m) -> dict:
+    """The last metrics and every parameter, on the host."""
+    torch.cuda.synchronize()
+    return {"metrics": {k: v.cpu() for k, v in m._asdict().items()},
+            "params": {k: p.detach().cpu() for k, p in
+                       sess.state.params.named_parameters()}}
+
+
+def bitwise_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[g][k], b[g][k]) for g in a for k in a[g])
+
+
+def step_bound_error(cfg, got: dict, want: dict, what: str) -> dict:
+    """Hold `got`'s metrics to `want`'s within the card-against-CPU step
+    bounds (check_step); returns the relative differences."""
+    worst = {}
+    for k, w in want["metrics"].items():
+        rel = float(((got["metrics"][k] - w).abs()
+                     / w.abs().clamp_min(1e-12)).max())
+        tol = DEPTH_STEP_TOL if k in DEPTH_WEIGHTED else STEP_TOL
+        if cfg.bf16_activations:
+            tol += FLIP_SHARE * BF16_ULP
+        if rel > tol:
+            raise AssertionError(f"{what}: graph metric {k} differs from the "
+                                 f"eager loop's by {rel:.3e} > {tol:g}")
+        worst[k] = rel
+    return worst
+
+
+def first_differing_op(scene, cfg, n_steps: int) -> str:
+    """Two eager runs of n_steps from the same state, every floating point
+    output of every operator on the card hashed bitwise: the first
+    operator whose output differs between them."""
+    from torch.utils import _pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.hashes = [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if "empty" in str(func):  # uninitialised memory
+                return out
+            for t in _pytree.tree_leaves(out):
+                if (isinstance(t, torch.Tensor) and t.is_cuda
+                        and t.is_floating_point() and t.numel()):
+                    flat = torch.empty(t.numel(), dtype=t.dtype,
+                                       device=t.device)
+                    b = flat.copy_(t.reshape(-1)).view(torch.uint8).long()
+                    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+                    self.ops.append(str(func))
+                    self.hashes.append((b * w).sum())
+            return out
+
+    runs = []
+    for _ in range(2):
+        sess = fast_session(scene, cfg, graph=False)
+        with Recorder() as rec:
+            sess.run_fast(n_steps)
+        runs.append((rec.ops, torch.stack(rec.hashes).cpu()))
+    (ops_a, h_a), (ops_b, h_b) = runs
+    for i, (oa, ob) in enumerate(zip(ops_a, ops_b)):
+        if oa != ob:
+            return f"the two runs' operators part at #{i}: {oa} / {ob}"
+        if h_a[i] != h_b[i]:
+            return f"operator #{i} of {len(ops_a)}: {oa}"
+    return "no operator output differs"
+
+
+def graph_phase(scene, cfg, what: str) -> dict:
+    """A trainer's step as a CUDA graph against its eager loop, from the
+    same initial state and draws (the session's seeded generator): two
+    eager runs of N_CMP steps, the host split of the eager step (before
+    any capture of this trainer), then the graph's run. Where the two
+    eager runs are bitwise equal, the graph must equal them bitwise
+    (metrics and every parameter); else it is held to the first within
+    the step bounds, and the first operator that differs between the eager
+    runs is named. Then eager and graph steps/s (N_TIME steps each, in the
+    order eager, graph, graph, eager, unprofiled) and the eager step
+    traced."""
+    eager = fast_session(scene, cfg, graph=False)
+    want = snapshot(eager, eager.run_fast(N_CMP))
+    host_split(eager, what)
+    again = fast_session(scene, cfg, graph=False)
+    repeat = snapshot(again, again.run_fast(N_CMP))
+    del again
+    graph = fast_session(scene, cfg, graph=True)
+    got = snapshot(graph, graph.run_fast(N_CMP))
+    if bitwise_equal(want, repeat):
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"{what}: the graph's {N_CMP} steps are not "
+                                 f"bitwise equal to the eager loop's, which "
+                                 f"repeats bitwise")
+        log(f"{what}: graph vs eager, {N_CMP} steps from the same state and "
+            f"draws: bitwise equal, metrics and all "
+            f"{len(want['params'])} parameters (two eager runs bitwise "
+            f"equal too)")
+    else:
+        worst = step_bound_error(cfg, got, want, what)
+        log(f"{what}: two eager runs of {N_CMP} steps differ ("
+            f"{first_differing_op(scene, cfg, N_CMP)}); graph vs eager "
+            f"within the step bounds, relative: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in worst.items()))
+    samples = samples_per_step(graph)
+    rates = {"eager": [], "graph": []}
+    for kind in ("eager", "graph", "graph", "eager"):
+        sess = eager if kind == "eager" else graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(sess.run_fast(N_TIME).total)
+        rates[kind].append(N_TIME / (time.perf_counter() - t0))
+    log(f"{what}: eager vs graph, unprofiled, {N_TIME} steps a run: eager "
+        + ", ".join(f"{r:.2f}" for r in rates["eager"]) + " steps/s; graph "
+        + ", ".join(f"{r:.2f}" for r in rates["graph"]) + " steps/s ("
+        + ", ".join(f"{r * samples:.6g}" for r in rates["graph"])
+        + f" ray-samples/s against "
+        + ", ".join(f"{r * samples:.6g}" for r in rates["eager"])
+        + f"; {samples} samples/step)")
+    busy = trace_steps(eager, N_TRACE_EAGER, label=f"{what} eager", top=5)
+    return {"eager": statistics.mean(rates["eager"]),
+            "graph": statistics.mean(rates["graph"]),
+            "eager_busy": busy}
 
 
 COMPARE_KERNELS = ("codenerf_packed_fwd", "codenerf_packed_bwd",
@@ -956,12 +1174,15 @@ def compare_path(dev) -> dict:
     return {k: launches[k] for k in COMPARE_KERNELS}
 
 
-def trace_steps(sess, n_steps: int = N_INNER) -> float | None:
+def trace_steps(sess, n_steps: int = N_INNER, label: str = "trace",
+                top: int = 20) -> tuple | None:
     """n_steps more run_fast steps under torch.profiler: the device's busy
-    share of the window and its time by kernel, per step, and the host's
-    operators by their own time (inflated by the profiler). Prints "not
-    measured" for the device when the profiler records no device
-    activity. Returns the device's busy ms a step (None: not measured)."""
+    share of the window and its time by kernel (the `top` longest), per
+    step, and the host's operators by their own time (inflated by the
+    profiler). Prints "not measured" for the device when the profiler
+    records no device activity. Returns the device's busy ms a step, its
+    share of the window and the names of the device's activities (None:
+    not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -983,24 +1204,24 @@ def trace_steps(sess, n_steps: int = N_INNER) -> float | None:
         elif e.device_type == DeviceType.CPU:
             n_ops += 1
             host_us[e.name] = host_us.get(e.name, 0.0) + e.self_cpu_time_total
-    log(f"trace: host, under the profiler: {wall_us / n_steps / 1e3:.3f} "
+    log(f"{label}: host, under the profiler: {wall_us / n_steps / 1e3:.3f} "
         f"ms/step, {n_ops / n_steps:.0f} events/step (nested operators "
         f"included); ms/step by own time: "
         + ", ".join(f"{k} {v / n_steps / 1e3:.3f}" for k, v in sorted(
             host_us.items(), key=lambda kv: -kv[1])[:8]))
     if not dev_us:
-        log("trace: the profiler recorded no device activity; device busy "
-            "share not measured")
+        log(f"{label}: the profiler recorded no device activity; device "
+            "busy share not measured")
         return None
     busy = sum(dev_us.values())
-    log(f"trace: device busy {busy / n_steps / 1e3:.3f} ms/step "
+    log(f"{label}: device busy {busy / n_steps / 1e3:.3f} ms/step "
         f"({100 * busy / wall_us:.1f}% of the profiled window), "
         f"{n_launch / n_steps:.0f} device activities/step, "
         f"{len(dev_us)} distinct")
-    for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:20]:
-        log(f"trace:   {us / n_steps / 1e3:8.4f} ms/step "
+    for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"{label}:   {us / n_steps / 1e3:8.4f} ms/step "
             f"{100 * us / busy:5.1f}%  {name[:110]}")
-    return busy / n_steps / 1e3
+    return busy / n_steps / 1e3, busy / wall_us, set(dev_us)
 
 
 def main() -> int:
@@ -1014,6 +1235,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: cannot import the port: {e}", file=sys.stderr)
         return 1
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1043,28 +1265,45 @@ def main() -> int:
     check_step(dev, strict_config(), "strict-parity")
     check_step(dev, default_config(), "default (bf16)")
     scene = make_scene(**SCENE)
-    rates = {}
+    rates, phases = {}, {}
+    phases["fused"] = graph_phase(scene, fused_config(), "fused trainer")
     sess, launches, rate = main_path(dev, scene, fused_config(),
                                      FUSED_KERNELS)
     rates["fused"] = (rate, trace_steps(sess))
     del sess
     launches.update(compare_path(dev))
-    for what, cfg in (("strict-parity", strict_config()),
-                      ("default (bf16)", default_config())):
-        sess, _, rate = main_path(dev, scene, cfg, (), f"{what} trainer",
+    for what, cfg in (("strict-parity", strict_config),
+                      ("default (bf16)", default_config)):
+        phases[what] = graph_phase(scene, cfg(), f"{what} trainer")
+        sess, _, rate = main_path(dev, scene, cfg(), (), f"{what} trainer",
                                   n_step_once=N_STRICT_ONCE,
                                   n_fast=N_STRICT_FAST)
         rates[what] = (rate, trace_steps(sess, N_STRICT_TRACE))
         del sess
-    log("trainers (run_fast steps/s unprofiled; device busy ms/step under "
-        "the profiler): " + "; ".join(
-            f"{k} {r:.2f} steps/s, "
-            + (f"{b:.3f} ms" if b is not None else "busy not measured")
+    for what, (_, graph_trace) in rates.items():
+        eager_trace = phases[what]["eager_busy"]
+        if graph_trace and eager_trace:
+            log(f"{what} trainer: device activities only in the eager "
+                f"trace: {sorted(eager_trace[2] - graph_trace[2]) or 'none'}"
+                f"; only in the graph's: "
+                f"{sorted(graph_trace[2] - eager_trace[2]) or 'none'}")
+
+    def busy(t):
+        return (f"{t[0]:.3f} ms ({100 * t[1]:.1f}%)" if t is not None
+                else "not measured")
+
+    log("trainers (same call; run_fast steps/s unprofiled, eager vs graph; "
+        "device busy ms/step and share of the window under the profiler): "
+        + "; ".join(
+            f"{k} eager {phases[k]['eager']:.2f}, graph "
+            f"{phases[k]['graph']:.2f} steps/s (main path {r:.2f}), busy "
+            f"eager {busy(phases[k]['eager_busy'])}, graph {busy(b)}"
             for k, (r, b) in rates.items()))
     for r in rows:
         r["launches"] = launches[r["name"]]
         if not r["launches"] > 0:
             raise AssertionError(f"{r['name']}: not launched on its path")
+    log(f"smoke: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,21 +19,24 @@ torch.set_num_threads(1)
 def test_synthetic_run_prints_one_json_line_per_log_step(capsys,
                                                         monkeypatch, extra):
     """The default trains `Config()` (bf16 storage on the XLA path), as the
-    JAX package's `train.py --synthetic`; --strict-parity its float32
-    strict-parity configuration."""
-    cfgs = []
+    JAX package's `train.py --synthetic`, through the fast path;
+    --strict-parity its float32 strict-parity configuration on host-staged
+    batches (`step_once`)."""
+    sessions = []
     session = cli.TrainingSession
 
     def spy(cfg, *args, **kw):
-        cfgs.append(cfg)
-        return session(cfg, *args, **kw)
+        sessions.append(session(cfg, *args, **kw))
+        return sessions[-1]
 
     monkeypatch.setattr(cli, "TrainingSession", spy)
     assert main(["--synthetic", "--max-iter", "2", "--log-iter", "1",
                  "--device", "cpu", *extra]) == 0
-    (cfg,) = cfgs
+    (sess,) = sessions
+    cfg = sess.cfg
     assert not cfg.use_fused_kernels
     assert cfg.bf16_activations == (not extra)
+    assert (sess._superstep is None) == bool(extra)
     assert cfg.net_hyperparams.latent_dim == 32
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [r["iteration"] for r in rows] == [1, 2]
@@ -50,3 +53,11 @@ def test_without_synthetic_it_exits_with_a_usage_error(capsys):
         main(["--max-iter", "1", "--device", "cpu"])
     assert e.value.code == 2
     assert "only --synthetic" in capsys.readouterr().err
+
+
+def test_fast_path_logs_each_chunk_and_the_rest(capsys):
+    """--log-iter steps a run_fast call, the last call the rest."""
+    assert main(["--synthetic", "--max-iter", "3", "--log-iter", "2",
+                 "--device", "cpu"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["iteration"] for r in rows] == [2, 3]
