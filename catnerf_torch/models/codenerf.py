@@ -120,7 +120,7 @@ def _inject(y: torch.Tensor, inj: torch.Tensor) -> torch.Tensor:
 def apply_with_injections(fc: CodeNeRF, emb: torch.Tensor,
                           shape_inj: torch.Tensor, texture_inj: torch.Tensor,
                           *, emb_size1: int = EMB_SIZE1, do_cat: bool = True,
-                          act_dtype=None):
+                          act_dtype=None, do_color: bool = True):
     """Forward pass given precomputed latent injections (ref:
     codenerf.py:104-149), stacked over the leading category axis.
 
@@ -131,7 +131,11 @@ def apply_with_injections(fc: CodeNeRF, emb: torch.Tensor,
     `Config.bf16_activations`): every ReLU layer's output and the 129-wide
     concat before `encoding_viewdir` are stored in it, and the injection
     adds run in it; each product, sigma and the rgb head run in float32
-    (ref: codenerf.py:115-146)."""
+    (ref: codenerf.py:115-146).
+
+    do_color=False returns (sigma, None) without running the colour
+    branch (the mesher's occupancy grids; under jit XLA drops that branch
+    from the JAX package's grid evaluation by itself)."""
     x1 = emb[..., :emb_size1]
     x2 = emb[..., emb_size1:]
     shape_blocks = len(fc.shape_layers)
@@ -148,6 +152,8 @@ def apply_with_injections(fc: CodeNeRF, emb: torch.Tensor,
 
     y = linear(fc.encoding_shape, y)
     sigma = linear(fc.sigma, y) * 10.0  # UniSurf logit scale
+    if not do_color:
+        return sigma, None
 
     y = store(y, act_dtype)  # after sigma is taken, as :138-139
     y = linear_relu(fc.encoding_viewdir, _concat(y, x2.to(y.dtype)),
@@ -161,13 +167,14 @@ def apply_with_injections(fc: CodeNeRF, emb: torch.Tensor,
 
 def apply(fc: CodeNeRF, emb: torch.Tensor, shape_latent: torch.Tensor,
           texture_latent: torch.Tensor, *, emb_size1: int = EMB_SIZE1,
-          do_cat: bool = True):
+          do_cat: bool = True, do_color: bool = True):
     """Forward pass (ref: codenerf.py:152-164, src/model.py:56-84).
 
     emb [C, ..., 129]; shape/texture_latent [C, ..., latent_dim]
     broadcastable against emb's leading dims. Returns (sigma [C, ..., 1],
-    rgb [C, ..., 3])."""
+    rgb [C, ..., 3] | None with do_color=False)."""
     shape_inj, texture_inj = project_codes(fc, shape_latent, texture_latent,
                                            do_cat=do_cat)
     return apply_with_injections(fc, emb, shape_inj, texture_inj,
-                                 emb_size1=emb_size1, do_cat=do_cat)
+                                 emb_size1=emb_size1, do_cat=do_cat,
+                                 do_color=do_color)

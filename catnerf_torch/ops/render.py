@@ -10,6 +10,12 @@ from __future__ import annotations
 import torch
 
 
+def occupancy_activation(alpha: torch.Tensor) -> torch.Tensor:
+    """UniSurf-style occupancy: sigmoid of the raw head output
+    (ref: src/render_rays.py:3-7)."""
+    return torch.sigmoid(alpha)
+
+
 def occupancy_to_termination(occupancy: torch.Tensor) -> torch.Tensor:
     """term[i] = occ[i] * prod_{j<i}(1 - occ[j] + 1e-10)
     (ref: src/render_rays.py:25-44).

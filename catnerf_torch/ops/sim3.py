@@ -1,5 +1,6 @@
 """sim(3) pose conversion (numpy), the part of the JAX package's
-`ops/sim3.py` that the scene build needs (ref: src/utils.py:368-491)."""
+`ops/sim3.py` that the scene build, the checkpoints and the mesher need
+(ref: src/utils.py:368-491)."""
 
 from __future__ import annotations
 
@@ -47,3 +48,36 @@ def sim3_to_tensor_np(T: np.ndarray) -> np.ndarray:
     R = T[:3, :3] / scale
     q = rotation_to_quat_np(R)
     return np.concatenate([[scale], q, T[:3, 3]]).astype(np.float32)
+
+
+def quat_to_rotation_np(q: np.ndarray) -> np.ndarray:
+    """Quaternion [w, x, y, z] -> rotation matrix (ref: src/utils.py:468-491)."""
+    qr, qi, qj, qk = q
+    two_s = 2.0 / float(np.dot(q, q))
+    return np.array(
+        [
+            [1 - two_s * (qj * qj + qk * qk), two_s * (qi * qj - qk * qr), two_s * (qi * qk + qj * qr)],
+            [two_s * (qi * qj + qk * qr), 1 - two_s * (qi * qi + qk * qk), two_s * (qj * qk - qi * qr)],
+            [two_s * (qi * qk - qj * qr), two_s * (qj * qk + qi * qr), 1 - two_s * (qi * qi + qj * qj)],
+        ]
+    )
+
+
+def tensor_to_sim3_np(t: np.ndarray) -> np.ndarray:
+    """[s, qw..qz, t] -> 4x4 sim(3) matrix (ref: src/utils.py:432-447)."""
+    t = np.asarray(t, dtype=np.float64)
+    s, q, trans = t[0], t[1:5], t[5:8]
+    T = np.eye(4)
+    T[:3, :3] = quat_to_rotation_np(q) * s
+    T[:3, 3] = trans
+    return T.astype(np.float32)
+
+
+def tensor_to_se3_np(t: np.ndarray) -> np.ndarray:
+    """[qw..qz, t] (7-vector) -> 4x4 rigid transform (ref: src/utils.py:411-430)."""
+    t = np.asarray(t, dtype=np.float64)
+    q, trans = t[:4], t[4:7]
+    T = np.eye(4)
+    T[:3, :3] = quat_to_rotation_np(q)
+    T[:3, 3] = trans
+    return T.astype(np.float32)

@@ -16,7 +16,10 @@ from catnerf_torch.config import Config
 from catnerf_torch.data.camera import CameraInfo
 from catnerf_torch.data.device_buffer import FastDraws, build_device_store
 from catnerf_torch.data.scene import CategoryScene, SceneBatcher
+from catnerf_torch.models.codenerf import CodeNeRF
 from catnerf_torch.models.codes import obj_validity_mask
+from catnerf_torch.models.embedding import UniDirsEmbed
+from catnerf_torch.models.layers import Linear
 from catnerf_torch.train import step as step_mod
 from catnerf_torch.train.graph import make_superstep
 from catnerf_torch.train.state import TrainState, init_train_state
@@ -41,6 +44,8 @@ class TrainingSession:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
         self.cam = cam if cam is not None else CameraInfo.from_config(cfg)
+        # kept for mesh-time space carving (cfg.mesh_space_carving)
+        self.sample_dict = sample_dict
         cls_ids = sorted(k for k in inst_dict.keys() if k != 0)
         if len(cls_ids) > cfg.max_n_models:
             raise ValueError(f"{len(cls_ids)} categories exceeds "
@@ -66,6 +71,10 @@ class TrainingSession:
         self.draw_gen = torch.Generator(self.device).manual_seed(
             cfg.seed + 1)
         self.n_per_cls = self.batcher.rays_per_category(cfg.n_per_optim)
+        # instances written after training by fit.adopt_instance, in
+        # adoption order (the JAX package's; the port has no fit yet, and
+        # its checkpoints refuse a non-empty list)
+        self.adopted_instances: list[dict] = []
         self.iteration = 0
         self._store = None
         self._superstep = None
@@ -112,7 +121,9 @@ class TrainingSession:
         True on a CPU session raises. graph=False runs the eager loop on
         any device, the reference a graph is held against. The superstep
         runs on the state the session holds now: after replacing
-        `self.state`, call this again."""
+        `self.state` (a checkpoint restore does), call this again; until
+        then run_fast raises. Writing into the parameters in place (a
+        reference checkpoint import does) keeps the superstep valid."""
         if graph is None:
             graph = self.device.type == "cuda"
         with phase_timer("fast_path", "store_build"):
@@ -173,3 +184,31 @@ class TrainingSession:
             d["background/color"] = float(m.bg_color)
             d["background/opacity"] = float(m.bg_opacity)
         return d
+
+    # ------------------------------------------------------------------
+    def category_params(self, cls_id: int) -> dict:
+        """One category's rows of the stacked parameters (PE, CodeNeRF,
+        codes) for meshing and export: modules and tensors without the
+        category axis, views of the session's parameters outside their
+        autograd graph."""
+        i = self.cls_ids.index(cls_id)
+        p = self.state.params
+
+        def row(layer):
+            return Linear(layer.w.detach()[i], layer.b.detach()[i])
+
+        return {
+            "pe": UniDirsEmbed(p.cat_pe.B.detach()[i]),
+            "fc": CodeNeRF({
+                name: ([row(m) for m in layer]
+                       if isinstance(layer, torch.nn.ModuleList)
+                       else row(layer))
+                for name, layer in p.cat_fc.named_children()}),
+            "shape_codes": p.codes.shape.detach()[i],
+            "texture_codes": p.codes.texture.detach()[i],
+        }
+
+    def background_params(self) -> dict | None:
+        if self.background is None:
+            return None
+        return {"pe": self.state.params.bg_pe, "fc": self.state.params.bg_fc}

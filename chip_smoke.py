@@ -78,9 +78,33 @@ Phases, each printing one or more lines:
    and `bench.py` run it) on the bench scene, as 8; then, for each
    trainer, the device activities found in only one of its eager and
    graph traces, and one line with each trainer's unprofiled eager and
-   graph steps/s and device busy ms a step and share of the window.
+   graph steps/s and device busy ms a step and share of the window;
+10. the end of the main path, the quality gate
+   (`catnerf_torch.experimental.e2e_quality`: checkpoints, meshing, 3D
+   evaluation): the build of the C++ geometry library
+   (`catnerf_torch/native/`, g++, its seconds); the reference's default
+   trainer on the gate's scene (3 categories x 2 spheres, 24 frames of
+   160x120), E2E_ITERS steps through `run_fast` (each a replayed CUDA
+   graph), its steps/s, the colour and opacity loss falling, no kernel of
+   the fused trainer launched; `mesh_scene` at grid_dim 128 and
+   `score_shape` per sphere: per-object and mean accuracy and completion
+   (cm) and completion ratio (%) beside the JAX package's record on a TPU
+   v5e, the seconds of training, of meshing by phase and of scoring, and
+   the grid evaluation's points/s; it fails unless all 6 spheres are
+   meshed, each below E2E_CM_BOUND cm in accuracy and completion, with a
+   mean completion ratio of at least E2E_RATIO_BOUND %; then
+   `save_session_checkpoint` into `chiprun_out/e2e_ckpt/` and a restore
+   into a fresh CUDA session (every parameter and AdamW state tensor
+   bitwise, then one step of each with the same injected FastDraws
+   through a freshly enabled fast path, bitwise),
+   `export_reference_checkpoints` and an import into a third session
+   (bitwise); and one CodeNeRF slab and one background slab of the 128^3
+   grid evaluated on the card and on the CPU from the same weights, held
+   under the flip rule of tests/test_torch_meshing.py, each timed beside
+   its bound, and one object's whole grid alone (points/s); the meshes
+   go to `build/e2e_mesh/`.
 
-Each main path (5, 7, 8, 9) is driven with the launch counts set to 0 just
+Each main path (5, 7, 8, 9, 10) is driven with the launch counts set to 0 just
 before it and read just after. Then a `{"kernels": [...]}` line, the card line
 again, and as the last line `{"ok": true, "device": {...}}`. Exits
 non-zero, with no result, when there is no CUDA device, when the port
@@ -150,6 +174,16 @@ BF16_ULP = 2.0 ** -7
 # step's, and a ragged one; the comparison's goes into the kernels line
 PACKED_SHAPES = ((8, 2100), (8, 3600), (8, 2101))
 PACKED_TILE = 256
+# phase 10, the quality gate: steps, grid, and the band of the JAX
+# package's synthetic gate (BASELINE.md:50: every object meshed and
+# sub-1.2 cm; its record 0.930 cm accuracy, 0.918 cm completion, 100%)
+E2E_ITERS = 10000
+E2E_GRID = 128
+E2E_CM_BOUND = 1.2
+E2E_RATIO_BOUND = 99.0
+JAX_RECORD = ("the JAX package's record on a TPU v5e (BASELINE.md:50): "
+              "0.930 cm accuracy, 0.918 cm completion, 100% completion "
+              "ratio")
 # torch.cuda.set_sync_debug_mode while run_fast runs: the steps must not
 # wait on the device, so that the host queues ahead of it
 SYNC_DEBUG = "error"
@@ -1224,6 +1258,342 @@ def trace_steps(sess, n_steps: int = N_INNER, label: str = "trace",
     return busy / n_steps / 1e3, busy / wall_us, set(dev_us)
 
 
+def state_tensors(state) -> dict:
+    """Every parameter and every AdamW state tensor of a TrainState, by
+    name, on the host."""
+    names = {id(p): k for k, p in state.params.named_parameters()}
+    out = {f"param/{k}": p.detach().cpu()
+           for k, p in state.params.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        for k, v in st.items():
+            out[f"adamw/{names[id(p)]}/{k}"] = (v.device.type, v.cpu())
+    return out
+
+
+def tensors_equal(a: dict, b: dict) -> bool:
+    def same(x, y):
+        if isinstance(x, tuple):
+            return x[0] == y[0] and same(x[1], y[1])
+        return x.dtype == y.dtype and torch.equal(x, y)
+
+    return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+
+
+def e2e_train(scene_sess) -> dict:
+    """Phase 10's training: E2E_ITERS steps of the default trainer through
+    run_fast (replayed graphs), no fused kernel launched."""
+    from catnerf_torch.experimental import e2e_quality as e2e
+    from catnerf_torch.kernels import fused_field as ff
+
+    scene, sess = scene_sess
+    ff.reset_launch_counts()
+    tr = e2e.train(sess, E2E_ITERS, log=lambda m: log(f"e2e: {m}"))
+    launches = dict(ff.LAUNCHES)
+    log(f"e2e: {tr['iters']} steps in {tr['train_s']:.2f} s, "
+        f"{tr['steps_per_s']:.2f} steps/s (the first step alone, then "
+        f"runs of {e2e.CHUNK_STEPS}, graph capture included); mean "
+        f"category PSNR every {e2e.CHUNK_STEPS} steps: first "
+        f"{tr['psnr_hist'][:3]}, last {tr['psnr_hist'][-3:]}; colour+opacity "
+        f"{tr['fit_first']:.4f} -> {tr['fit_last']:.4f}; total loss "
+        f"{tr['total_last']:.4f}; launches {json.dumps(launches)}")
+    if not math.isfinite(tr["total_last"]):
+        raise AssertionError(f"e2e: loss not finite: {tr['total_last']}")
+    if not tr["fit_last"] < tr["fit_first"]:
+        raise AssertionError(f"e2e: the colour and opacity loss did not "
+                             f"fall: {tr['fit_first']} -> {tr['fit_last']}")
+    if any(launches.values()):
+        raise AssertionError(f"e2e: fused kernels launched: {launches}")
+    if sess._superstep.captured["generator"].graph is None:
+        raise AssertionError("e2e: run_fast never replayed a graph")
+    return tr
+
+
+def e2e_mesh_and_score(scene, sess) -> dict:
+    """Phase 10's meshing and scoring, with the gate's band."""
+    from catnerf_torch.experimental import e2e_quality as e2e
+    from catnerf_torch.mesher import meshing
+
+    points = []
+    grid_occ_seen = meshing._grid_occ_seen
+
+    def counted(*args, **kw):
+        points.append(kw["grid_dim"] ** 3)
+        return grid_occ_seen(*args, **kw)
+
+    meshing._grid_occ_seen = counted
+    try:
+        # under the ignored build/, not chiprun_out/: 128^3 meshes are
+        # tens of MB
+        res = e2e.mesh_and_score(sess, scene, sess.iteration,
+                                 os.path.join(ROOT, "build", "e2e_mesh"))
+    finally:
+        meshing._grid_occ_seen = grid_occ_seen
+    phases = res["mesh_phase_s"]
+    for obj_id, m in sorted(res["per_object"].items()):
+        log(f"e2e: object {obj_id}: {json.dumps(m)}")
+    log(f"e2e: mean accuracy {res['mean_accuracy_cm']} cm, completion "
+        f"{res['mean_completion_cm']} cm, completion ratio "
+        f"{res['mean_completion_ratio_pct']} % over {res['n_meshed']} of "
+        f"{res['n_objects']} objects ({JAX_RECORD})")
+    grid_s = phases.get("grid_eval", 0.0)
+    log(f"e2e: meshing {res['mesh_s']:.2f} s, by phase (s, summed over the "
+        f"two objects in flight) {json.dumps(phases)}; scoring "
+        f"{res['score_s']:.2f} s; grid evaluation {sum(points)} points in "
+        f"{len(points)} grids, "
+        + (f"{sum(points) / grid_s:.6g} points/s" if grid_s > 0
+           else "points/s not measured (grid_eval rounds to 0 s)"))
+    bad = [(k, v) for k, v in res["per_object"].items()
+           if v is None or v["accuracy_cm"] >= E2E_CM_BOUND
+           or v["completion_cm"] >= E2E_CM_BOUND]
+    if res["n_meshed"] != res["n_objects"] or bad:
+        raise AssertionError(f"e2e: objects outside the band (meshed, "
+                             f"under {E2E_CM_BOUND} cm): {bad}")
+    if res["mean_completion_ratio_pct"] < E2E_RATIO_BOUND:
+        raise AssertionError(f"e2e: mean completion ratio "
+                             f"{res['mean_completion_ratio_pct']} % < "
+                             f"{E2E_RATIO_BOUND} %")
+    return res
+
+
+def e2e_roundtrip(sess) -> None:
+    """Phase 10's checkpoints on the card: save, restore into a fresh
+    CUDA session, bitwise; one step of each through a freshly enabled
+    fast path with the same injected draws, bitwise; export, import into
+    a third session, bitwise."""
+    from catnerf_torch.data.device_buffer import FastDraws, draw_offsets
+    from catnerf_torch.experimental import e2e_quality as e2e
+    from catnerf_torch.train import checkpoint as ckpt
+
+    out = os.path.join(ROOT, "chiprun_out")
+    t0 = time.time()
+    path = ckpt.save_session_checkpoint(os.path.join(out, "e2e_ckpt"), sess,
+                                        sess.iteration)
+    t_save = time.time() - t0
+    _, fresh = e2e.make_session(grid_dim=E2E_GRID)
+    t0 = time.time()
+    ckpt.restore_session_checkpoint(path, fresh)
+    t_restore = time.time() - t0
+    want = state_tensors(sess.state)
+    if not tensors_equal(state_tensors(fresh.state), want) or \
+            fresh.iteration != sess.iteration or \
+            fresh.state.step != sess.state.step:
+        raise AssertionError("e2e: the restored session differs from the "
+                             "saved one")
+    log(f"e2e: checkpoint {os.path.getsize(path) / 2**20:.2f} MB, saved in "
+        f"{t_save:.3f} s, restored in {t_restore:.3f} s: {len(want)} "
+        f"tensors bitwise equal (step counts on "
+        f"{sorted({v[0] for v in want.values() if isinstance(v, tuple)})}),"
+        f" step and iteration {fresh.iteration}")
+    for s in (sess, fresh):
+        s.enable_fast_path(1)
+    gen = torch.Generator(sess.device).manual_seed(12345)
+    offs, boff = draw_offsets(sess._store, gen)
+    draws = [FastDraws(offs, boff, sess._draws(gen))]
+    ma = [m.cpu() for m in sess.run_fast(1, draws=draws)]
+    mb = [m.cpu() for m in fresh.run_fast(1, draws=draws)]
+    if not all(torch.equal(a, b) for a, b in zip(ma, mb)) or \
+            not tensors_equal(state_tensors(fresh.state),
+                              state_tensors(sess.state)):
+        raise AssertionError("e2e: one step after the restore differs from "
+                             "the saved session's")
+    t0 = time.time()
+    files = ckpt.export_reference_checkpoints(
+        sess, os.path.join(out, "e2e_reference"), sess.iteration)
+    t_export = time.time() - t0
+    _, third = e2e.make_session(grid_dim=E2E_GRID)
+    t0 = time.time()
+    step = ckpt.import_reference_checkpoints(third, os.path.dirname(files[0]))
+    t_import = time.time() - t0
+    want = {k: v for k, v in state_tensors(sess.state).items()
+            if k.startswith("param/")}
+    got = {k: v for k, v in state_tensors(third.state).items()
+           if k.startswith("param/")}
+    if step != sess.iteration or not tensors_equal(got, want):
+        raise AssertionError("e2e: the imported parameters differ from the "
+                             "exported ones")
+    log(f"e2e: one more step of each, same injected draws: bitwise equal "
+        f"(metrics, {len(want)} parameters and the AdamW state); reference "
+        f"export of {len(files)} files in {t_export:.3f} s, import in "
+        f"{t_import:.3f} s into a third session: parameters bitwise equal")
+
+
+def slab_flops(fc, is_background: bool, n_views: int) -> float:
+    """The operations a slab's point needs, from its layers' shapes: each
+    product's multiply-adds (the code injections are projected once, not
+    a point), the PE's projection and sines (counted as a product of 3 x
+    21 and 126 polynomials of ~12 operations), and, carving, ~25
+    operations a view."""
+    names = (("in_layer", "mid1", "cat_layer", "mid2", "out_alpha")
+             if is_background else
+             ("encoding_xyz", "shape_layers", "cat_layer", "encoding_shape",
+              "sigma"))
+    macs = 0
+    for name in names:
+        layers = getattr(fc, name)
+        for layer in (layers if isinstance(layers, torch.nn.ModuleList)
+                      else [layers]):
+            macs += layer.w.shape[-2] * layer.w.shape[-1]
+    return 2.0 * (macs + 3 * 21) + 126 * 12 + 25 * n_views
+
+
+def e2e_slabs(sess) -> None:
+    """One CodeNeRF slab and one background slab of the 128^3 grid at the
+    first object's and the background's first placement, evaluated on the
+    card and on the CPU from the same weights: float32 occupancy within
+    the flip rule's premise (1e-5), uint8 grids and carve masks under the
+    flip rule. Each slab's time on the card (a call from idle, and queued)
+    beside its bound, then the first object's whole 128^3 grid alone
+    (`_grid_occ_seen`, downloads included): its points/s."""
+    import copy
+
+    import numpy as np
+
+    from catnerf_torch.experimental import e2e_quality as e2e
+    from catnerf_torch.mesher import meshing
+    from catnerf_torch.ops.sim3 import tensor_to_se3_np
+
+    cfg = sess.cfg
+    chunk = 262144
+    unit = meshing._unit_grid(E2E_GRID, torch.device("cpu"))
+    slab = unit[4 * chunk:5 * chunk]  # the middle of the grid's x range
+    carve = meshing.build_carve_views(sess)
+    cat = sess.categories[0]
+    obj_id = cat.obj_ids[0]
+    k = cat.inst_id_to_index[obj_id]
+    params = sess.category_params(sess.cls_ids[0])
+    extent = np.asarray(cat.extent_dict[obj_id], np.float64)
+    scale_np = (extent / np.max(extent / 2.0)
+                / (2.0 * meshing.BOUND_EXTENT_OBJ))
+    t_obj = cat.object_tensor_dict[obj_id]
+    Tw = tensor_to_se3_np(t_obj[1:]).copy()
+    Tw[:3, :3] *= float(t_obj[0])
+    ws = abs(np.linalg.det(Tw[:3, :3])) ** (1 / 3)
+    voxel_w = float(np.max(scale_np)) * 2.0 / (E2E_GRID - 1) * ws
+    depths, T_wc, cam = carve
+    K = np.array([cam.fx, cam.fy, cam.cx, cam.cy], np.float32)
+    bg = sess.background.bound
+    eye = np.eye(4, dtype=np.float32)
+    sc = params["shape_codes"][k].cpu().numpy()
+    tc = params["texture_codes"][k].cpu().numpy()
+    cases = {
+        "codenerf": (params, sc, tc, scale_np, eye, Tw, True, False),
+        "background": (sess.background_params(), None, None,
+                       np.asarray(bg.extent)
+                       / (2.0 * meshing.BOUND_EXTENT_BG),
+                       _affine(bg.R, bg.center), eye, False, True),
+    }
+    for name, (p, sc_, tc_, scale3, Tg, Tw_, do_carve, is_bg) in \
+            cases.items():
+        kw = dict(is_background=is_bg,
+                  scale=cfg.bg_scale if is_bg else cfg.obj_scale,
+                  max_deg=cfg.n_unidir_funcs)
+
+        def slab_call(dev, p_dev):
+            def f32(x):
+                return None if x is None else torch.as_tensor(
+                    np.asarray(x, np.float32), device=dev)
+
+            args = (f32(scale3), f32(Tg[:3, :3]), f32(Tg[:3, 3]),
+                    f32(Tw_[:3, :3]), f32(Tw_[:3, 3]), f32(depths),
+                    f32(T_wc), f32(K), f32(3.0 * voxel_w))
+            codes = (f32(sc_), f32(tc_))
+            pts_in = slab.to(dev)
+
+            def call(carve=do_carve):
+                return meshing._eval_grid_slab(
+                    p_dev["pe"], p_dev["fc"], *codes, pts_in, *args,
+                    carve=carve, **kw)
+
+            def occupancy():
+                pts = (pts_in * args[0]) @ args[1].T + args[2]
+                with torch.no_grad():
+                    occ = meshing.field_chunk_fn(want_color=False, **kw)(
+                        p_dev["pe"], p_dev["fc"], *codes, pts)
+                return occ.cpu().numpy(), pts.cpu().numpy()
+
+            return call, occupancy
+
+        p_cpu = {"pe": copy.deepcopy(p["pe"]).cpu(),
+                 "fc": copy.deepcopy(p["fc"]).cpu()}
+        card_call, card_occ = slab_call(sess.device, p)
+        host_call, host_occ = slab_call(torch.device("cpu"), p_cpu)
+        t0 = time.time()
+        card = [x.cpu().numpy() for x in card_call()]
+        t_first = time.time() - t0
+        t0 = time.time()
+        host = [x.numpy() for x in host_call()]
+        t_host = time.time() - t0
+        (occ_card, _), (occ_host, pts) = card_occ(), host_occ()
+        err = float(np.abs(occ_card - occ_host).max())
+        if err > 1e-5:
+            raise AssertionError(f"e2e slab {name}: card vs CPU float32 "
+                                 f"occupancy {err:.3e} > 1e-5")
+        pts_w = pts @ Tw_[:3, :3].T + Tw_[:3, 3]
+        near = (e2e.carve_boundary(pts_w, depths, T_wc, K, 3.0 * voxel_w)
+                if do_carve else None)
+        counts = e2e.count_flips(occ_host, card[0], host[0],
+                                 card[1] if do_carve else None,
+                                 host[1] if do_carve else None, near)
+        ms = cuda_ms(card_call, n=10)
+        queued = device_ms(card_call, n=10)
+        field = (f", {device_ms(lambda: card_call(False), n=10):.3f} ms "
+                 f"queued without the carving" if do_carve else "")
+        flops = len(slab) * slab_flops(p["fc"], is_bg,
+                                       len(depths) if do_carve else 0)
+        nbytes = len(slab) * (12 + 1 + 1)  # points in; uint8 and mask out
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"e2e slab {name} ({len(slab)} points, carve {do_carve}): card "
+            f"vs CPU float32 occupancy max |diff| {err:.3e}; flip rule "
+            f"{json.dumps(counts)}; occupied {int((host[0] > 127).sum())}, "
+            f"carved {int(host[1].sum())}; card {ms:.3f} ms a call, "
+            f"{queued:.3f} ms queued ({len(slab) / queued * 1e3:.6g} "
+            f"points/s{field}), bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} "
+            f"GFLOP, {nbytes / 1e6:.1f} MB), {t_first:.3f} s its first "
+            f"call; CPU {t_host:.3f} s")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    occ, seen = meshing._grid_occ_seen(
+        params, cfg, sc, tc, grid_dim=E2E_GRID, scale_np=scale_np,
+        transform_np=eye, world_transform=Tw, carve=carve,
+        is_background=False, voxel_w=voxel_w, chunk=chunk)
+    dt = time.time() - t0
+    log(f"e2e: object {obj_id}'s {E2E_GRID}^3 grid alone (8 slabs, carved, "
+        f"uint8 and mask downloaded): {dt:.3f} s, {occ.size / dt:.6g} "
+        f"points/s")
+
+
+def _affine(R, t):
+    import numpy as np
+
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = np.asarray(R, np.float32)
+    T[:3, 3] = np.asarray(t, np.float32)
+    return T
+
+
+def e2e_phase() -> None:
+    """Phase 10: the geometry library's build, then the quality gate's
+    training, meshing and scoring, checkpoints and slabs on the card."""
+    from catnerf_torch.experimental import e2e_quality as e2e
+    from catnerf_torch.native import lib as native
+
+    t0 = time.time()
+    native._load()
+    log(f"e2e: geometry library {native.library_path().name} "
+        + (f"built with g++ in {native.BUILD_SECONDS:.1f} s"
+           if native.BUILD_SECONDS is not None else "found already built")
+        + f" ({time.time() - t0:.1f} s with the load)")
+    t0 = time.time()
+    scene, sess = e2e.make_session(grid_dim=E2E_GRID)
+    log(f"e2e: session on {sess.device} in {time.time() - t0:.2f} s, "
+        f"{len(sess.cls_ids)} categories, {sess.n_per_cls} rays per "
+        f"category, {sess.cfg.n_per_optim_bg} background rays")
+    e2e_train((scene, sess))
+    e2e_mesh_and_score(scene, sess)
+    e2e_roundtrip(sess)
+    e2e_slabs(sess)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1299,6 +1669,9 @@ def main() -> int:
             f"{phases[k]['graph']:.2f} steps/s (main path {r:.2f}), busy "
             f"eager {busy(phases[k]['eager_busy'])}, graph {busy(b)}"
             for k, (r, b) in rates.items()))
+    t0 = time.time()
+    e2e_phase()
+    log(f"e2e: phase 10 in {time.time() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if not r["launches"] > 0:

@@ -4,7 +4,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -61,3 +63,105 @@ def test_fast_path_logs_each_chunk_and_the_rest(capsys):
                  "--device", "cpu"]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [r["iteration"] for r in rows] == [2, 3]
+
+
+def _spy_sessions(monkeypatch):
+    sessions = []
+    session = cli.TrainingSession
+
+    def spy(cfg, *args, **kw):
+        sessions.append(session(cfg, *args, **kw))
+        return sessions[-1]
+
+    monkeypatch.setattr(cli, "TrainingSession", spy)
+    return sessions
+
+
+def _params(sess) -> dict:
+    return {k: v.detach().clone() for k, v in
+            sess.state.params.state_dict().items()}
+
+
+def test_save_mesh_then_resume_mesh_only_meshes_the_saved_weights(
+        tmp_path, capsys, monkeypatch):
+    """Checkpoints every --save-iter steps and meshes every --mesh-it
+    steps; --resume --mesh-only restores the latest checkpoint before it
+    meshes (the JAX package's tests/test_cli_and_ckpt.py:237 regression),
+    so it writes the training run's meshes again, byte for byte."""
+    sessions = _spy_sessions(monkeypatch)
+    logdir = tmp_path / "logs"
+    assert main(["--synthetic", "--logdir", str(logdir), "--max-iter", "4",
+                 "--log-iter", "2", "--save-iter", "2", "--mesh-it", "4",
+                 "--grid-dim", "32", "--device", "cpu"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["iteration"] for r in rows] == [2, 4]
+    assert sorted(os.listdir(logdir / "ckpt")) == ["2", "4"]
+    assert sessions[0].cfg.live_voxel_size == 8.0 / 32
+    mesh_dir = logdir / "scene_mesh"
+    trained = {f: (mesh_dir / f).read_bytes() for f in os.listdir(mesh_dir)}
+    assert len(trained) == 7  # 6 spheres and the background
+    assert all(f.startswith("iteration_4_obj") for f in trained)
+    for f in trained:
+        (mesh_dir / f).unlink()
+
+    assert main(["--synthetic", "--logdir", str(logdir), "--resume",
+                 "--mesh-only", "--grid-dim", "32", "--device", "cpu"]) == 0
+    err = capsys.readouterr().err
+    assert f"resumed from {logdir / 'ckpt' / '4'} at iteration 4" in err
+    trained_sess, restored = sessions
+    assert restored.iteration == 4 and restored._superstep is None
+    want = _params(trained_sess)
+    got = _params(restored)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    again = {f: (mesh_dir / f).read_bytes() for f in os.listdir(mesh_dir)}
+    assert again == trained
+
+
+def test_import_reference_ckpt_then_mesh_only(tmp_path, capsys,
+                                              monkeypatch):
+    """--import-reference-ckpt DIR of a directory the JAX package exported
+    (from its own session on the CLI's scene), then --mesh-only: the
+    imported weights are the JAX session's, bitwise, and the meshes are
+    named by the files' global_step."""
+    import jax
+
+    from catnerf_torch import convert
+    from catnerf_tpu.config import Config as JConfig
+    from catnerf_tpu.data.synthetic import make_scene as jmake_scene
+    from catnerf_tpu.train import checkpoint as jckpt
+    from catnerf_tpu.train.loop import TrainingSession as JSession
+
+    jcfg = JConfig()
+    jcfg.net_hyperparams.latent_dim = 32
+    scene = jmake_scene(n_frames=8, width=160, height=120, n_categories=3,
+                        insts_per_cat=2, seed=jcfg.seed)
+    jsess = JSession(jcfg, scene.inst_dict, scene.sample_dict,
+                     cam=scene.cam)
+    ref_dir = tmp_path / "reference"
+    jckpt.export_reference_checkpoints(jsess, str(ref_dir), 1234)
+
+    sessions = _spy_sessions(monkeypatch)
+    logdir = tmp_path / "logs"
+    assert main(["--synthetic", "--logdir", str(logdir),
+                 "--import-reference-ckpt", str(ref_dir), "--mesh-only",
+                 "--grid-dim", "32", "--device", "cpu"]) == 0
+    assert "global_step=1234" in capsys.readouterr().err
+    (sess,) = sessions
+    got = convert.params_to_numpy(sess.state.params)
+    want = jax.tree_util.tree_map(np.asarray, jax.device_get(
+        jsess.state.params))
+    for k in ("cat_pe", "cat_fc", "bg_pe", "bg_fc"):
+        jax.tree_util.tree_map(np.testing.assert_array_equal, got[k],
+                               want[k])
+    names = sorted(os.listdir(logdir / "scene_mesh"))
+    assert len(names) == 7
+    assert all(n.startswith("iteration_1234_obj") for n in names)
+    assert not (logdir / "ckpt").exists()
+
+
+@pytest.mark.parametrize("flag", ["--save-iter", "--mesh-it", "--log-iter"])
+def test_a_cadence_below_one_is_a_usage_error(capsys, flag):
+    with pytest.raises(SystemExit) as e:
+        main(["--synthetic", flag, "0", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "must be >= 1" in capsys.readouterr().err

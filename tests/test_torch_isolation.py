@@ -57,11 +57,17 @@ def test_importing_every_module_loads_no_jax():
 @pytest.mark.parametrize("module", [
     "catnerf_torch.kernels.fused_field", "catnerf_torch.models.embedding",
     "catnerf_torch.models.codenerf", "catnerf_torch.models.occupancy",
-    "catnerf_torch.experimental.kernel_compare"])
+    "catnerf_torch.experimental.kernel_compare",
+    "catnerf_torch.native.lib", "catnerf_torch.mesher.mesh",
+    "catnerf_torch.mesher.meshing", "catnerf_torch.metrics.metrics3d",
+    "catnerf_torch.metrics.synthetic_eval",
+    "catnerf_torch.train.checkpoint",
+    "catnerf_torch.experimental.e2e_quality"])
 def test_packed_and_xla_path_modules_load_no_jax(module):
-    """Each module of the packed kernels, the XLA-path fields and the
-    kernel comparison, imported alone in a fresh interpreter, loads
-    neither jax nor the JAX package."""
+    """Each module of the packed kernels, the XLA-path fields, the kernel
+    comparison, the geometry library, the mesher, the metrics, the
+    checkpoints and the quality gate, imported alone in a fresh
+    interpreter, loads neither jax nor the JAX package."""
     code = (f"import json, sys\nimport {module}\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -73,11 +79,31 @@ def test_packed_and_xla_path_modules_load_no_jax(module):
     assert [m for m in loaded if _forbidden(m)] == []
 
 
+def test_importing_the_mesher_loads_no_native_library():
+    """The geometry library is built and loaded at its first use, never
+    at import (the GPU machine builds it there, from the sources)."""
+    code = ("import catnerf_torch.experimental.e2e_quality, "
+            "catnerf_torch.train.__main__\n"
+            "from catnerf_torch.native import lib\n"
+            "print(lib._lib is None, lib.BUILD_SECONDS is None)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    assert out.stdout.split() == ["True", "True"]
+
+
 def test_source_walk_covers_the_new_modules():
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     assert {"catnerf_torch/experimental/kernel_compare.py",
             "catnerf_torch/models/embedding.py",
-            "catnerf_torch/kernels/fused_field.py"} <= names
+            "catnerf_torch/kernels/fused_field.py",
+            "catnerf_torch/native/lib.py",
+            "catnerf_torch/mesher/mesh.py",
+            "catnerf_torch/mesher/meshing.py",
+            "catnerf_torch/metrics/metrics3d.py",
+            "catnerf_torch/metrics/synthetic_eval.py",
+            "catnerf_torch/train/checkpoint.py",
+            "catnerf_torch/experimental/e2e_quality.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(),
