@@ -2,21 +2,30 @@
 object, and score the meshes against the analytic ground truth.
 
 The port of the JAX package's `scripts/e2e_quality.py` in its default
-mode: ground-truth object poses, sphere shapes, the fast path. The scene
-is 3 categories x 2 spheres in 24 frames of 160x120 (`make_scene`, seeded
-by --seed); the trainer is `Config()` with latent_dim 32 (the reference's
-default: bf16 activation storage on the XLA path), `run_fast` in runs of
-100 steps (on a CUDA session each step a replayed CUDA graph); meshes come
-from `mesh_scene` at most `--grid-dim` voxels a side, and each sphere is
-scored by `score_shape` under the reference's protocol (accuracy on the
-mesh cropped to the GT box, completion, completion ratio under 5 cm; ref:
-metric/eval_3D_obj.py:15-34). Prints one JSON line; exits 1 when an
-object was not meshed or a mean is outside the gate's band (accuracy and
+mode (ground-truth object poses, sphere shapes, the fast path) and in its
+registered Replica mode (`--registered`, ref: scripts/e2e_quality.py:
+178-247 without --fit-holdout): the scene is written in the Replica
+layout (`data/replica.write_replica_layout`) and loaded through the real
+pipeline, `Replica(cfg)` with `load_pretrained = False` — point-cloud
+accumulation, self-pretrained uncertainty fields on the device,
+TEASER-style multi-init alignment, subcategorization — so training uses
+ESTIMATED object poses; mesh errors then include any pose misalignment.
+The scene is 3 categories x 2 spheres in 24 frames of 160x120
+(`make_scene`, seeded by --seed); the trainer is `Config()` with
+latent_dim 32 (the reference's default: bf16 activation storage on the XLA
+path), `run_fast` in runs of 100 steps (on a CUDA session each step a
+replayed CUDA graph); meshes come from `mesh_scene` at most `--grid-dim`
+voxels a side, and each sphere is scored by `score_shape` under the
+reference's protocol (accuracy on the mesh cropped to the GT box,
+completion, completion ratio under 5 cm; ref:
+metric/eval_3D_obj.py:15-34). Prints one JSON line; exits 1 when an object
+was not meshed or a mean is outside the gate's band (accuracy and
 completion under 5 cm, completion ratio over 80%).
 
     python -m catnerf_torch.experimental.e2e_quality            # the card
     python -m catnerf_torch.experimental.e2e_quality --device cpu \\
         --iters 100 --grid-dim 32
+    python -m catnerf_torch.experimental.e2e_quality --registered
 
 Also the flip rule that holds a uint8 occupancy grid evaluated on two
 devices (or by two packages) against each other (`count_flips`,
@@ -28,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 import tempfile
 import time
@@ -36,12 +46,14 @@ import numpy as np
 import torch
 
 from catnerf_torch.config import Config
+from catnerf_torch.data.replica import Replica, write_replica_layout
 from catnerf_torch.data.synthetic import make_scene
 from catnerf_torch.mesher.mesh import load_mesh
 from catnerf_torch.mesher.meshing import (mesh_scene, mesh_timings,
                                           reset_mesh_timings)
 from catnerf_torch.metrics.synthetic_eval import score_shape
 from catnerf_torch.train.loop import TrainingSession
+from catnerf_torch.utils import phase_reset, phase_timings
 
 SCENE = dict(n_frames=24, width=160, height=120, n_categories=3,
              insts_per_cat=2)
@@ -68,6 +80,72 @@ def make_session(seed: int = 0, grid_dim: int = 128, device=None):
     sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
                            cam=scene.cam, device=device)
     return scene, sess
+
+
+def make_registered_session(seed: int = 0, grid_dim: int = 128,
+                            device=None, cfg=None):
+    """(scene, session, loader, seconds) of the gate's registered Replica
+    mode (ref: scripts/e2e_quality.py:178-247): the scene written in the
+    Replica layout under a new temporary directory, loaded and registered by `Replica(cfg)` with self-pretrained
+    fields (load_pretrained = False), and a session on the registered
+    poses. cfg: the gate's `Config()` with latent_dim 32 by default.
+    seconds: of writing the layout (`layout`), of the loader in all
+    (`loader`), and of its stages (`frames`, `stage1`, `pretrain`,
+    `uncertainty`, `align`)."""
+    if cfg is None:
+        cfg = Config()
+        cfg.net_hyperparams.latent_dim = 32
+    cfg.grid_dim = grid_dim  # live_voxel_size stays 5 mm; the cap rules
+    scene = make_scene(**SCENE, seed=seed)
+    cfg.dataset_dir = tempfile.mkdtemp(prefix="e2e_registered_replica_")
+    cfg.width, cfg.height = SCENE["width"], SCENE["height"]
+    cfg.fx = cfg.fy = scene.cam.fx
+    cfg.cx, cfg.cy = scene.cam.cx, scene.cam.cy
+    cfg.load_pretrained = False   # self-pretrained uncertainty fields
+    t0 = time.time()
+    write_replica_layout(scene, cfg.dataset_dir, cfg.depth_scale)
+    t1 = time.time()
+    phase_reset("registration")
+    data = Replica(cfg, device=device)
+    seconds = {"layout": t1 - t0, "loader": time.time() - t1,
+               **phase_timings("registration")}
+    sess = TrainingSession(cfg, data.inst_dict, data.sample_dict,
+                           device=device)
+    return scene, sess, data, seconds
+
+
+def registration_report(scene, data) -> dict:
+    """Per instance: its category after registration (cls + 100 when
+    subcategorized), whether it was its category's template (the argmax
+    of the template scores), and its registered T_obj against the
+    ground-truth pose: translation error (cm), rotation angle between the
+    two frames (degrees; a sphere's is not determined), scale ratio."""
+    templates = {}
+    for cls_id, counts in (data.template_counts or {}).items():
+        if counts:
+            templates[cls_id] = max(counts, key=counts.get)
+    where = {o: c for c, objs in data.inst_dict.items() if c != 0
+             for o in objs}
+    out = {}
+    for s in scene.spheres:
+        cls_id = where.get(s.inst_id)
+        T = np.asarray(data.inst_dict[cls_id][s.inst_id]["T_obj"],
+                       np.float64)
+        T_gt = s.gt_T_obj()
+        sc = abs(np.linalg.det(T[:3, :3])) ** (1.0 / 3.0)
+        sc_gt = abs(np.linalg.det(T_gt[:3, :3])) ** (1.0 / 3.0)
+        dR = (T[:3, :3] / sc) @ (T_gt[:3, :3] / sc_gt).T
+        angle = math.degrees(math.acos(float(np.clip(
+            (np.trace(dR) - 1.0) / 2.0, -1.0, 1.0))))
+        out[s.inst_id] = {
+            "cls": cls_id, "template": templates.get(s.cls_id) == s.inst_id,
+            "count": (data.template_counts or {}).get(s.cls_id, {}).get(
+                s.inst_id),
+            "t_err_cm": round(100.0 * float(np.linalg.norm(
+                T[:3, 3] - T_gt[:3, 3])), 3),
+            "rot_deg": round(angle, 2),
+            "scale_ratio": round(sc / sc_gt, 4)}
+    return out
 
 
 def fit_loss(sess, m) -> float:
@@ -149,15 +227,27 @@ def passes(result: dict) -> bool:
 
 
 def run(iters: int = 10000, grid_dim: int = 128, seed: int = 0,
-        device=None, out: str = "", log=None) -> dict:
-    scene, sess = make_session(seed, grid_dim, device)
+        device=None, out: str = "", log=None,
+        registered: bool = False) -> dict:
+    """The gate: ground-truth poses, or with `registered` the registered
+    Replica mode (`make_registered_session`)."""
+    extra = {}
+    if registered:
+        scene, sess, data, seconds = make_registered_session(
+            seed, grid_dim, device)
+        extra = {"registration": registration_report(scene, data),
+                 "registration_s": {k: round(v, 3)
+                                    for k, v in seconds.items()}}
+    else:
+        scene, sess = make_session(seed, grid_dim, device)
     if iters >= CHUNK_STEPS:  # whole runs, as the JAX package's gate
         iters = iters // CHUNK_STEPS * CHUNK_STEPS
     tr = train(sess, iters, log)
     scored = mesh_and_score(sess, scene, iters,
                             out or tempfile.mkdtemp(prefix="e2e_quality_"))
     return {
-        "metric": "e2e_synthetic_quality",
+        "metric": ("e2e_synthetic_quality_registered" if registered
+                   else "e2e_synthetic_quality"),
         "iters": iters,
         "final_psnr": tr["psnr_hist"][-1],
         **{k: scored[k] for k in (
@@ -173,6 +263,7 @@ def run(iters: int = 10000, grid_dim: int = 128, seed: int = 0,
         "mesh_phase_s": scored["mesh_phase_s"],
         "score_s": round(scored["score_s"], 3),
         "mesh_dir": scored["mesh_dir"],
+        **extra,
     }
 
 
@@ -263,9 +354,13 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--registered", action="store_true",
+                    help="the registered Replica mode: estimated poses "
+                    "instead of the ground truth")
     args = ap.parse_args(argv)
     result = run(args.iters, args.grid_dim, args.seed, args.device, args.out,
-                 log=lambda s: print(s, file=sys.stderr))
+                 log=lambda s: print(s, file=sys.stderr),
+                 registered=args.registered)
     print(json.dumps(result))
     return 0 if passes(result) else 1
 

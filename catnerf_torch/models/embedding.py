@@ -134,10 +134,16 @@ def sinpi(x: torch.Tensor) -> torch.Tensor:
     return _SinPi.apply(x)
 
 
-def apply(pe: UniDirsEmbed, x: torch.Tensor, *, scale: float,
-          max_deg: int = DEFAULT_MAX_DEG, act_dtype=None) -> torch.Tensor:
+def apply(pe: UniDirsEmbed, x: torch.Tensor, *,
+          scale: float | torch.Tensor, max_deg: int = DEFAULT_MAX_DEG,
+          act_dtype=None) -> torch.Tensor:
     """x [*lead, ..., 3] -> [*lead, ..., 3 + (max_deg+1)*21] (ref:
     embedding.py:125-153), `lead` the basis' stacked dims.
+
+    scale: one float for every stacked model, or a tensor of shape `lead`,
+    one scale each (the per-object scales of the registration's field
+    pretraining, traced under the JAX package's vmap). A tensor divides on
+    the device in every case; a float as x / float, as it always has.
 
     Frequency-major flattening ([f0 d0..d20, f1 d0..d20, ...]), so the 87/42
     split picks the low and high bands. The projection is a full float32
@@ -146,6 +152,8 @@ def apply(pe: UniDirsEmbed, x: torch.Tensor, *, scale: float,
     act_dtype: the storage dtype of the result (bf16 with
     `Config.bf16_activations`); the encoding is computed in float32 either
     way and cast once at the end (ref: embedding.py:153)."""
+    if isinstance(scale, torch.Tensor):
+        scale = scale.reshape(*scale.shape, *[1] * (x.dim() - scale.dim()))
     t = x / scale
     proj = lead_matmul(t, pe.B.transpose(-1, -2))  # [..., 21]
     bands = frequency_bands(0, max_deg, proj.device)

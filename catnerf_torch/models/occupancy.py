@@ -23,18 +23,23 @@ class OccupancyMap(nn.Module):
     @classmethod
     def init(cls, gen, *, emb_size1: int = EMB_SIZE1,
              emb_size2: int = EMB_SIZE2, hidden_size: int = 128,
-             hidden_layers_block: int = 1) -> "OccupancyMap":
+             hidden_layers_block: int = 1,
+             lead: tuple[int, ...] = ()) -> "OccupancyMap":
+        """lead: stacked models ((n_obj,) for the registration's
+        per-object fields), each layer [*lead, in, out]."""
         h = hidden_size
+
+        def lin(i, o):
+            return Linear.init(gen, i, o, lead)
+
         return cls({
-            "in_layer": Linear.init(gen, emb_size1, h),
-            "mid1": [Linear.init(gen, h, h)
-                     for _ in range(hidden_layers_block)],
-            "cat_layer": Linear.init(gen, h + emb_size1, h),
-            "mid2": [Linear.init(gen, h, h)
-                     for _ in range(hidden_layers_block)],
-            "out_alpha": Linear.init(gen, h, 1),
-            "color_linear": Linear.init(gen, emb_size2 + h, h),
-            "out_color": Linear.init(gen, h, 3),
+            "in_layer": lin(emb_size1, h),
+            "mid1": [lin(h, h) for _ in range(hidden_layers_block)],
+            "cat_layer": lin(h + emb_size1, h),
+            "mid2": [lin(h, h) for _ in range(hidden_layers_block)],
+            "out_alpha": lin(h, 1),
+            "color_linear": lin(emb_size2 + h, h),
+            "out_color": lin(h, 3),
         })
 
 

@@ -1,10 +1,13 @@
 """ctypes bindings for the C++ geometry library (marching cubes, the
-KD-tree, point-cloud operations, registration solvers, TSDF fusion).
+KD-tree, point-cloud operations, registration solvers, TSDF fusion) and
+the PNG reader's row unfiltering.
 
-The sources under `src/` are byte-for-byte copies of the JAX package's
-`native/src/`, and the bindings below are its `native/lib.py`'s. The
-library is built at first use, never at import: `g++` (or `$CXX`) with
-the JAX package's Makefile flags compiles the three sources into one
+The geometry sources under `src/` are byte-for-byte copies of the JAX
+package's `native/src/`, and their bindings below are its
+`native/lib.py`'s; `src/png.cpp` is the port's own (the JAX package reads
+PNGs with OpenCV). The library is built at first use, never at import:
+`g++` (or `$CXX`) with the JAX package's Makefile flags compiles the four
+sources into one
 shared library under `build/catnerf_torch/native/` of the checkout, named
 by the hash of the sources and the flags, so an edit rebuilds and a
 library built on another machine is never loaded. A cross-process `flock`
@@ -25,7 +28,7 @@ from pathlib import Path
 import numpy as np
 
 SRC_DIR = Path(__file__).resolve().parent / "src"
-SOURCES = ("geomlib.cpp", "registration.cpp", "tsdf.cpp")
+SOURCES = ("geomlib.cpp", "registration.cpp", "tsdf.cpp", "png.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "catnerf_torch" \
     / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
@@ -178,6 +181,10 @@ def _load() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.POINTER(c_fp), ctypes.POINTER(c_fp)]
         lib.tsdf_extract_points.restype = ctypes.c_int64
 
+        lib.png_unfilter.argtypes = [c_u8p, ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int, c_u8p]
+        lib.png_unfilter.restype = ctypes.c_int64
+
         _lib = lib
         return lib
 
@@ -217,6 +224,26 @@ class geomlib:
             nx, ny, nz, min_blocked,
             cavity.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
         return cavity.astype(bool)
+
+    # -------------------------------------------------- PNG rows
+    @staticmethod
+    def png_unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+        """(H, 1 + row_bytes) uint8 rows of a PNG's inflated image data,
+        each led by its filter type -> (H, row_bytes) uint8 with the
+        filters undone. Raises ValueError on a filter type above 4."""
+        r = np.ascontiguousarray(rows, dtype=np.uint8)
+        if r.ndim != 2 or r.shape[1] < 2 or bpp < 1:
+            raise ValueError(f"PNG rows of shape {r.shape} with {bpp} bytes "
+                             f"a pixel")
+        lib = _load()
+        out = np.empty((r.shape[0], r.shape[1] - 1), np.uint8)
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+        bad = lib.png_unfilter(r.ctypes.data_as(u8), r.shape[0],
+                               r.shape[1] - 1, bpp, out.ctypes.data_as(u8))
+        if bad >= 0:
+            raise ValueError(f"unknown row filter {int(r[bad, 0])} in row "
+                             f"{bad}")
+        return out
 
     # -------------------------------------------------- marching cubes
     @staticmethod

@@ -1,6 +1,6 @@
 """sim(3) pose conversion (numpy), the part of the JAX package's
-`ops/sim3.py` that the scene build, the checkpoints and the mesher need
-(ref: src/utils.py:368-491)."""
+`ops/sim3.py` that the scene build, the checkpoints, the mesher and the
+registration need (ref: src/utils.py:361-491)."""
 
 from __future__ import annotations
 
@@ -81,3 +81,8 @@ def tensor_to_se3_np(t: np.ndarray) -> np.ndarray:
     T[:3, :3] = quat_to_rotation_np(q)
     T[:3, 3] = trans
     return T.astype(np.float32)
+
+
+def transform_pointcloud_np(points: np.ndarray, T: np.ndarray) -> np.ndarray:
+    """Apply homogeneous transform to (N, 3) points (ref: src/utils.py:361-366)."""
+    return points @ T[:3, :3].T + T[:3, 3]

@@ -26,6 +26,12 @@ def phase_timings(group: str) -> dict[str, float]:
         return dict(sorted(_PHASE_TIMINGS.get(group, {}).items()))
 
 
+def phase_reset(group: str) -> None:
+    """Forget the seconds recorded so far in `group`."""
+    with _PHASE_LOCK:
+        _PHASE_TIMINGS.pop(group, None)
+
+
 @contextlib.contextmanager
 def phase_timer(group: str, phase: str):
     t0 = time.time()

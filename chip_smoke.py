@@ -104,7 +104,32 @@ Phases, each printing one or more lines:
    its bound, and one object's whole grid alone (points/s); the meshes
    go to `build/e2e_mesh/`.
 
-Each main path (5, 7, 8, 9, 10) is driven with the launch counts set to 0 just
+11. the registered Replica gate (`e2e_quality.make_registered_session`,
+   the JAX package's `scripts/e2e_quality.py --registered`): the gate's
+   scene written in the Replica layout (`data/png.py`), loaded and
+   registered by `Replica(cfg)` with self-pretrained fields (`Config()`,
+   latent 32, 1,000 pretraining steps of 600 rays, uncut), the seconds of
+   each stage (writing the layout, reading the frames, stage 1, the
+   pretraining and its steps/s, the uncertainty scoring, the alignment),
+   each instance's template flag and registered pose against the ground
+   truth; then E2E_ITERS steps of the default trainer, the mesher at
+   grid 128 and the metrics, held to phase 10's pass rule, beside the
+   JAX package's registered record; then one pretraining on the card
+   against the CPU, step by step (PRETRAIN_CHECK_STEPS steps from the
+   card's state and draws, held by experimental/registration_check.py:
+   each step's colour and opacity terms within TERM_TOL, every leaf within
+   LEAF_TOL of its largest entry, the incoming weights of units with a
+   ReLU tie within TIED_LEAF_TOL), and each trained field's uncertainty
+   count, card against CPU on the same uniforms, under the flip rule;
+12. the CLI on a dataset config: a layout of CLI_SCENE (4 frames of
+   600 x 340, half a side of room0's 1,200 x 680), room0's
+   config pointed at it (its camera, self-pretrained registration), and
+   `python -m catnerf_torch.train --config` as a subprocess: CLI_ITERS
+   steps logged every CLI_LOG, a checkpoint at the end, then `--resume
+   --mesh-only` at grid CLI_GRID; the stage seconds it reports, the
+   metrics file, the checkpoint and one mesh per object.
+
+Each main path (5, 7, 8, 9, 10, 11) is driven with the launch counts set to 0 just
 before it and read just after. Then a `{"kernels": [...]}` line, the card line
 again, and as the last line `{"ok": true, "device": {...}}`. Exits
 non-zero, with no result, when there is no CUDA device, when the port
@@ -184,6 +209,20 @@ E2E_RATIO_BOUND = 99.0
 JAX_RECORD = ("the JAX package's record on a TPU v5e (BASELINE.md:50): "
               "0.930 cm accuracy, 0.918 cm completion, 100% completion "
               "ratio")
+# phase 11, the registered Replica gate: its record in the JAX package
+# (BASELINE.md:64, 162); its device stages are held card against CPU with
+# experimental/registration_check.py's bounds
+JAX_REGISTERED_RECORD = ("the JAX package's registered gate on a TPU v5e "
+                         "(BASELINE.md:64, 162): 0.92-0.94 cm accuracy, "
+                         "100% completion ratio")
+PRETRAIN_CHECK_STEPS = 100
+# phase 12, the CLI on a Replica layout: room0's 1,200 x 680 cut to half
+# a side (the JAX package's host stages took 141 s on 8 such frames on a
+# CPU, over the 60 s allowed), and to 4 frames (the host alignment of 8
+# took 135-153 s of the smoke's time on the H100's host)
+CLI_SCENE = dict(n_frames=4, width=600, height=340, n_categories=3,
+                 insts_per_cat=2, seed=1)
+CLI_ITERS, CLI_LOG, CLI_GRID = 200, 100, 128
 # torch.cuda.set_sync_debug_mode while run_fast runs: the steps must not
 # wait on the device, so that the host queues ahead of it
 SYNC_DEBUG = "error"
@@ -1308,8 +1347,10 @@ def e2e_train(scene_sess) -> dict:
     return tr
 
 
-def e2e_mesh_and_score(scene, sess) -> dict:
-    """Phase 10's meshing and scoring, with the gate's band."""
+def e2e_mesh_and_score(scene, sess, out_name: str = "e2e_mesh",
+                       record: str = JAX_RECORD) -> dict:
+    """Phase 10's (and 11's) meshing and scoring, with the gate's band;
+    the meshes go to build/<out_name>."""
     from catnerf_torch.experimental import e2e_quality as e2e
     from catnerf_torch.mesher import meshing
 
@@ -1325,7 +1366,7 @@ def e2e_mesh_and_score(scene, sess) -> dict:
         # under the ignored build/, not chiprun_out/: 128^3 meshes are
         # tens of MB
         res = e2e.mesh_and_score(sess, scene, sess.iteration,
-                                 os.path.join(ROOT, "build", "e2e_mesh"))
+                                 os.path.join(ROOT, "build", out_name))
     finally:
         meshing._grid_occ_seen = grid_occ_seen
     phases = res["mesh_phase_s"]
@@ -1334,7 +1375,7 @@ def e2e_mesh_and_score(scene, sess) -> dict:
     log(f"e2e: mean accuracy {res['mean_accuracy_cm']} cm, completion "
         f"{res['mean_completion_cm']} cm, completion ratio "
         f"{res['mean_completion_ratio_pct']} % over {res['n_meshed']} of "
-        f"{res['n_objects']} objects ({JAX_RECORD})")
+        f"{res['n_objects']} objects ({record})")
     grid_s = phases.get("grid_eval", 0.0)
     log(f"e2e: meshing {res['mesh_s']:.2f} s, by phase (s, summed over the "
         f"two objects in flight) {json.dumps(phases)}; scoring "
@@ -1594,6 +1635,177 @@ def e2e_phase() -> None:
     e2e_slabs(sess)
 
 
+def registered_phase() -> None:
+    """Phase 11: the registered Replica gate, then its device stages on
+    the card against the CPU."""
+    from catnerf_torch.experimental import e2e_quality as e2e
+
+    t0 = time.time()
+    scene, sess, data, sec = e2e.make_registered_session(grid_dim=E2E_GRID)
+    cfg = sess.cfg
+    n_steps = -(-cfg.pretrain_steps // 100) * 100
+    log(f"registered: layout written in {sec['layout']:.2f} s; Replica "
+        f"loader {sec['loader']:.2f} s: frames {sec['frames']:.2f}, stage 1 "
+        f"{sec['stage1']:.2f}, pretraining {sec['pretrain']:.2f} s "
+        f"({n_steps} steps of {cfg.pretrain_rays} rays x "
+        f"{len(scene.spheres)} objects, {n_steps / sec['pretrain']:.1f} "
+        f"steps/s, ray build included), uncertainty scoring "
+        f"{sec['uncertainty']:.2f}, alignment {sec['align']:.2f}; session "
+        f"{time.time() - t0 - sec['layout'] - sec['loader']:.2f} s")
+    for obj_id, r in sorted(e2e.registration_report(scene, data).items()):
+        log(f"registered: object {obj_id}: {json.dumps(r)}")
+    e2e_train((scene, sess))
+    res = e2e_mesh_and_score(scene, sess, "e2e_registered_mesh",
+                             JAX_REGISTERED_RECORD)
+    log(f"registered: quality {res['mean_accuracy_cm']} cm accuracy, "
+        f"{res['mean_completion_cm']} cm completion, "
+        f"{res['mean_completion_ratio_pct']} % ({JAX_REGISTERED_RECORD})")
+    objects = _clouds(data)
+    fields = pretrain_card_vs_cpu(data, objects)
+    uncertainty_card_vs_cpu(objects, fields)
+
+
+def _clouds(data) -> list:
+    """(obj_id, frame_info, cloud) of each instance of a registered
+    loader (whose cache keeps no clouds): stage 1 again, on the host."""
+    from catnerf_torch.geometry.registration import get_all_poses
+
+    inst = {c: ({"frame_info": v["frame_info"]} if c == 0 else
+                {o: {"frame_info": i["frame_info"]} for o, i in v.items()})
+            for c, v in data.inst_dict.items()}
+    get_all_poses(inst, data.sample_dict, data.cam)
+    return [(o, info["frame_info"], info["pcs"])
+            for c, objs in sorted(inst.items()) if c
+            for o, info in sorted(objs.items())]
+
+
+def pretrain_card_vs_cpu(data, objects) -> list:
+    """PRETRAIN_CHECK_STEPS steps of the gate's pretraining on the card,
+    each repeated on the CPU from the card's state before it
+    (experimental/registration_check.py). Returns the card's fields."""
+    from catnerf_torch.experimental import registration_check as rc
+    from catnerf_torch.geometry.field_pretrain import ObjectFieldTrainer
+
+    cfg = data.cfg
+    card, cpu = (ObjectFieldTrainer(objects, data.sample_dict, data.cam,
+                                    cfg, n_rays=cfg.pretrain_rays,
+                                    device=dev)
+                 for dev in ("cuda", "cpu"))
+    check = rc.pretrain_card_vs_cpu(card, cpu, PRETRAIN_CHECK_STEPS)
+    captured = card.captured["injected"]
+    if captured.graph is None:
+        raise AssertionError("registered: the pretraining step was never "
+                             "captured")
+    log(f"registered: the pretraining step as a CUDA graph: "
+        f"{captured.node_count()} nodes, captured in "
+        f"{captured.capture_s:.3f} s, pool "
+        f"{captured.pool_bytes / 2**20:.1f} MB")
+    log(f"registered: pretraining card vs CPU, {check.line()}; card "
+        f"{check.steps / check.card_s:.1f} steps/s with the per-step sync "
+        f"(3 eager warm-up steps, then the captured step)")
+    if check.failures():
+        raise AssertionError("registered: the pretraining on the card "
+                             "left the CPU's bounds: "
+                             + "; ".join(check.failures()))
+    return card.fields()
+
+
+def uncertainty_card_vs_cpu(objects, fields) -> None:
+    """Each field's uncertainty score on the card and on the CPU on the
+    same uniforms, under the flip rule
+    (experimental/registration_check.py)."""
+    from catnerf_torch.experimental import registration_check as rc
+
+    rows, bad = [], []
+    for (obj_id, _, pcs), field in zip(objects, fields):
+        r = rc.uncertainty_card_vs_cpu(field, pcs, obj_id, "cuda")
+        rows.append(f"{obj_id}: {r['card']} vs {r['cpu']} ({r['flips']} "
+                    f"flips, {r['far_flips']} of them {rc.METRIC_FLIP} or "
+                    f"more from 0.5, entropy {r['entropy']:.2g}, "
+                    f"{r['card_s']:.3f} s on the card)")
+        if not r["ok"]:
+            bad.append(obj_id)
+    log(f"registered: uncertainty counts card vs CPU on the card's uniforms: "
+        + "; ".join(rows))
+    if bad:
+        raise AssertionError(f"registered: the uncertainty of objects {bad} "
+                             f"breaks the flip rule")
+
+
+def cli_phase() -> None:
+    """Phase 12: `python -m catnerf_torch.train --config` with room0's
+    config on a Replica layout of CLI_SCENE, then --resume --mesh-only."""
+    import tempfile
+
+    from catnerf_torch.data.synthetic import make_scene
+
+    t0 = time.time()
+    scene = make_scene(**CLI_SCENE)
+    t1 = time.time()
+    with tempfile.TemporaryDirectory(prefix="cli_replica_") as root:
+        cli_run(scene, root, t1 - t0)
+
+
+def cli_run(scene, root: str, scene_s: float) -> None:
+    from catnerf_torch.data.replica import write_replica_layout
+
+    t1 = time.time()
+    data_dir = os.path.join(root, "room")
+    write_replica_layout(scene, data_dir, 1.0 / 1000.0)
+    log(f"cli: scene of {CLI_SCENE['n_frames']} frames of "
+        f"{CLI_SCENE['width']}x{CLI_SCENE['height']} made in {scene_s:.1f} "
+        f"s, its Replica layout written in {time.time() - t1:.1f} s")
+    with open(os.path.join(ROOT, "configs", "Replica",
+                           "config_replica_room0.json")) as f:
+        raw = json.load(f)
+    raw["dataset"]["path"] = data_dir
+    raw["registration"]["load_pretrained"] = False
+    cam = scene.cam
+    raw["camera"] = {"w": cam.width, "h": cam.height, "fx": cam.fx,
+                     "fy": cam.fy, "cx": cam.cx, "cy": cam.cy, "mw": 0,
+                     "mh": 0}
+    cfg_path = os.path.join(root, "room.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    logdir = os.path.join(root, "logs")
+    base = [sys.executable, "-m", "catnerf_torch.train", "--config",
+            cfg_path, "--logdir", logdir]
+    runs = (("train", ["--max-iter", str(CLI_ITERS), "--log-iter",
+                       str(CLI_LOG), "--save-iter", str(CLI_ITERS)]),
+            ("mesh", ["--resume", "--mesh-only", "--grid-dim",
+                      str(CLI_GRID)]))
+    for what, extra in runs:
+        t0 = time.time()
+        out = subprocess.run(base + extra, cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"cli {what}: exit {out.returncode}\n"
+                                 f"{out.stderr[-4000:]}")
+        for line in out.stderr.splitlines():
+            if line.startswith(("loaded ", "resumed ", "saved ",
+                                "exported ")):
+                log(f"cli {what}: {line}")
+        log(f"cli {what}: {time.time() - t0:.1f} s in all")
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if [r["iteration"] for r in rows] != list(range(CLI_LOG, CLI_ITERS + 1,
+                                                   CLI_LOG)):
+        raise AssertionError(f"cli: metrics rows {rows}")
+    if not all(math.isfinite(r["total"]) for r in rows):
+        raise AssertionError(f"cli: loss not finite: {rows}")
+    if not os.path.exists(os.path.join(logdir, "ckpt", str(CLI_ITERS))):
+        raise AssertionError("cli: no checkpoint")
+    meshes = os.listdir(os.path.join(logdir, "scene_mesh"))
+    missing = [s.inst_id for s in scene.spheres
+               if not any(m.endswith(f"_obj{s.inst_id}.obj")
+                          for m in meshes)]
+    if missing:
+        raise AssertionError(f"cli: no mesh of objects {missing}: {meshes}")
+    log(f"cli: metrics {[round(r['total'], 3) for r in rows]} (total at "
+        f"{[r['iteration'] for r in rows]}), checkpoint {CLI_ITERS}, "
+        f"{len(meshes)} meshes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1672,6 +1884,12 @@ def main() -> int:
     t0 = time.time()
     e2e_phase()
     log(f"e2e: phase 10 in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    registered_phase()
+    log(f"registered: phase 11 in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cli_phase()
+    log(f"cli: phase 12 in {time.time() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if not r["launches"] > 0:

@@ -5,6 +5,7 @@ from __future__ import annotations
 import json
 import math
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,10 +16,12 @@ from catnerf_torch.train.__main__ import main
 
 torch.set_num_threads(1)
 
+ROOT = Path(__file__).resolve().parents[1]
+
 
 @pytest.mark.parametrize("extra", [[], ["--strict-parity"]],
                          ids=["default", "strict_parity"])
-def test_synthetic_run_prints_one_json_line_per_log_step(capsys,
+def test_synthetic_run_prints_one_json_line_per_log_step(capsys, tmp_path,
                                                         monkeypatch, extra):
     """The default trains `Config()` (bf16 storage on the XLA path), as the
     JAX package's `train.py --synthetic`, through the fast path;
@@ -33,7 +36,7 @@ def test_synthetic_run_prints_one_json_line_per_log_step(capsys,
 
     monkeypatch.setattr(cli, "TrainingSession", spy)
     assert main(["--synthetic", "--max-iter", "2", "--log-iter", "1",
-                 "--device", "cpu", *extra]) == 0
+                 "--logdir", str(tmp_path), "--device", "cpu", *extra]) == 0
     (sess,) = sessions
     cfg = sess.cfg
     assert not cfg.use_fused_kernels
@@ -51,18 +54,114 @@ def test_synthetic_run_prints_one_json_line_per_log_step(capsys,
 
 
 def test_without_synthetic_it_exits_with_a_usage_error(capsys):
-    with pytest.raises(SystemExit) as e:
-        main(["--max-iter", "1", "--device", "cpu"])
-    assert e.value.code == 2
-    assert "only --synthetic" in capsys.readouterr().err
+    """Neither --config nor --synthetic (or both) is a usage error."""
+    for argv in (["--max-iter", "1"], ["--synthetic", "--config", "x.json"]):
+        with pytest.raises(SystemExit) as e:
+            main([*argv, "--device", "cpu"])
+        assert e.value.code == 2
+        assert "one of --config or --synthetic" in capsys.readouterr().err
 
 
-def test_fast_path_logs_each_chunk_and_the_rest(capsys):
-    """--log-iter steps a run_fast call, the last call the rest."""
+FIXTURE = dict(n_frames=6, width=96, height=72, n_categories=2,
+               insts_per_cat=2, seed=1)
+
+
+def _replica_config(tmp_path, **registration) -> str:
+    """The Replica fixture of tests/test_replica_fixture.py (written by
+    the port's layout writer) and room0's config pointed at it: its
+    camera, a quick registration (`registration`), latent_dim 32."""
+    from catnerf_torch.data.replica import write_replica_layout
+    from catnerf_torch.data.synthetic import make_scene
+
+    scene = make_scene(**FIXTURE)
+    data = tmp_path / "replica"
+    write_replica_layout(scene, str(data), 1.0 / 1000.0)
+    with open(ROOT / "configs" / "Replica" /
+              "config_replica_room0.json") as f:
+        raw = json.load(f)
+    raw["dataset"]["path"] = str(data)
+    raw["camera"] = {"w": FIXTURE["width"], "h": FIXTURE["height"],
+                     "fx": scene.cam.fx, "fy": scene.cam.fy,
+                     "cx": scene.cam.cx, "cy": scene.cam.cy, "mw": 0,
+                     "mh": 0}
+    raw["model"]["net_hyperparams"]["latent_dim"] = 32
+    raw["registration"].update(registration)
+    path = tmp_path / "room.json"
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return str(path)
+
+
+def test_config_loads_registers_and_trains_a_replica_layout(
+        tmp_path, capsys, monkeypatch):
+    """--config on a Replica layout, on the CPU: the loader reads it,
+    registers its instances with self-pretrained fields (a short
+    pretraining), trains 3 steps, writes the metrics file and copies the
+    config into the logdir; a second run reads the registration cache."""
+    sessions = _spy_sessions(monkeypatch)
+    cfg_path = _replica_config(tmp_path, load_pretrained=False,
+                               pretrain_steps=20, pretrain_rays=64,
+                               multi_init_pose=False)
+    logdir = tmp_path / "logs"
+    assert main(["--config", cfg_path, "--logdir", str(logdir),
+                 "--max-iter", "3", "--log-iter", "3", "--device",
+                 "cpu"]) == 0
+    out = capsys.readouterr()
+    assert "pretrained 4 object fields: 100 steps" in out.out
+    rows = [json.loads(line) for line in out.out.splitlines()
+            if line.startswith("{")]
+    assert [r["iteration"] for r in rows] == [3]
+    logged = [json.loads(line) for line in
+              (logdir / "metrics.jsonl").read_text().splitlines()]
+    assert [r["iteration"] for r in logged] == [3]
+    assert logged[0]["total"] == rows[0]["total"]
+    assert math.isfinite(logged[0]["total"])
+    assert json.loads((logdir / "room.json").read_text()) == json.loads(
+        open(cfg_path).read())
+    (sess,) = sessions
+    assert sess.cfg.net_hyperparams.latent_dim == 32
+    assert len(sess.cls_ids) >= 2 and sess.background is not None
+    assert (tmp_path / "replica" / "inst_dict.pkl").exists()
+
+    assert main(["--config", cfg_path, "--logdir", str(logdir),
+                 "--max-iter", "1", "--log-iter", "1", "--device", "cpu",
+                 "--no-background"]) == 0
+    assert "pretrained" not in capsys.readouterr().out
+    again = sessions[1]
+    assert again.background is None
+    assert again.cls_ids == sess.cls_ids
+
+
+def test_a_scannet_config_raises_naming_the_roadmap_item(tmp_path):
+    raw = {"dataset": {"path": str(tmp_path), "format": "ScanNet"},
+           "camera": {"w": 64, "h": 48, "fx": 50.0, "fy": 50.0,
+                      "cx": 31.5, "cy": 23.5, "mw": 0, "mh": 0}}
+    path = tmp_path / "scannet.json"
+    path.write_text(json.dumps(raw))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        main(["--config", str(path), "--logdir", str(tmp_path / "logs"),
+              "--device", "cpu"])
+
+
+def test_config_without_a_device_wants_the_card(tmp_path, monkeypatch):
+    """With no --device the CLI wants a GPU and raises where there is
+    none, before it reads the dataset."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--config", str(tmp_path / "missing.json"), "--logdir",
+              str(tmp_path / "logs")])
+
+
+def test_fast_path_logs_each_chunk_and_the_rest(capsys, tmp_path):
+    """--log-iter steps a run_fast call, the last call the rest; each
+    logged row also goes to <logdir>/metrics.jsonl."""
     assert main(["--synthetic", "--max-iter", "3", "--log-iter", "2",
-                 "--device", "cpu"]) == 0
+                 "--logdir", str(tmp_path), "--device", "cpu"]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [r["iteration"] for r in rows] == [2, 3]
+    logged = [json.loads(line) for line in
+              (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [r["total"] for r in logged] == [r["total"] for r in rows]
 
 
 def _spy_sessions(monkeypatch):

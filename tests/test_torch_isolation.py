@@ -1,6 +1,7 @@
 """The port stands alone: `catnerf_torch` and `chip_smoke.py` import
-neither jax nor any module of the JAX package, and the port never falls
-back to the CPU on its own."""
+neither jax nor any module of the JAX package, nor OpenCV or PIL (the GPU
+machine has neither), not even to read a registration cache the JAX
+package wrote, and the port never falls back to the CPU on its own."""
 
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from catnerf_torch.train.loop import TrainingSession
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "catnerf_tpu", "optax", "flax")
+FORBIDDEN = ("jax", "jaxlib", "catnerf_tpu", "optax", "flax", "cv2", "PIL")
 
 
 def _forbidden(name: str) -> bool:
@@ -62,12 +63,17 @@ def test_importing_every_module_loads_no_jax():
     "catnerf_torch.mesher.meshing", "catnerf_torch.metrics.metrics3d",
     "catnerf_torch.metrics.synthetic_eval",
     "catnerf_torch.train.checkpoint",
-    "catnerf_torch.experimental.e2e_quality"])
+    "catnerf_torch.experimental.e2e_quality", "catnerf_torch.data.png",
+    "catnerf_torch.data.replica", "catnerf_torch.data.interop",
+    "catnerf_torch.geometry.registration", "catnerf_torch.loaders",
+    "catnerf_torch.train.__main__",
+    "catnerf_torch.experimental.registration_check"])
 def test_packed_and_xla_path_modules_load_no_jax(module):
     """Each module of the packed kernels, the XLA-path fields, the kernel
     comparison, the geometry library, the mesher, the metrics, the
     checkpoints and the quality gate, imported alone in a fresh
-    interpreter, loads neither jax nor the JAX package."""
+    interpreter, loads neither jax nor the JAX package, nor OpenCV or
+    PIL."""
     code = (f"import json, sys\nimport {module}\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -103,7 +109,47 @@ def test_source_walk_covers_the_new_modules():
             "catnerf_torch/metrics/metrics3d.py",
             "catnerf_torch/metrics/synthetic_eval.py",
             "catnerf_torch/train/checkpoint.py",
-            "catnerf_torch/experimental/e2e_quality.py"} <= names
+            "catnerf_torch/experimental/e2e_quality.py",
+            "catnerf_torch/data/png.py", "catnerf_torch/data/replica.py",
+            "catnerf_torch/geometry/field_pretrain.py",
+            "catnerf_torch/geometry/uncertainty.py",
+            "catnerf_torch/experimental/registration_check.py"} <= names
+
+
+def test_reading_a_jax_written_cache_loads_no_forbidden_module(tmp_path):
+    """A registration cache pickled by the JAX package names its classes
+    (`catnerf_tpu.data.scene.OrientedBBox`); the port's tolerant reader,
+    in a fresh interpreter, maps them to its own without importing them:
+    afterwards neither jax, nor the JAX package, nor OpenCV or PIL is
+    loaded."""
+    import pickle
+
+    import numpy as np
+
+    from catnerf_tpu.data.scene import OrientedBBox as JBox
+
+    box = JBox(center=np.arange(3.0), R=np.eye(3), extent=np.ones(3))
+    cache = tmp_path / "inst_dict.pkl"
+    with open(cache, "wb") as f:
+        pickle.dump({0: {"bbox3D": box, "frame_info": []},
+                     80: {1: {"T_obj": np.eye(4), "bbox3D": box,
+                              "frame_info": []}}}, f)
+    assert b"catnerf_tpu.data.scene" in cache.read_bytes()
+    code = (
+        "import json, sys\n"
+        "from catnerf_torch.data.interop import load_reference_inst_dict\n"
+        f"d = load_reference_inst_dict({str(cache)!r})\n"
+        "b = d[80][1]['bbox3D']\n"
+        "print(json.dumps([type(b).__module__, b.center.tolist(), "
+        "sorted(sys.modules)]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    module, center, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert module == "catnerf_torch.data.scene"
+    assert center == [0.0, 1.0, 2.0]
+    assert [m for m in loaded if _forbidden(m)] == []
 
 
 @pytest.mark.parametrize("path", _sources(),

@@ -26,10 +26,15 @@ def test_sources_equal_the_jax_packages_byte_for_byte(name):
         hashlib.sha256(theirs).hexdigest()
 
 
+# the port's own source beside the copies: the PNG reader's row filters
+OWN_SOURCES = ("png.cpp",)
+
+
 def test_the_sources_are_all_there_and_all_built():
+    every = SOURCES + OWN_SOURCES
     assert sorted(p.name for p in (ROOT / "catnerf_torch/native/src")
-                  .iterdir()) == sorted(SOURCES)
-    assert sorted(tlib.SOURCES) == sorted(s for s in SOURCES
+                  .iterdir()) == sorted(every)
+    assert sorted(tlib.SOURCES) == sorted(s for s in every
                                           if s.endswith(".cpp"))
 
 
