@@ -21,9 +21,11 @@ filters. Anything else raises ValueError with the file's name, never a
 wrong image: interlaced (Adam7) files, other bit depths, grey with alpha,
 a bad signature or CRC.
 
-`imwrite(path, img)` writes uint8 or uint16 grey, BGR or BGRA arrays (the
-channel order of `cv2.imwrite`), each row with the filter libpng's
-adaptive choice gives it, as the files of a recorded dataset have them.
+`imencode(img)` gives the bytes of a PNG file of a uint8 or uint16 grey,
+BGR or BGRA array (the channel order of `cv2.imencode`), each row with
+the filter libpng's adaptive choice gives it, as the files of a recorded
+dataset have them; `imwrite(path, img)` writes them to a file and
+`imdecode(data)` reads them back as `imread_unchanged` reads a file.
 """
 
 from __future__ import annotations
@@ -73,11 +75,15 @@ def _unfilter(path: str, raw: bytes, height: int, row_bytes: int,
         raise ValueError(f"{path}: {e}") from None
 
 
-def _decode(path: str):
-    """(samples (H, W, C) uint8|uint16 in the file's channel order,
-    colour type, palette, tRNS body)."""
+def _read(path: str) -> bytes:
     with open(path, "rb") as f:
-        data = f.read()
+        return f.read()
+
+
+def _decode(path: str, data: bytes):
+    """(samples (H, W, C) uint8|uint16 in the file's channel order,
+    colour type, palette, tRNS body) of the PNG file `data`; `path` names
+    it in errors."""
     header, palette, trns, idat = None, None, None, []
     for kind, body in _chunks(path, data):
         if kind == b"IHDR":
@@ -139,7 +145,17 @@ def _trns_alpha(img: np.ndarray, trns: bytes) -> np.ndarray:
 
 def imread_unchanged(path: str) -> np.ndarray:
     """`cv2.imread(path, cv2.IMREAD_UNCHANGED)` (see module docstring)."""
-    img, ctype, palette, trns = _decode(path)
+    return _unchanged(path, _read(path))
+
+
+def imdecode(data: bytes) -> np.ndarray:
+    """`cv2.imdecode(data, cv2.IMREAD_UNCHANGED)`: `imread_unchanged` of
+    a PNG file's bytes."""
+    return _unchanged("<bytes>", bytes(data))
+
+
+def _unchanged(path: str, data: bytes) -> np.ndarray:
+    img, ctype, palette, trns = _decode(path, data)
     if ctype == GREY:
         return img[..., 0].copy()
     if ctype == PALETTE:
@@ -153,7 +169,7 @@ def imread_unchanged(path: str) -> np.ndarray:
 def imread_color(path: str) -> np.ndarray:
     """`cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)` (see module
     docstring): (H, W, 3) uint8 RGB."""
-    img, ctype, palette, _ = _decode(path)
+    img, ctype, palette, _ = _decode(path, _read(path))
     if ctype == PALETTE:
         img = _expand_palette(path, img[..., 0], palette, None)
     if img.dtype == np.uint16:
@@ -190,13 +206,13 @@ def _filter_rows(data: np.ndarray, bpp: int) -> np.ndarray:
     return np.concatenate([pick.astype(np.uint8)[:, None], rows], axis=1)
 
 
-def imwrite(path: str, img: np.ndarray) -> None:
-    """Write a uint8 or uint16 image: (H, W) grey, (H, W, 3) BGR or
-    (H, W, 4) BGRA, as `cv2.imwrite` takes it, its rows filtered
-    adaptively (`_filter_rows`)."""
+def imencode(img: np.ndarray) -> bytes:
+    """`cv2.imencode(".png", img)`'s bytes: a uint8 or uint16 image, (H, W)
+    grey, (H, W, 3) BGR or (H, W, 4) BGRA, its rows filtered adaptively
+    (`_filter_rows`)."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"{path}: PNG samples are uint8 or uint16, not "
+        raise ValueError(f"PNG samples are uint8 or uint16, not "
                          f"{img.dtype}")
     if img.ndim == 2:
         ctype, samples = GREY, img[..., None]
@@ -204,15 +220,24 @@ def imwrite(path: str, img: np.ndarray) -> None:
         ctype = RGB if img.shape[-1] == 3 else RGBA
         samples = img[..., [2, 1, 0, 3][:img.shape[-1]]]
     else:
-        raise ValueError(f"{path}: cannot write an image of shape "
-                         f"{img.shape}")
+        raise ValueError(f"cannot write an image of shape {img.shape} as "
+                         f"a PNG")
     height, width, channels = samples.shape
     depth = 8 * img.dtype.itemsize
     rows = np.ascontiguousarray(samples.astype(f">u{img.dtype.itemsize}"))
     raw = _filter_rows(rows.view(np.uint8).reshape(height, -1),
                        channels * img.dtype.itemsize)
     header = struct.pack(">IIBBBBB", width, height, depth, ctype, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """Write `imencode(img)` to `path`, as `cv2.imwrite` does."""
+    try:
+        data = imencode(img)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
     with open(path, "wb") as f:
-        f.write(SIGNATURE + _chunk(b"IHDR", header)
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
-                + _chunk(b"IEND", b""))
+        f.write(data)

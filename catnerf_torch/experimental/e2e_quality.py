@@ -18,7 +18,8 @@ replayed CUDA graph); meshes come from `mesh_scene` at most `--grid-dim`
 voxels a side, and each sphere is scored by `score_shape` under the
 reference's protocol (accuracy on the mesh cropped to the GT box,
 completion, completion ratio under 5 cm; ref:
-metric/eval_3D_obj.py:15-34). Prints one JSON line; exits 1 when an object
+metric/eval_3D_obj.py:15-34); then the scene composite from two dataset
+poses against their frames (`render_psnr`, dB). Prints one JSON line; exits 1 when an object
 was not meshed or a mean is outside the gate's band (accuracy and
 completion under 5 cm, completion ratio over 80%).
 
@@ -58,6 +59,10 @@ from catnerf_torch.utils import phase_reset, phase_timings
 SCENE = dict(n_frames=24, width=160, height=120, n_categories=3,
              insts_per_cat=2)
 CHUNK_STEPS = 100
+# the image-space readout (ref: scripts/e2e_quality.py:303-317): the scene
+# composite from the first and the middle frame, at the frames' camera
+RENDER_NEAR = 0.1
+RENDER_BINS = 64
 
 # the flip rule: a uint8 voxel may differ by one quantum where occ * 255
 # lies within FLIP_U8 (255 x the float32 bound 1e-5) of a .5 boundary; a
@@ -218,6 +223,27 @@ def mesh_and_score(sess, scene, iteration: int, out_dir: str) -> dict:
     }
 
 
+def render_psnr(sess) -> list[float]:
+    """The gate's image-space readout (ref: scripts/e2e_quality.py:
+    303-317): every trained field composited (`render_scene_view`) from the
+    first and the middle dataset pose, at the frames' camera, near
+    RENDER_NEAR, RENDER_BINS bins, scored as true MSE PSNR (dB, 2 places)
+    against the frame's image."""
+    from catnerf_torch.render_views import render_scene_view, scene_far
+
+    out = []
+    far = scene_far(sess)
+    frames = sorted(sess.sample_dict.keys())
+    for fr in {frames[0], frames[len(frames) // 2]}:
+        T = np.asarray(sess.sample_dict[fr]["T"], np.float32)
+        img, _, _ = render_scene_view(sess, T, sess.cam, near=RENDER_NEAR,
+                                      far=far, n_bins=RENDER_BINS)
+        gt = np.asarray(sess.sample_dict[fr]["image"], np.float32) / 255.0
+        mse = float(np.mean((img - gt) ** 2))
+        out.append(round(-10.0 * np.log10(max(mse, 1e-10)), 2))
+    return out
+
+
 def passes(result: dict) -> bool:
     """The gate's pass rule (the JAX package's scripts/e2e_quality.py)."""
     return (result["n_meshed"] == result["n_objects"]
@@ -245,6 +271,7 @@ def run(iters: int = 10000, grid_dim: int = 128, seed: int = 0,
     tr = train(sess, iters, log)
     scored = mesh_and_score(sess, scene, iters,
                             out or tempfile.mkdtemp(prefix="e2e_quality_"))
+    psnr = render_psnr(sess)
     return {
         "metric": ("e2e_synthetic_quality_registered" if registered
                    else "e2e_synthetic_quality"),
@@ -254,6 +281,7 @@ def run(iters: int = 10000, grid_dim: int = 128, seed: int = 0,
             "mean_accuracy_cm", "mean_completion_cm",
             "mean_completion_ratio_pct", "n_meshed", "n_objects",
             "per_object")},
+        "render_psnr": psnr,
         "seed": seed,
         "shapes": "sphere",
         "sampling": "fast",

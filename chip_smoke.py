@@ -127,9 +127,23 @@ Phases, each printing one or more lines:
    `python -m catnerf_torch.train --config` as a subprocess: CLI_ITERS
    steps logged every CLI_LOG, a checkpoint at the end, then `--resume
    --mesh-only` at grid CLI_GRID; the stage seconds it reports, the
-   metrics file, the checkpoint and one mesh per object.
+   metrics file, the checkpoint and one mesh per object;
+13. the serving surface on phase 10's trained session
+   (`catnerf_torch.render_views`, `edit`, `serve`): the gate's
+   `render_psnr` (the scene composite from frames 0 and 12 against their
+   images) beside the JAX package's record, at least RENDER_PSNR_FLOOR dB;
+   one object's orbit view and one scene composite (160 x 120, 32 bins) on
+   the card against a CPU session holding the same weights, under the
+   flip rule (RENDER_TOL, RENDER_FLIP_TOL, RENDER_FLIP_SHARE); both renders
+   at 320 x 240 x 64 timed beside the bound of their field evaluation;
+   then `serve(session, port=0)` in a thread on 127.0.0.1: /health, the
+   viewer, /object, /scene (by frame and by orbit) and /edit (texture,
+   shape, interpolation, mean) as PNGs of the snapped size, warm requests
+   timed, /mesh twice (the second from the cache), POST /ingest's 501,
+   one /scene at 1280 x 960 x 192 with its seconds and peak device memory;
+   the server shut down, no fused kernel launched.
 
-Each main path (5, 7, 8, 9, 10, 11) is driven with the launch counts set to 0 just
+Each main path (5, 7, 8, 9, 10, 11, 13) is driven with the launch counts set to 0 just
 before it and read just after. Then a `{"kernels": [...]}` line, the card line
 again, and as the last line `{"ok": true, "device": {...}}`. Exits
 non-zero, with no result, when there is no CUDA device, when the port
@@ -223,6 +237,23 @@ PRETRAIN_CHECK_STEPS = 100
 CLI_SCENE = dict(n_frames=4, width=600, height=340, n_categories=3,
                  insts_per_cat=2, seed=1)
 CLI_ITERS, CLI_LOG, CLI_GRID = 200, 100, 128
+# phase 13, the serving surface on phase 10's trained session: the gate's
+# render readout (experimental/e2e_quality.render_psnr) and its floor, the
+# card-vs-CPU renders (160 x 120, 32 bins) under the flip rule (RENDER_TOL
+# on at least 1 - RENDER_FLIP_SHARE of the pixels, none over
+# RENDER_FLIP_TOL: a ReLU kink may flip between two orders of summation),
+# the timed requests (median of SERVE_TIMED warm ones) and the largest
+# whitelisted render
+RENDER_PSNR_FLOOR = 27.0
+JAX_RENDER_RECORD = ("the JAX package's record on a TPU v5e "
+                     "(BASELINE.md:42): 30.6 / 28.5 dB")
+RENDER_TOL = 1e-4
+RENDER_FLIP_TOL = 1e-2
+RENDER_FLIP_SHARE = 1e-3
+SERVE_TIMED = 5
+CHECK_VIEW = (160, 120, 32)      # card vs CPU: width, height, bins
+SERVE_VIEW = (320, 240, 64)      # the timed renders and requests
+SERVE_LARGEST = (1280, 960, 192)  # serve._SIZES[-1], serve._BINS[-1]
 # torch.cuda.set_sync_debug_mode while run_fast runs: the steps must not
 # wait on the device, so that the host queues ahead of it
 SYNC_DEBUG = "error"
@@ -1612,9 +1643,10 @@ def _affine(R, t):
     return T
 
 
-def e2e_phase() -> None:
+def e2e_phase():
     """Phase 10: the geometry library's build, then the quality gate's
-    training, meshing and scoring, checkpoints and slabs on the card."""
+    training, meshing and scoring, checkpoints and slabs on the card.
+    Returns the trained session (phase 13 serves it)."""
     from catnerf_torch.experimental import e2e_quality as e2e
     from catnerf_torch.native import lib as native
 
@@ -1633,6 +1665,7 @@ def e2e_phase() -> None:
     e2e_mesh_and_score(scene, sess)
     e2e_roundtrip(sess)
     e2e_slabs(sess)
+    return sess
 
 
 def registered_phase() -> None:
@@ -1806,6 +1839,294 @@ def cli_run(scene, root: str, scene_s: float) -> None:
         f"{len(meshes)} meshes")
 
 
+def field_flops(fc, is_background: bool) -> float:
+    """The operations a rendered point needs from one field, from its
+    layers' shapes: every product's multiply-adds but the code
+    projections' (once a view, not a point), and the PE's projection and
+    sines (a product of 3 x 21 and 126 polynomials of ~12 operations)."""
+    macs = 0
+    for name, layers in fc.named_children():
+        if "latent" in name:
+            continue
+        for layer in (layers if isinstance(layers, torch.nn.ModuleList)
+                      else [layers]):
+            macs += layer.w.shape[-2] * layer.w.shape[-1]
+    return 2.0 * (macs + 3 * 21) + 126 * 12
+
+
+def render_flips(what: str, got, want) -> None:
+    """A render on the card (rgb, depth, alpha) against the same render on
+    the CPU under the flip rule: at most RENDER_FLIP_SHARE of the pixels
+    with a value more than RENDER_TOL apart, none more than
+    RENDER_FLIP_TOL."""
+    import numpy as np
+
+    diff = np.stack([np.abs(g.astype(np.float64) - w).reshape(
+        g.shape[0], g.shape[1], -1).max(-1) for g, w in zip(got, want)])
+    worst = float(diff.max())
+    over = int((diff.max(0) > RENDER_TOL).sum())
+    n = diff[0].size
+    log(f"serve: {what} card vs CPU: largest error {worst:.3e}, "
+        f"{over} of {n} pixels over {RENDER_TOL:g}")
+    if worst > RENDER_FLIP_TOL or over > RENDER_FLIP_SHARE * n:
+        raise AssertionError(f"serve: {what}: the card's render differs "
+                             f"from the CPU's beyond the flip rule")
+
+
+def render_card_vs_cpu(sess):
+    """Phase 13's renders on the card and on a CPU session holding the
+    same weights: one object's orbit view and one scene composite at
+    CHECK_VIEW."""
+    import numpy as np
+
+    from catnerf_torch import render_views as rv
+    from catnerf_torch.experimental import e2e_quality as e2e
+
+    t0 = time.time()
+    _, cpu = e2e.make_session(grid_dim=E2E_GRID, device="cpu")
+    with torch.no_grad():
+        for a, b in zip(cpu.state.params.parameters(),
+                        sess.state.params.parameters()):
+            a.copy_(b.cpu())
+    cls_id, cat = sess.cls_ids[0], sess.categories[0]
+    obj = cat.obj_ids[0]
+    k = cat.inst_id_to_index[obj]
+    extent, center = rv.instance_frame(sess, cls_id, [obj])
+    mask = rv.instance_mask_box(sess, cls_id, [obj])
+    radius, near, far = rv.orbit_frame(extent)
+    T = rv.look_at(rv.orbit_eye(np.deg2rad(30.0), np.deg2rad(25.0), radius,
+                                center), center)
+    width, height, bins = CHECK_VIEW
+    cam = rv.default_orbit_cam(width, height)
+    size = f"{width} x {height}, {bins} bins"
+    views = {}
+    for where, s in (("card", sess), ("cpu", cpu)):
+        p = s.category_params(cls_id)
+        t1 = time.time()
+        views[where] = rv.render_view(
+            p, s.cfg, T, cam, near=near, far=far,
+            shape_code=p["shape_codes"][k], texture_code=p["texture_codes"][k],
+            n_bins=bins, mask_box=mask)
+        views[where + "_s"] = time.time() - t1
+    render_flips(f"object {obj} ({size}; CPU "
+                 f"{views['cpu_s']:.2f} s)", views["card"], views["cpu"])
+    T = np.asarray(sess.sample_dict[0]["T"], np.float32)
+    scenes = {}
+    for where, s in (("card", sess), ("cpu", cpu)):
+        t1 = time.time()
+        scenes[where] = rv.render_scene_view(
+            s, T, cam, near=0.05, far=rv.scene_far(s), n_bins=bins)
+        scenes[where + "_s"] = time.time() - t1
+    render_flips(f"scene from frame 0 ({size}; CPU "
+                 f"{scenes['cpu_s']:.2f} s)", scenes["card"], scenes["cpu"])
+    log(f"serve: card vs CPU in {time.time() - t0:.1f} s")
+
+
+def inside_points(sess, fn) -> int:
+    """The points of a scene composite `fn()` that lie inside some
+    object's box (where `_scene_tile` runs the object fields)."""
+    from catnerf_torch import render_views as rv
+
+    tile, count = rv._scene_tile, []
+
+    def counted(staged, bg_params, cfg, p):
+        x_m = p @ staged["Am"].transpose(1, 2) + staged["bm"][:, None]
+        count.append(int((x_m.abs() <= staged["half"][:, None]).all(-1)
+                         .any(0).sum()))
+        return tile(staged, bg_params, cfg, p)
+
+    rv._scene_tile = counted
+    try:
+        fn()
+    finally:
+        rv._scene_tile = tile
+    return sum(count)
+
+
+def time_renders(sess) -> None:
+    """One object view and one scene composite at SERVE_VIEW,
+    called directly (median of SERVE_TIMED after one warm-up, the host's
+    clock around a call that ends in its download): ms a view, points/s,
+    beside the bound of the field evaluation (its operations over the
+    card's float32 peak: the scene's background at every point, its
+    object fields at the points inside some object's box)."""
+    import numpy as np
+
+    from catnerf_torch import render_views as rv
+
+    cls_id, cat = sess.cls_ids[0], sess.categories[0]
+    obj = cat.obj_ids[0]
+    k = cat.inst_id_to_index[obj]
+    p = sess.category_params(cls_id)
+    extent, center = rv.instance_frame(sess, cls_id, [obj])
+    radius, near, far = rv.orbit_frame(extent)
+    T_obj = rv.look_at(rv.orbit_eye(0.5, 0.4, radius, center), center)
+    T_scene = np.asarray(sess.sample_dict[0]["T"], np.float32)
+    width, height, bins = SERVE_VIEW
+    cam = rv.default_orbit_cam(width, height)
+    points = width * height * bins
+    cn = field_flops(p["fc"], False)
+    bg = field_flops(sess.state.params.bg_fc, True)
+    n_obj = sum(c.n_obj for c in sess.categories)
+    cases = {
+        "object": (lambda: rv.render_view(
+            p, sess.cfg, T_obj, cam, near=near, far=far,
+            shape_code=p["shape_codes"][k], texture_code=p["texture_codes"][k],
+            n_bins=bins, mask_box=rv.instance_mask_box(sess, cls_id, [obj])),
+            cn),
+        "scene": (lambda: rv.render_scene_view(
+            sess, T_scene, cam, near=0.05, far=rv.scene_far(sess),
+            n_bins=bins), None),
+    }
+    inside = inside_points(sess, cases["scene"][0])
+    cases["scene"] = (cases["scene"][0],
+                      bg + n_obj * cn * inside / points)
+    log(f"serve: render_scene's samples inside an object's box: {inside} "
+        f"of {points} ({100.0 * inside / points:.2f}%)")
+    for what, (fn, flops) in cases.items():
+        fn()
+        times = []
+        for _ in range(SERVE_TIMED):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        ms = 1e3 * statistics.median(times)
+        bound_ms, _ = bound(0.0, points * flops)
+        log(f"serve: render_{what} {width} x {height} x {bins}: "
+            f"{ms:.2f} ms a view "
+            f"(median of {SERVE_TIMED}; {min(times) * 1e3:.2f}-"
+            f"{max(times) * 1e3:.2f}), {points / ms * 1e3:.6g} points/s; "
+            f"bound {bound_ms:.3f} ms ({points * flops / 1e9:.2f} GFLOP of "
+            f"field evaluation, {flops:.0f} a point), {ms / bound_ms:.1f}x")
+
+
+def serving_phase(sess) -> None:
+    """Phase 13: the serving surface on phase 10's trained session — the
+    gate's render readout, card against CPU, the renders timed, then the
+    HTTP server on the card: every endpoint, warm requests timed, the
+    largest whitelisted scene render with its peak memory."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from catnerf_torch import serve
+    from catnerf_torch.data import png
+    from catnerf_torch.experimental import e2e_quality as e2e
+    from catnerf_torch.kernels import fused_field as ff
+
+    ff.reset_launch_counts()
+    t0 = time.time()
+    psnr = e2e.render_psnr(sess)
+    frames = sorted(sess.sample_dict)
+    log(f"serve: render_psnr {psnr} dB (frames {frames[0]} and "
+        f"{frames[len(frames) // 2]}, {sess.cam.width} x {sess.cam.height}, "
+        f"{e2e.RENDER_BINS} bins) in {time.time() - t0:.2f} s, beside "
+        f"{JAX_RENDER_RECORD}")
+    if min(psnr) < RENDER_PSNR_FLOOR:
+        raise AssertionError(f"serve: render_psnr {psnr} under "
+                             f"{RENDER_PSNR_FLOOR} dB")
+    render_card_vs_cpu(sess)
+    time_renders(sess)
+
+    server = serve.SceneServer(sess)
+    httpd = serve.serve(sess, port=0, host="127.0.0.1", scene_server=server)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def get(path, timeout=300.0):
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(base + path, timeout=timeout) as r:
+            body = r.read()
+            out = (r.status, r.headers["Content-Type"], body)
+        return out + (time.perf_counter() - t1,)
+
+    def image(path, size):
+        status, ctype, body, dt = get(path)
+        img = png.imdecode(body)
+        if status != 200 or ctype != "image/png" or \
+                img.shape != (size[1], size[0], 3) or not img.std() > 0:
+            raise AssertionError(f"serve: {path}: {status} {ctype} "
+                                 f"{img.shape}")
+        return dt
+
+    try:
+        status, _, body, _ = get("/health")
+        health = json.loads(body)
+        if status != 200 or health != {"ok": True,
+                                        "objects": server.object_ids()} \
+                or len(health["objects"]) != 6:
+            raise AssertionError(f"serve: /health: {status} {health}")
+        if b"catnerf_torch viewer" not in get("/")[2]:
+            raise AssertionError("serve: / is not the viewer")
+        cat = sess.categories[0]
+        a, b = cat.obj_ids[0], cat.obj_ids[1]
+        width, height, bins = SERVE_VIEW
+        # a size off the whitelist, which snaps to SERVE_VIEW
+        q = f"w={width - 20}&h={height + 10}&bins={bins - 4}"
+        paths = {
+            "object": f"/object?id={a}&az=30&el=20&{q}",
+            "scene_frame": f"/scene?frame=0&{q}",
+            "scene_orbit": f"/scene?az=45&el=30&radius=4&{q}",
+            "edit_texture": f"/edit?id={a}&texture_from={b}&{q}",
+            "edit_shape": f"/edit?id={a}&shape_from={b}&{q}",
+            "edit_interp": f"/edit?id={a}&interp={b}&t=0.3&{q}",
+            "edit_mean": f"/edit?id={a}&mean=1&{q}",
+        }
+        first = {k: image(v, (width, height)) for k, v in paths.items()}
+        warm = {}
+        for what in ("object", "scene_frame", "edit_texture"):
+            warm[what] = statistics.median(
+                image(paths[what], (width, height))
+                for _ in range(SERVE_TIMED))
+        log(f"serve: warm requests at {width} x {height}, {bins} bins "
+            f"(median of "
+            f"{SERVE_TIMED}, ms): "
+            + json.dumps({k: round(v * 1e3, 2) for k, v in warm.items()})
+            + "; first requests (ms): "
+            + json.dumps({k: round(v * 1e3, 2) for k, v in first.items()}))
+        _, ctype, mesh1, t_mesh = get(f"/mesh?id={a}")
+        _, _, mesh2, t_cached = get(f"/mesh?id={a}")
+        verts = sum(line.startswith(b"v ") for line in mesh1.splitlines())
+        if ctype != "model/obj" or not verts or mesh2 != mesh1 or \
+                len(server._mesh_cache) != 1:
+            raise AssertionError(f"serve: /mesh: {ctype}, {verts} vertices")
+        log(f"serve: /mesh?id={a}: {verts} vertices, {len(mesh1) / 2**20:.2f}"
+            f" MB in {t_mesh:.2f} s, again from the cache in "
+            f"{t_cached * 1e3:.2f} ms")
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                base + "/ingest?cls=80", data=b"npz"), timeout=60)
+            raise AssertionError("serve: /ingest did not refuse")
+        except urllib.error.HTTPError as e:
+            body = json.loads(e.read())
+            if e.code != 501 or "fit" not in body["error"]:
+                raise AssertionError(f"serve: /ingest: {e.code} {body}")
+        log(f"serve: /ingest: 501 {body['error']!r}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        width, height, bins = SERVE_LARGEST
+        dt = image(f"/scene?frame=0&w={width}&h={height}&bins={bins}",
+                   (width, height))
+        points = width * height * bins
+        log(f"serve: /scene at {width} x {height}, {bins} bins ({points} "
+            f"points x "
+            f"{len(health['objects'])} objects + the background): "
+            f"{dt:.2f} s, {points / dt:.6g} points/s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MB "
+            f"({base_mb:.1f} MB allocated before)")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("serve: the server did not stop")
+    launches = dict(ff.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"serve: fused kernels launched: {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1882,7 +2203,7 @@ def main() -> int:
             f"eager {busy(phases[k]['eager_busy'])}, graph {busy(b)}"
             for k, (r, b) in rates.items()))
     t0 = time.time()
-    e2e_phase()
+    gate = e2e_phase()
     log(f"e2e: phase 10 in {time.time() - t0:.1f} s")
     t0 = time.time()
     registered_phase()
@@ -1890,6 +2211,9 @@ def main() -> int:
     t0 = time.time()
     cli_phase()
     log(f"cli: phase 12 in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    serving_phase(gate)
+    log(f"serve: phase 13 in {time.time() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if not r["launches"] > 0:

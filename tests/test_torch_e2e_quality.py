@@ -15,10 +15,13 @@ torch.set_num_threads(1)
 
 
 def test_the_gate_trains_meshes_and_scores_all_six_spheres(tmp_path,
-                                                           capsys):
+                                                           capsys,
+                                                           monkeypatch):
     """10 steps and 32-voxel grids: no quality bound at that length, but
     the whole path runs and prints its one JSON line, with the exit code
-    of the gate's pass rule."""
+    of the gate's pass rule. The render readout at 2 bins (its 64 take
+    ~100 s a frame on one CPU core)."""
+    monkeypatch.setattr(e2e, "RENDER_BINS", 2)
     rc = e2e.main(["--device", "cpu", "--iters", "10", "--grid-dim", "32",
                    "--out", str(tmp_path)])
     lines = capsys.readouterr().out.splitlines()
@@ -35,6 +38,8 @@ def test_the_gate_trains_meshes_and_scores_all_six_spheres(tmp_path,
             "export"} <= result["mesh_phase_s"].keys()
     assert len(list(tmp_path.glob("iteration_10_obj*.obj"))) >= \
         result["n_meshed"]
+    psnr = result["render_psnr"]
+    assert len(psnr) == 2 and all(np.isfinite(psnr)) and min(psnr) > 0
 
 
 def test_the_pass_rule_is_the_jax_gates():

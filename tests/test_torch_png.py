@@ -220,6 +220,40 @@ def test_writer_filters_rows_adaptively(tmp_path, shape, dtype):
     assert len(np.unique(kinds)) > 1
 
 
+ENCODE_CASES = [((24, 32, 3), np.uint8), ((24, 32), np.uint8),
+                ((24, 32), np.uint16)]
+
+
+@pytest.mark.parametrize("shape,dtype", ENCODE_CASES,
+                         ids=["rgb-uint8", "grey-uint8", "grey-uint16"])
+def test_imencode_bytes_decode_to_the_input(tmp_path, shape, dtype):
+    """imencode's bytes (the renders' PNGs: 8-bit BGR, 8-bit grey alpha,
+    16-bit grey depth in mm) decode to the input through cv2.imdecode,
+    the port's imdecode and its file reader; imwrite writes those bytes."""
+    img = _natural(shape, dtype)
+    data = png.imencode(img)
+    assert data[:8] == png.SIGNATURE
+    _assert_same(cv2.imdecode(np.frombuffer(data, np.uint8),
+                              cv2.IMREAD_UNCHANGED), img)
+    _assert_same(png.imdecode(data), img)
+    path = tmp_path / "ours.png"
+    png.imwrite(str(path), img)
+    assert path.read_bytes() == data
+    _check(path)
+
+
+def test_imencode_refuses_what_it_cannot_write(tmp_path):
+    with pytest.raises(ValueError, match="uint8 or uint16"):
+        png.imencode(np.zeros((4, 4), np.float32))
+    with pytest.raises(ValueError, match="shape"):
+        png.imencode(np.zeros((4, 4, 2), np.uint8))
+    bad = str(tmp_path / "bad.png")
+    with pytest.raises(ValueError, match=f"{bad}.*uint8 or uint16"):
+        png.imwrite(bad, np.zeros((4, 4), np.float64))
+    with pytest.raises(ValueError, match="not a PNG"):
+        png.imdecode(b"GIF89a")
+
+
 def _ihdr_patched(path: Path, **fields) -> Path:
     """A copy of a PNG file with IHDR fields replaced (CRC recomputed)."""
     data = path.read_bytes()
