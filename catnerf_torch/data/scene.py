@@ -188,8 +188,9 @@ class CategoryScene:
         self.extent_dict: dict[int, np.ndarray] = {}
         self.object_tensor_dict: dict[int, np.ndarray] = {}
         self.bound_dict: dict[int, OrientedBBox] = {}
-        # retained so that test-time fitting (not ported yet) can rebuild
-        # each trained instance's world cloud as the registration target
+        # retained so that test-time fitting (fit.ingest_new_instance) can
+        # rebuild each trained instance's world cloud as the registration
+        # target
         self.frame_info_dict: dict[int, list[dict]] = {}
         if not self.is_background:
             for iid in self.obj_ids:

@@ -2,14 +2,20 @@
 object, and score the meshes against the analytic ground truth.
 
 The port of the JAX package's `scripts/e2e_quality.py` in its default
-mode (ground-truth object poses, sphere shapes, the fast path) and in its
-registered Replica mode (`--registered`, ref: scripts/e2e_quality.py:
-178-247 without --fit-holdout): the scene is written in the Replica
-layout (`data/replica.write_replica_layout`) and loaded through the real
-pipeline, `Replica(cfg)` with `load_pretrained = False` — point-cloud
-accumulation, self-pretrained uncertainty fields on the device,
-TEASER-style multi-init alignment, subcategorization — so training uses
-ESTIMATED object poses; mesh errors then include any pose misalignment.
+mode (ground-truth object poses, sphere shapes, the fast path), in its
+test-time fitting mode (`--fit-holdout`, ground-truth poses, ref:
+scripts/e2e_quality.py:69-77, 159-172, 319-410: 3 instances a category,
+the first category's last held out of training, then registered to its
+category's canonical union, fitted against the frozen MLP (`fit.py`,
+1,000 steps with pose refinement), meshed and scored by the same
+protocol) and in its registered Replica mode (`--registered`, ref:
+scripts/e2e_quality.py:178-247 without --fit-holdout): the scene is
+written in the Replica layout (`data/replica.write_replica_layout`) and
+loaded through the real pipeline, `Replica(cfg)` with `load_pretrained =
+False` — point-cloud accumulation, self-pretrained uncertainty fields on
+the device, TEASER-style multi-init alignment, subcategorization — so
+training uses ESTIMATED object poses; mesh errors then include any pose
+misalignment.
 The scene is 3 categories x 2 spheres in 24 frames of 160x120
 (`make_scene`, seeded by --seed); the trainer is `Config()` with
 latent_dim 32 (the reference's default: bf16 activation storage on the XLA
@@ -21,12 +27,15 @@ completion, completion ratio under 5 cm; ref:
 metric/eval_3D_obj.py:15-34); then the scene composite from two dataset
 poses against their frames (`render_psnr`, dB). Prints one JSON line; exits 1 when an object
 was not meshed or a mean is outside the gate's band (accuracy and
-completion under 5 cm, completion ratio over 80%).
+completion under 5 cm, completion ratio over 80%), or, with
+--fit-holdout, when the fitted mesh is missing or 5 cm or more in
+accuracy, or the fit did not raise the PSNR.
 
     python -m catnerf_torch.experimental.e2e_quality            # the card
     python -m catnerf_torch.experimental.e2e_quality --device cpu \\
         --iters 100 --grid-dim 32
     python -m catnerf_torch.experimental.e2e_quality --registered
+    python -m catnerf_torch.experimental.e2e_quality --fit-holdout
 
 Also the flip rule that holds a uint8 occupancy grid evaluated on two
 devices (or by two packages) against each other (`count_flips`,
@@ -37,11 +46,13 @@ other side of a rounding boundary, and only there may two grids differ.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,6 +69,10 @@ from catnerf_torch.utils import phase_reset, phase_timings
 
 SCENE = dict(n_frames=24, width=160, height=120, n_categories=3,
              insts_per_cat=2)
+# --fit-holdout: 3 instances a category, so that the held-out one's
+# category stays multi-instance, and the JAX gate's fit length
+HOLDOUT_INSTS = 3
+FIT_STEPS = 1000
 CHUNK_STEPS = 100
 # the image-space readout (ref: scripts/e2e_quality.py:303-317): the scene
 # composite from the first and the middle frame, at the frames' camera
@@ -75,16 +90,32 @@ FLIP_DEPTH = 1e-5
 FLIP_SHARE = 1e-3
 
 
-def make_session(seed: int = 0, grid_dim: int = 128, device=None):
+def make_session(seed: int = 0, grid_dim: int = 128, device=None,
+                 fit_holdout: bool = False):
     """(scene, session) of the gate: `Config()` with latent_dim 32 and
-    `grid_dim`, on `device` (the card unless named)."""
+    `grid_dim`, on `device` (the card unless named). fit_holdout: the
+    scene has HOLDOUT_INSTS instances a category, and the session trains
+    all but `holdout`'s."""
     cfg = Config()
     cfg.net_hyperparams.latent_dim = 32
     cfg.grid_dim = grid_dim  # live_voxel_size stays 5 mm; the cap rules
-    scene = make_scene(**SCENE, seed=seed)
-    sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
+    insts = HOLDOUT_INSTS if fit_holdout else SCENE["insts_per_cat"]
+    scene = make_scene(**{**SCENE, "insts_per_cat": insts}, seed=seed)
+    inst_dict = scene.inst_dict
+    if fit_holdout:
+        held_cls, held = holdout(inst_dict)
+        inst_dict = copy.deepcopy(inst_dict)
+        del inst_dict[held_cls][held]
+    sess = TrainingSession(cfg, inst_dict, scene.sample_dict,
                            cam=scene.cam, device=device)
     return scene, sess
+
+
+def holdout(inst_dict: dict) -> tuple[int, int]:
+    """(cls, id) that --fit-holdout leaves out of training: the first
+    category's last instance (ref: scripts/e2e_quality.py:159-172)."""
+    held_cls = sorted(c for c in inst_dict if c != 0)[0]
+    return held_cls, sorted(inst_dict[held_cls])[-1]
 
 
 def make_registered_session(seed: int = 0, grid_dim: int = 128,
@@ -189,9 +220,11 @@ def train(sess, iters: int, log=None) -> dict:
             "total_last": float(m.total)}
 
 
-def mesh_and_score(sess, scene, iteration: int, out_dir: str) -> dict:
-    """mesh_scene, then score_shape of each sphere's mesh: per-object
-    and mean metrics, the seconds of meshing (by phase) and scoring."""
+def mesh_and_score(sess, scene, iteration: int, out_dir: str,
+                   skip: tuple[int, ...] = ()) -> dict:
+    """mesh_scene, then score_shape of each sphere's mesh but those in
+    `skip` (a held-out instance, scored through the fit): per-object and
+    mean metrics, the seconds of meshing (by phase) and scoring."""
     reset_mesh_timings()
     t0 = time.time()
     written = mesh_scene(sess, out_dir, iteration)
@@ -199,6 +232,8 @@ def mesh_and_score(sess, scene, iteration: int, out_dir: str) -> dict:
     t0 = time.time()
     per_obj, accs, comps, ratios = {}, [], [], []
     for s in scene.spheres:
+        if s.inst_id in skip:
+            continue  # scored separately through the fit path
         path = written.get(s.inst_id)
         if path is None:
             per_obj[s.inst_id] = None
@@ -244,20 +279,117 @@ def render_psnr(sess) -> list[float]:
     return out
 
 
+def run_fit_holdout(sess, scene, held: tuple[int, int],
+                    steps: int | None = None):
+    """The new-instance path on the held-out instance (ref:
+    scripts/e2e_quality.py:319-410, GT-pose mode): its cloud registered
+    to the union of its trained siblings' canonical clouds
+    (`register_new_instance`), `fit.fit_instance` with pose refinement on
+    the session's device, the fitted field meshed at `adaptive_grid_dim`
+    and scored by `score_shape`. Returns (the JAX gate's `fit_holdout`
+    dict, the FitResult, the seconds of registration, fit, meshing and
+    scoring)."""
+    from catnerf_torch.fit import fit_instance
+    from catnerf_torch.geometry.pointcloud import accumulate_pointcloud
+    from catnerf_torch.geometry.registration import register_new_instance
+    from catnerf_torch.mesher.meshing import adaptive_grid_dim, mesh_field
+
+    held_cls, held_out = held
+    steps = FIT_STEPS if steps is None else steps
+    cfg = sess.cfg
+    sec = {}
+    t_fit = t0 = time.time()
+    registered = []
+    for oid in sorted(scene.inst_dict[held_cls]):
+        if oid == held_out:
+            continue
+        info_o = scene.inst_dict[held_cls][oid]
+        registered.append((accumulate_pointcloud(
+            oid, info_o["frame_info"], scene.sample_dict, sess.cam),
+            info_o["T_obj"]))
+    info_gt = scene.inst_dict[held_cls][held_out]
+    pcs_new = accumulate_pointcloud(held_out, info_gt["frame_info"],
+                                    scene.sample_dict, sess.cam)
+    T_est, reg_cd = register_new_instance(registered, pcs_new)
+    sec["register"] = time.time() - t0
+    T_gt = np.asarray(info_gt["T_obj"], np.float64)
+    s_gt = abs(np.linalg.det(T_gt[:3, :3])) ** (1 / 3)
+
+    t0 = time.time()
+    res = fit_instance(sess, held_cls, info_gt["frame_info"],
+                       scene.sample_dict, sess.cam, T_est, held_out,
+                       steps=steps, optimize_pose=True)
+    sec["fit"] = time.time() - t0
+    t0 = time.time()
+    params = sess.category_params(held_cls)
+    dim = adaptive_grid_dim(res.extent, cfg.live_voxel_size, cfg.grid_dim)
+    fmesh = mesh_field(params, cfg, grid_dim=dim, is_background=False,
+                       shape_code=res.shape_code,
+                       texture_code=res.texture_code, extent=res.extent)
+    sec["mesh"] = time.time() - t0
+    t0 = time.time()
+    fit_metrics = None
+    if fmesh is not None:
+        # canonical -> scene: one affine
+        fmesh.apply_transform(np.asarray(res.T_obj, np.float64))
+        sp = next(s for s in scene.spheres if s.inst_id == held_out)
+        _, fit_metrics = score_shape(fmesh, sp)
+    sec["score"] = time.time() - t0
+    out = {
+        "held_out": held_out,
+        "path": "gt_pose",
+        "registration_chamfer": round(reg_cd, 4),
+        "pose_center_err_cm": round(100.0 * float(
+            np.linalg.norm(res.T_obj[:3, 3] - T_gt[:3, 3])), 3),
+        "pose_scale_err_pct": round(float(100.0 * abs(
+            abs(np.linalg.det(res.T_obj[:3, :3])) ** (1 / 3) - s_gt)
+            / s_gt), 2),
+        "fit_steps": res.steps,
+        "psnr_prior_init": round(res.init_psnr, 2),
+        "psnr_after_fit": round(res.final_psnr, 2),
+        "mesh": fit_metrics,
+        "wall_s": round(time.time() - t_fit, 1),
+    }
+    return out, res, sec
+
+
 def passes(result: dict) -> bool:
-    """The gate's pass rule (the JAX package's scripts/e2e_quality.py)."""
-    return (result["n_meshed"] == result["n_objects"]
-            and result["mean_accuracy_cm"] < 5.0
-            and result["mean_completion_cm"] < 5.0
-            and result["mean_completion_ratio_pct"] > 80.0)
+    """The gate's pass rule (the JAX package's scripts/e2e_quality.py:
+    439-447): every trained object meshed, the means in the band; with a
+    fit-holdout, its mesh under 5 cm in accuracy and its PSNR raised."""
+    n_trained = result["n_objects"] - (1 if "fit_holdout" in result else 0)
+    ok = (result["n_meshed"] == n_trained
+          and result["mean_accuracy_cm"] < 5.0
+          and result["mean_completion_cm"] < 5.0
+          and result["mean_completion_ratio_pct"] > 80.0)
+    fh = result.get("fit_holdout")
+    if fh is not None:
+        ok = (ok and fh["mesh"] is not None
+              and fh["mesh"]["accuracy_cm"] < 5.0
+              and fh["psnr_after_fit"] > fh["psnr_prior_init"])
+    return ok
+
+
+class GateRun(NamedTuple):
+    """What `run` ran: its JSON result, the scene, the trained session,
+    and with a fit-holdout the FitResult (else None)."""
+    result: dict
+    scene: object
+    session: TrainingSession
+    fit: object
 
 
 def run(iters: int = 10000, grid_dim: int = 128, seed: int = 0,
-        device=None, out: str = "", log=None,
-        registered: bool = False) -> dict:
+        device=None, out: str = "", log=None, registered: bool = False,
+        fit_holdout: bool = False) -> GateRun:
     """The gate: ground-truth poses, or with `registered` the registered
-    Replica mode (`make_registered_session`)."""
-    extra = {}
+    Replica mode (`make_registered_session`); `fit_holdout` adds the
+    new-instance path on a held-out instance (GT-pose mode)."""
+    extra, held = {}, None
+    if registered and fit_holdout:
+        raise NotImplementedError(
+            "--registered --fit-holdout is not in the port yet (ROADMAP.md "
+            "Queue 1, item 4c)")
     if registered:
         scene, sess, data, seconds = make_registered_session(
             seed, grid_dim, device)
@@ -265,15 +397,25 @@ def run(iters: int = 10000, grid_dim: int = 128, seed: int = 0,
                  "registration_s": {k: round(v, 3)
                                     for k, v in seconds.items()}}
     else:
-        scene, sess = make_session(seed, grid_dim, device)
+        scene, sess = make_session(seed, grid_dim, device, fit_holdout)
+        held = holdout(scene.inst_dict) if fit_holdout else None
     if iters >= CHUNK_STEPS:  # whole runs, as the JAX package's gate
         iters = iters // CHUNK_STEPS * CHUNK_STEPS
     tr = train(sess, iters, log)
     scored = mesh_and_score(sess, scene, iters,
-                            out or tempfile.mkdtemp(prefix="e2e_quality_"))
+                            out or tempfile.mkdtemp(prefix="e2e_quality_"),
+                            skip=(held[1],) if held else ())
     psnr = render_psnr(sess)
-    return {
+    res = None
+    if held is not None:
+        extra["fit_holdout"], res, sec = run_fit_holdout(sess, scene,
+                                                             held)
+        if log is not None:
+            log(f"fit-holdout: {extra['fit_holdout']}; seconds "
+                + json.dumps({k: round(v, 3) for k, v in sec.items()}))
+    result = {
         "metric": ("e2e_synthetic_quality_registered" if registered
+                   else "e2e_fit_holdout" if held is not None
                    else "e2e_synthetic_quality"),
         "iters": iters,
         "final_psnr": tr["psnr_hist"][-1],
@@ -293,6 +435,7 @@ def run(iters: int = 10000, grid_dim: int = 128, seed: int = 0,
         "mesh_dir": scored["mesh_dir"],
         **extra,
     }
+    return GateRun(result, scene, sess, res)
 
 
 # ---------------------------------------------------------------------------
@@ -385,10 +528,19 @@ def main(argv=None) -> int:
     ap.add_argument("--registered", action="store_true",
                     help="the registered Replica mode: estimated poses "
                     "instead of the ground truth")
+    ap.add_argument("--fit-holdout", action="store_true",
+                    help="hold one instance OUT of training, then run the "
+                    "new-instance path on it: register its cloud to the "
+                    "trained category's canonical union, fit only latent "
+                    "codes (+ sim(3) pose) against the frozen MLP "
+                    "(catnerf_torch/fit.py), and score its mesh with the "
+                    "standard protocol. Uses 3 instances/category so the "
+                    "held-out category stays multi-instance.")
     args = ap.parse_args(argv)
     result = run(args.iters, args.grid_dim, args.seed, args.device, args.out,
                  log=lambda s: print(s, file=sys.stderr),
-                 registered=args.registered)
+                 registered=args.registered,
+                 fit_holdout=args.fit_holdout).result
     print(json.dumps(result))
     return 0 if passes(result) else 1
 

@@ -4,8 +4,8 @@ The port's counterpart of the JAX package's `serve.py`. Serves novel-view
 renders of a trained checkpoint over HTTP — the deployment surface the
 reference lacks entirely (its only outputs are offline mesh files, ref:
 src/trainer.py:62-123, train.py:214-243). The server is threaded, but
-device work (renders, mesh extraction) serializes on one lock — one
-device, one session — while /health stays lock-free and responsive. Every
+device work (renders, mesh extraction, ingest) serializes on one lock —
+one device, one session — while /health stays lock-free and responsive. Every
 render runs on the session's device (render_views.py), under
 `torch.inference_mode()` taken by the render itself: grad mode is per
 thread in PyTorch, and the handler threads take none of their own.
@@ -34,9 +34,18 @@ Endpoints (all GET, images as PNG):
                                       live from the field (0 = background;
                                       cached per state version)
 
-POST /ingest (the JAX package's new-instance workflow, fit.py) answers
-501 with a JSON error: the port has no `fit` yet (ROADMAP.md Queue 1,
-item 4).
+POST /ingest?cls=<cls_id>[&id=N][&steps=600][&rays=360][&accumulate=direct|tsdf]
+            [&save=0]
+  Body: an .npz with rgb [n,W,H,3] u8, depth [n,W,H] f32 (meters), mask
+  [n,W,H] (>0 this instance, 0 other, <0 unknown), T_wc [n,4,4] — the
+  repo's transposed (W,H) layout at the session camera's resolution.
+  Runs the full new-scan workflow (fit.ingest_new_instance): unproject ->
+  register to the category's canonical union -> fit codes + pose against
+  the frozen MLP on the session's device -> adopt into the live session.
+  Returns the summary JSON; the new id serves immediately via /object,
+  /edit, /mesh and /scene. With a checkpoint directory (the CLI's
+  <logdir>/ckpt) the adoption is persisted as a new checkpoint iteration
+  + adopted-sidecar (survives a server restart) unless save=0.
 
 CLI: python -m catnerf_torch.serve --logdir <dir> [--synthetic | --config
 <json>] [--port 8765] [--device cpu]
@@ -44,7 +53,9 @@ CLI: python -m catnerf_torch.serve --logdir <dir> [--synthetic | --config
 
 from __future__ import annotations
 
+import io
 import json
+import os
 import threading
 from http.server import (BaseHTTPRequestHandler, HTTPServer,
                          ThreadingHTTPServer)
@@ -68,11 +79,6 @@ from catnerf_torch.render_views import (
     scene_far,
 )
 
-#: what POST /ingest waits for
-INGEST = ("POST /ingest needs fit.ingest_new_instance, not in the port yet "
-          "(ROADMAP.md Queue 1, item 4: fit)")
-
-
 def _png(img: np.ndarray) -> bytes:
     """(W, H, 3) float [0,1] -> PNG bytes (standard row-major layout)."""
     bgr = (np.clip(img, 0, 1).transpose(1, 0, 2) * 255).astype(
@@ -82,14 +88,17 @@ def _png(img: np.ndarray) -> bytes:
 
 class SceneServer:
     """Render dispatch for one trained session. Device work (renders,
-    mesh extraction) serializes on self.lock — one device, one session —
-    while metadata reads (/health) stay lock-free, so a long render never
-    blocks a liveness probe. The handler takes the lock; calling methods
-    directly (tests, warmup) needs none."""
+    mesh extraction, ingest) serializes on self.lock — one device, one
+    session — while metadata reads (/health) stay lock-free, so a long
+    ingest never blocks a liveness probe. The handler takes the lock;
+    calling methods directly (tests, warmup) needs none."""
 
-    def __init__(self, session):
+    def __init__(self, session, ckpt_dir: str | None = None):
         self.session = session
         self.cfg = session.cfg
+        # when set, /ingest persists the adopted session as a NEW
+        # checkpoint iteration here (adoptees then survive a restart)
+        self.ckpt_dir = ckpt_dir
         # /mesh results keyed by (obj_id, state version): extraction costs
         # seconds, the fields only change on training or adoption (serving
         # never trains)
@@ -99,8 +108,9 @@ class SceneServer:
 
     @property
     def _objects(self):
-        # computed per access (cheap: a few dozen entries), so that the
-        # server always lists the session's current instances
+        # computed per access (cheap: a few dozen entries) so instances
+        # adopted into the live session (fit.adopt_instance) serve
+        # immediately without recreating the server
         return {int(obj_id): (cls_id, cat)
                 for cls_id, cat in zip(self.session.cls_ids,
                                        self.session.categories)
@@ -178,12 +188,49 @@ class SceneServer:
                                   az_deg, el_deg, radius, width, height,
                                   n_bins)
 
+    def ingest(self, body: bytes, q: dict) -> dict:
+        """POST /ingest — decode the .npz observation payload and run the
+        register->fit->adopt workflow (fit.ingest_new_instance). Serial like
+        every other handler: the fit runs on the same device the renders
+        use, so a long ingest delays (never corrupts) concurrent reads."""
+        from catnerf_torch import fit as fit_mod
+
+        try:
+            payload = np.load(io.BytesIO(body), allow_pickle=False)
+        except Exception as e:
+            raise ValueError(f"body is not a readable .npz: {e!r}") from e
+        missing = [k for k in ("rgb", "depth", "mask", "T_wc")
+                   if k not in payload]
+        if missing:
+            raise ValueError(f".npz payload missing arrays: {missing}")
+        out = fit_mod.ingest_new_instance(
+            self.session, int(q["cls"]),
+            payload["rgb"], payload["depth"], payload["mask"],
+            payload["T_wc"],
+            inst_id=int(q["id"]) if "id" in q else None,
+            steps=int(q.get("steps", 600)),
+            n_rays=int(q.get("rays", 360)),
+            accumulate=q.get("accumulate", "direct"))
+        # persist the adoption (save=0 opts out): a NEW checkpoint
+        # iteration + adopted-sidecar, so a restarted server (which
+        # restores via restore_session_checkpoint) still has the instance
+        if self.ckpt_dir is not None and q.get("save", "1") != "0":
+            from catnerf_torch.train.checkpoint import (
+                latest_checkpoint, save_session_checkpoint)
+
+            latest = latest_checkpoint(self.ckpt_dir)
+            it = (int(os.path.basename(latest)) if latest else 0) + 1
+            out["checkpoint"] = save_session_checkpoint(
+                self.ckpt_dir, self.session, it)
+        return out
+
     def mesh_obj(self, obj_id: int) -> bytes:
         """GET /mesh — scene-frame colored .obj of one object (0 =
         background), extracted live from the field (mesher/meshing.py::
         mesh_object: adaptive grid, space carving, sim(3) scene
         transform). Cached per (object, state version) — the fields only
-        change on training or adoption, so repeat requests are free."""
+        change on training or adoption (/ingest), so repeat requests are
+        free."""
         if obj_id != 0 and obj_id not in self._objects:
             raise ValueError(f"unknown object id {obj_id}")
         ver = (int(self.session.state.step),
@@ -275,8 +322,8 @@ a{color:#7aa2f7}
 </fieldset>
 <img id="view" alt="render">
 <p>endpoints: <a href="/health">/health</a> /object /scene /edit /mesh
- (GET /mesh?id=N downloads the colored .obj); POST /ingest is not in
- this port yet (it answers 501).</p>
+ (GET /mesh?id=N downloads the colored .obj) — POST /ingest adds a new
+ instance from posed RGB-D observations.</p>
 <script>
 const $=id=>document.getElementById(id);
 let inflight=false, dirty=false;
@@ -429,13 +476,14 @@ def make_handler(server: SceneServer):
             except Exception as e:  # pragma: no cover - defensive
                 self._json(500, {"error": repr(e)})
 
+        _MAX_INGEST_BYTES = 1 << 30  # bound host memory per request
         _MAX_DRAIN_BYTES = 64 << 20  # error-path body drain cap
 
         def _drain(self, n: int) -> None:
             """Read and discard up to _MAX_DRAIN_BYTES of a request body
-            before the reply: closing the socket while the client is still
-            streaming resets the connection and the client never sees the
-            JSON written for exactly that case."""
+            before an error reply: closing the socket while the client is
+            still streaming resets the connection and the client never
+            sees the diagnostic JSON written for exactly that case."""
             try:
                 left = min(n, self._MAX_DRAIN_BYTES)
                 while left > 0:
@@ -448,18 +496,36 @@ def make_handler(server: SceneServer):
 
         def do_POST(self):  # noqa: N802 (http.server API)
             u = urlparse(self.path)
+            q = {k: v[0] for k, v in parse_qs(u.query).items()}
             try:
                 n = max(0, int(self.headers.get("Content-Length", 0) or 0))
             except ValueError:
                 n = 0
+            body_read = False
             try:
-                self._drain(n)
-                if u.path == "/ingest":
-                    self._json(501, {"error": INGEST})
-                else:
+                if u.path != "/ingest":
+                    self._drain(n)
                     self._json(404, {"error": f"unknown path {u.path}"})
+                    return
+                if n <= 0:
+                    raise ValueError("POST /ingest needs an .npz body "
+                                     "(Content-Length missing or 0)")
+                if n > self._MAX_INGEST_BYTES:
+                    raise ValueError(f"body too large ({n} bytes; cap "
+                                     f"{self._MAX_INGEST_BYTES})")
+                body = self.rfile.read(n)
+                body_read = True
+                with server.lock:  # ingest mutates the session
+                    out = server.ingest(body, q)
+                self._json(200, out)
             except (BrokenPipeError, ConnectionResetError):
                 return  # client went away; see do_GET
+            except (KeyError, ValueError) as e:
+                if not body_read:
+                    self._drain(n)
+                self._json(400, {"error": repr(e)})
+            except Exception as e:  # pragma: no cover - defensive
+                self._json(500, {"error": repr(e)})
 
     return Handler
 
@@ -483,7 +549,8 @@ def serve(session, port: int = 8765, host: str = "127.0.0.1",
     """Build the (not-yet-running) HTTP server; port 0 takes a free port
     (`httpd.server_address[1]`). Threaded: device work serializes on the
     SceneServer lock, but /health (and reading request bodies) proceed
-    concurrently, so liveness probes are never starved by a long render."""
+    concurrently, so liveness probes are never starved by a long render or
+    ingest."""
     scene_server = scene_server or SceneServer(session)
     httpd = ThreadingHTTPServer((host, port), make_handler(scene_server))
     httpd.daemon_threads = True
@@ -510,7 +577,8 @@ def main(argv=None) -> int:
         raise NotImplementedError(SHARDED)
 
     session = restore_session(args)
-    scene_server = SceneServer(session)
+    scene_server = SceneServer(session,
+                               ckpt_dir=os.path.join(args.logdir, "ckpt"))
     if args.warmup:
         import time
 
@@ -521,7 +589,7 @@ def main(argv=None) -> int:
                   scene_server=scene_server)
     print(f"serving {len(session.cls_ids)} categories on {session.device} "
           f"at http://{args.host}:{httpd.server_address[1]} (endpoints: "
-          f"/health /object /scene /edit /mesh; /ingest answers 501)",
+          f"/health /object /scene /edit /mesh /ingest)",
           flush=True)
     try:
         httpd.serve_forever()

@@ -94,35 +94,42 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
 
 
 def save_session_checkpoint(ckpt_dir: str, session, iteration: int) -> str:
-    """save_checkpoint of the session's state. The JAX package also writes
-    an `<iteration>.adopted.json` sidecar of the instances that
-    `fit.adopt_instance` added; the port has no `fit` yet (ROADMAP.md
-    Queue 1, item 4), so it writes none, and removes a stale one (from an
-    earlier save of the same iteration) that a restore would otherwise
-    apply."""
-    if getattr(session, "adopted_instances", []):
-        raise NotImplementedError(
-            "saving adopted instances needs fit.adopt_instance "
-            "(ROADMAP.md Queue 1, item 4: fit)")
+    """save_checkpoint of the session's state + an
+    `<iteration>.adopted.json` sidecar recording instances written
+    post-training by fit.adopt_instance, in adoption order (the JAX
+    package's records: cls, id, extent, obj_tensor). Without the sidecar a
+    restart loses adoptees entirely: the fresh session's code tables have
+    neither their (possibly grown) shape nor their sim(3)/extent
+    metadata."""
     path = save_checkpoint(ckpt_dir, session.state, iteration)
+    adopted = getattr(session, "adopted_instances", [])
     sidecar = f"{path}.adopted.json"
-    if os.path.exists(sidecar):
+    if adopted:
+        with open(sidecar, "w") as f:
+            json.dump(adopted, f)
+    elif os.path.exists(sidecar):
+        # a stale sidecar from an earlier same-iteration save (e.g. the
+        # ckpt dir was rolled back by hand) would re-grow the restored
+        # session's code tables past the saved state's shapes
         os.remove(sidecar)
     return path
 
 
 def restore_session_checkpoint(path: str, session) -> None:
-    """Restore a session from a checkpoint: its state is replaced (so a
-    fast path enabled before must be enabled again) and its iteration set
-    to the restored step. A checkpoint with an adoption sidecar raises:
-    re-applying the records needs `fit.apply_adopted_record`."""
+    """Restore a session from a checkpoint saved by save_session_checkpoint
+    (or plain save_checkpoint): re-applies any persisted adoption records
+    to the freshly built session FIRST — growing its code tables (and the
+    optimizer's moments, where it has any) and registering pose/extent
+    metadata, so the template's shapes match the saved state — then loads
+    the train state. The state is replaced (so a fast path enabled before
+    must be enabled again) and the iteration set to the restored step."""
     sidecar = f"{path}.adopted.json"
     if os.path.exists(sidecar):
+        from catnerf_torch.fit import apply_adopted_record
+
         with open(sidecar) as f:
-            n = len(json.load(f))
-        raise NotImplementedError(
-            f"{sidecar} records {n} adopted instances; restoring them needs "
-            f"fit.apply_adopted_record (ROADMAP.md Queue 1, item 4: fit)")
+            for rec in json.load(f):
+                apply_adopted_record(session, rec)
     session.state = load_checkpoint(path, session.state)
     session.iteration = session.state.step
 

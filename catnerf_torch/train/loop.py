@@ -72,8 +72,7 @@ class TrainingSession:
             cfg.seed + 1)
         self.n_per_cls = self.batcher.rays_per_category(cfg.n_per_optim)
         # instances written after training by fit.adopt_instance, in
-        # adoption order (the JAX package's; the port has no fit yet, and
-        # its checkpoints refuse a non-empty list)
+        # adoption order; checkpoints persist them as a sidecar
         self.adopted_instances: list[dict] = []
         self.iteration = 0
         self._store = None

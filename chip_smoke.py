@@ -139,15 +139,35 @@ Phases, each printing one or more lines:
    then `serve(session, port=0)` in a thread on 127.0.0.1: /health, the
    viewer, /object, /scene (by frame and by orbit) and /edit (texture,
    shape, interpolation, mean) as PNGs of the snapped size, warm requests
-   timed, /mesh twice (the second from the cache), POST /ingest's 501,
-   one /scene at 1280 x 960 x 192 with its seconds and peak device memory;
-   the server shut down, no fused kernel launched.
+   timed, /mesh twice (the second from the cache), one /scene at 1280 x
+   960 x 192 with its seconds and peak device memory; the server shut
+   down, no fused kernel launched;
+14. test-time fitting (`catnerf_torch.fit`): the JAX package's
+   `scripts/e2e_quality.py --fit-holdout` gate uncut
+   (`e2e_quality.run(fit_holdout=True)`: 3 categories x 3 spheres, the
+   first category's last held out, E2E_ITERS steps of the default trainer
+   on the other 8, the mesher at grid 128 and the metrics, then
+   `register_new_instance`, a 1,000-step fit with pose refinement, the
+   fitted mesh scored), its `fit_holdout` beside the JAX package's record,
+   held to the JAX gate's pass rule and a fit accuracy under E2E_CM_BOUND
+   cm; the fit step (360 rays x 10 samples) eager and as a replayed CUDA
+   graph in steps/s, the capture's seconds, nodes and pool, the graph
+   bitwise equal to the eager loop over FIT_CMP steps; FIT_CHECK_STEPS
+   steps card against CPU, each from the card's state on its draws
+   (experimental/fit_check.py's bounds); the fitted instance adopted, the
+   session saved with its adoption sidecar and restored into a fresh CUDA
+   session (every parameter and AdamW tensor bitwise, the adoptee's orbit
+   view bitwise); the restored session served on 127.0.0.1: POST /ingest
+   of the held-out instance's observations as an .npz (accumulate=direct,
+   INGEST_STEPS steps, then /health and /object of the new id; then
+   accumulate=tsdf with save=0), each timed; no fused kernel launched.
 
-Each main path (5, 7, 8, 9, 10, 11, 13) is driven with the launch counts set to 0 just
-before it and read just after. Then a `{"kernels": [...]}` line, the card line
-again, and as the last line `{"ok": true, "device": {...}}`. Exits
-non-zero, with no result, when there is no CUDA device, when the port
-cannot be imported, or when any check fails. Imports nothing of JAX.
+Each main path (5, 7, 8, 9, 10, 11, 13, 14) is driven with the launch
+counts set to 0 just before it and read just after. Then a
+`{"kernels": [...]}` line, the card line again, and as the last line
+`{"ok": true, "device": {...}}`. Exits non-zero, with no result, when
+there is no CUDA device, when the port cannot be imported, or when any
+check fails. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -254,6 +274,17 @@ SERVE_TIMED = 5
 CHECK_VIEW = (160, 120, 32)      # card vs CPU: width, height, bins
 SERVE_VIEW = (320, 240, 64)      # the timed renders and requests
 SERVE_LARGEST = (1280, 960, 192)  # serve._SIZES[-1], serve._BINS[-1]
+# phase 14, test-time fitting: the JAX package's --fit-holdout gate uncut
+# (its records: BASELINE.md:67, 192), the fit step's timing (steps a
+# timed run), the graph against the eager loop, the card against the CPU,
+# and /ingest's fit length (the server's default)
+JAX_FIT_RECORD = ("the JAX package's --fit-holdout on a TPU v5e "
+                  "(BASELINE.md:67, 192): pose 0.175 cm / 1.5% scale, mesh "
+                  "0.622 cm / 100%; later 0.587 cm / 100%")
+FIT_TIMED = 200
+FIT_CMP = 10
+FIT_CHECK_STEPS = 20
+INGEST_STEPS = 600
 # torch.cuda.set_sync_debug_mode while run_fast runs: the steps must not
 # wait on the device, so that the host queues ahead of it
 SYNC_DEBUG = "error"
@@ -2006,7 +2037,6 @@ def serving_phase(sess) -> None:
     HTTP server on the card: every endpoint, warm requests timed, the
     largest whitelisted scene render with its peak memory."""
     import threading
-    import urllib.error
     import urllib.request
 
     from catnerf_torch import serve
@@ -2094,15 +2124,6 @@ def serving_phase(sess) -> None:
         log(f"serve: /mesh?id={a}: {verts} vertices, {len(mesh1) / 2**20:.2f}"
             f" MB in {t_mesh:.2f} s, again from the cache in "
             f"{t_cached * 1e3:.2f} ms")
-        try:
-            urllib.request.urlopen(urllib.request.Request(
-                base + "/ingest?cls=80", data=b"npz"), timeout=60)
-            raise AssertionError("serve: /ingest did not refuse")
-        except urllib.error.HTTPError as e:
-            body = json.loads(e.read())
-            if e.code != 501 or "fit" not in body["error"]:
-                raise AssertionError(f"serve: /ingest: {e.code} {body}")
-        log(f"serve: /ingest: 501 {body['error']!r}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_mb = torch.cuda.memory_allocated() / 2**20
@@ -2125,6 +2146,232 @@ def serving_phase(sess) -> None:
     launches = dict(ff.LAUNCHES)
     if any(launches.values()):
         raise AssertionError(f"serve: fused kernels launched: {launches}")
+
+
+def fit_gate():
+    """Phase 14's gate: `e2e_quality.run(fit_holdout=True)` uncut, held
+    to the JAX gate's pass rule and a fit accuracy under E2E_CM_BOUND.
+    Returns the GateRun."""
+    from catnerf_torch.experimental import e2e_quality as e2e
+
+    t0 = time.time()
+    run = e2e.run(E2E_ITERS, E2E_GRID,
+                   out=os.path.join(ROOT, "build", "e2e_fit_mesh"),
+                   log=lambda m: log(f"fit: {m}"), fit_holdout=True)
+    res, fh = run.result, run.result["fit_holdout"]
+    for obj_id, m in sorted(res["per_object"].items()):
+        log(f"fit: trained object {obj_id}: {json.dumps(m)}")
+    log(f"fit: gate in {time.time() - t0:.1f} s (training "
+        f"{res['train_s']} s, meshing {res['mesh_s']} s, scoring "
+        f"{res['score_s']} s); trained objects {res['mean_accuracy_cm']} cm "
+        f"accuracy, {res['mean_completion_cm']} cm completion, "
+        f"{res['mean_completion_ratio_pct']} % over {res['n_meshed']}; "
+        f"render_psnr {res['render_psnr']} dB")
+    log(f"fit: fit_holdout {json.dumps(fh)} ({JAX_FIT_RECORD})")
+    mesh = fh["mesh"]
+    if not e2e.passes(res) or mesh is None or \
+            not mesh["accuracy_cm"] < E2E_CM_BOUND:
+        raise AssertionError(f"fit: the fit-holdout gate failed: "
+                             f"{json.dumps(fh)}; trained means "
+                             f"{res['mean_accuracy_cm']} cm, "
+                             f"{res['n_meshed']} meshed")
+    return run
+
+
+def fit_step_phase(run) -> None:
+    """Phase 14's fit step on the gate's session, the held-out instance at
+    its ground-truth pose: eager and graph steps/s, the capture, the graph
+    bitwise against the eager loop, the card against the CPU."""
+    from catnerf_torch import fit
+    from catnerf_torch.experimental import e2e_quality as e2e
+    from catnerf_torch.experimental import fit_check as fck
+
+    sess, scene = run.session, run.scene
+    held_cls, held = e2e.holdout(run.scene.inst_dict)
+    info = scene.inst_dict[held_cls][held]
+
+    def fitter():
+        return fit.prepare_fit(sess, held_cls, info["frame_info"],
+                               scene.sample_dict, sess.cam, info["T_obj"],
+                               held, optimize_pose=True)
+
+    eager, arrays = fitter()
+    graphed, _ = fitter()
+    for _ in range(FIT_CMP):
+        le, pe = eager.eager_step()
+        lg, pg = graphed.step()
+    same = (torch.equal(le, lg) and torch.equal(pe, pg) and all(
+        torch.equal(a, b) for (_, a), (_, b) in
+        zip(fck.named_leaves(eager), fck.named_leaves(graphed))))
+    captured = graphed.captured["generator"]
+    log(f"fit: the fit step ({eager.n_rays} rays x "
+        f"{sess.cfg.n_bins_cam2surface + sess.cfg.n_bins} samples, "
+        f"{eager.n} rows) as a CUDA graph: {captured.node_count()} nodes, "
+        f"captured in {captured.capture_s:.3f} s, pool "
+        f"{captured.pool_bytes / 2**20:.1f} MB; graph vs eager over "
+        f"{FIT_CMP} steps: {'bitwise equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("fit: the graph left the eager loop")
+    rates = {}
+    for what, step in (("eager", eager.eager_step), ("graph", graphed.step),
+                       ("eager again", eager.eager_step),
+                       ("graph again", graphed.step)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FIT_TIMED):
+            out = step()
+        float(out[0])
+        rates[what] = FIT_TIMED / (time.perf_counter() - t0)
+    log("fit: steps/s (" + f"{FIT_TIMED} steps a run, in turns): "
+        + json.dumps({k: round(v, 2) for k, v in rates.items()}))
+
+    card, _ = fitter()
+    check = fck.fit_card_vs_cpu(card, fck.cpu_twin(card, arrays),
+                                FIT_CHECK_STEPS, card.optimizer.defaults["lr"])
+    log(f"fit: card vs CPU, {check.line()}; card "
+        f"{check.steps / check.card_s:.1f} eager steps/s with the per-step "
+        f"sync")
+    if check.failures():
+        raise AssertionError("fit: the card left the CPU's bounds: "
+                             + "; ".join(check.failures()))
+
+
+def adopt_phase(run):
+    """Phase 14's adoption: the gate's fit adopted, the session saved with
+    its sidecar and restored into a fresh CUDA session, bitwise, the
+    adoptee's orbit view bitwise. Returns the restored session."""
+    import numpy as np
+
+    from catnerf_torch import fit, serve
+    from catnerf_torch.experimental import e2e_quality as e2e
+    from catnerf_torch.train import checkpoint as ckpt
+
+    sess = run.session
+    held_cls, held = e2e.holdout(run.scene.inst_dict)
+    t0 = time.time()
+    fit.adopt_instance(sess, held_cls, held, run.fit)
+    view = (30.0, 20.0, None, *CHECK_VIEW)
+    img = serve.SceneServer(sess).render_object(held, *view)
+    path = ckpt.save_session_checkpoint(
+        os.path.join(ROOT, "build", "fit_ckpt"), sess, sess.iteration)
+    with open(f"{path}.adopted.json") as f:
+        records = json.load(f)
+    _, fresh = e2e.make_session(grid_dim=E2E_GRID, fit_holdout=True)
+    ckpt.restore_session_checkpoint(path, fresh)
+    same = tensors_equal(state_tensors(sess.state),
+                         state_tensors(fresh.state))
+    img2 = serve.SceneServer(fresh).render_object(held, *view)
+    log(f"fit: adopted {held} into category {held_cls} (codes "
+        f"{tuple(sess.state.params.codes.shape.shape)}), saved with "
+        f"{len(records)} adoption record(s) and restored into a fresh "
+        f"session in {time.time() - t0:.2f} s: state "
+        f"{'bitwise equal' if same else 'DIFFERENT'}, the adoptee's "
+        f"{CHECK_VIEW[0]} x {CHECK_VIEW[1]} orbit view "
+        f"{'bitwise equal' if np.array_equal(img, img2) else 'DIFFERENT'}")
+    if not same or not np.array_equal(img, img2) or \
+            fresh.adopted_instances != sess.adopted_instances or \
+            not img.std() > 0:
+        raise AssertionError("fit: the adopted session did not survive the "
+                             "restart")
+    return fresh
+
+
+def ingest_phase(sess, scene) -> None:
+    """Phase 14's /ingest: the restored session served on 127.0.0.1, the
+    held-out instance's observations POSTed as an .npz, twice."""
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from catnerf_torch import serve
+    from catnerf_torch.data import png
+    from catnerf_torch.experimental import e2e_quality as e2e
+
+    held_cls, held = e2e.holdout(scene.inst_dict)
+    frames = sorted(scene.sample_dict)
+    buf = io.BytesIO()
+    np.savez(buf,
+             rgb=np.stack([scene.sample_dict[f]["image"] for f in frames]),
+             depth=np.stack([scene.sample_dict[f]["depth"] for f in frames]),
+             mask=np.stack([scene.sample_dict[f]["obj_mask"] == held
+                            for f in frames]).astype(np.int8),
+             T_wc=np.stack([scene.sample_dict[f]["T"] for f in frames]))
+    body = buf.getvalue()
+    ckpt_dir = os.path.join(ROOT, "build", "fit_serve_ckpt")
+    server = serve.SceneServer(sess, ckpt_dir=ckpt_dir)
+    httpd = serve.serve(sess, port=0, host="127.0.0.1", scene_server=server)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(query):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"{base}/ingest?{query}", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out = json.loads(r.read())
+        return out, time.perf_counter() - t0
+
+    try:
+        out, dt = post(f"cls={held_cls}&steps={INGEST_STEPS}")
+        with urllib.request.urlopen(f"{base}/health", timeout=60) as r:
+            ids = json.loads(r.read())["objects"]
+        t0 = time.perf_counter()
+        w, h, bins = SERVE_VIEW
+        with urllib.request.urlopen(
+                f"{base}/object?id={out['id']}&az=30&el=20&w={w}&h={h}"
+                f"&bins={bins}", timeout=300) as r:
+            img = png.imdecode(r.read())
+        dt_obj = time.perf_counter() - t0
+        log(f"fit: POST /ingest ({len(body) / 2**20:.2f} MB, "
+            f"accumulate=direct, {INGEST_STEPS} steps) in {dt:.2f} s: "
+            f"{json.dumps({k: v for k, v in out.items() if k != 'T_obj'})}; "
+            f"/health lists {out['id']}: {out['id'] in ids}; /object of it "
+            f"{img.shape} in {dt_obj * 1e3:.1f} ms")
+        if not out["adopted"] or out["id"] not in ids or \
+                img.shape != (h, w, 3) or "checkpoint" not in out:
+            raise AssertionError(f"fit: /ingest: {out}")
+        out2, dt2 = post(f"cls={held_cls}&steps={INGEST_STEPS}"
+                         f"&accumulate=tsdf&save=0")
+        log(f"fit: POST /ingest (accumulate=tsdf, save=0) in {dt2:.2f} s: "
+            f"{json.dumps({k: v for k, v in out2.items() if k != 'T_obj'})}")
+        if not out2["adopted"] or "checkpoint" in out2:
+            raise AssertionError(f"fit: /ingest tsdf: {out2}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("fit: the server did not stop")
+
+
+def fit_phase() -> None:
+    """Phase 14: test-time fitting — the fit-holdout gate, the fit step,
+    adoption across a restart, /ingest; no fused kernel launched."""
+    from catnerf_torch.kernels import fused_field as ff
+
+    ff.reset_launch_counts()
+    split = {}
+    t0 = time.time()
+    run = fit_gate()
+    split["gate"] = time.time() - t0
+    t0 = time.time()
+    fit_step_phase(run)
+    split["fit step"] = time.time() - t0
+    t0 = time.time()
+    fresh = adopt_phase(run)
+    split["adoption"] = time.time() - t0
+    t0 = time.time()
+    ingest_phase(fresh, run.scene)
+    split["ingest"] = time.time() - t0
+    launches = dict(ff.LAUNCHES)
+    log("fit: phase 14 by part (s): "
+        + json.dumps({k: round(v, 1) for k, v in split.items()})
+        + f"; launches {json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError(f"fit: fused kernels launched: {launches}")
 
 
 def main() -> int:
@@ -2214,6 +2461,10 @@ def main() -> int:
     t0 = time.time()
     serving_phase(gate)
     log(f"serve: phase 13 in {time.time() - t0:.1f} s")
+    del gate
+    t0 = time.time()
+    fit_phase()
+    log(f"fit: phase 14 in {time.time() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if not r["launches"] > 0:

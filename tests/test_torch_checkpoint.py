@@ -9,6 +9,7 @@ category x 2 instance 48x36 scene with a 32-wide background keeps it small.
 
 from __future__ import annotations
 
+import json
 import os
 
 import jax
@@ -229,17 +230,32 @@ def test_the_optimizer_flags_and_step_counts_follow_the_loading_optimizer(
 
 def test_a_stale_sidecar_is_removed_and_a_present_one_makes_restore_raise(
         tmp_path):
+    """The adoption sidecar (the name is from when the port refused it): an
+    adoptee-less save removes a stale `<it>.adopted.json`; a save with
+    adopted instances writes their records, and a restore into a fresh
+    session applies them before loading (fit.apply_adopted_record), so
+    the grown code tables load bitwise."""
     sess = _session()
     stale = tmp_path / "4.adopted.json"
     stale.write_text('[{"obj_id": 9}]')
     path = ckpt.save_session_checkpoint(str(tmp_path), sess, 4)
     assert not stale.exists() and os.path.exists(path)
-    stale.write_text('[{"obj_id": 9}]')
-    with pytest.raises(NotImplementedError, match="fit.apply_adopted_record"):
-        ckpt.restore_session_checkpoint(path, _session())
-    sess.adopted_instances.append({"obj_id": 9})
-    with pytest.raises(NotImplementedError, match="fit"):
-        ckpt.save_session_checkpoint(str(tmp_path), sess, 5)
+    cls_id = sess.cls_ids[0]
+    rec = {"cls": cls_id, "id": 77, "extent": [0.5, 0.6, 0.7],
+           "obj_tensor": [0.4, 1.0, 0.0, 0.0, 0.0, 0.1, 0.2, 0.3]}
+    from catnerf_torch import fit
+
+    fit.apply_adopted_record(sess, rec)
+    sess.step_once()
+    path = ckpt.save_session_checkpoint(str(tmp_path), sess, 5)
+    with open(f"{path}.adopted.json") as f:
+        assert json.load(f) == [rec]
+    fresh = _session()
+    ckpt.restore_session_checkpoint(path, fresh)
+    assert fresh.adopted_instances == [rec]
+    assert fresh.categories[0].obj_ids[-1] == 77
+    assert tuple(fresh.state.params.codes.shape.shape) == (2, 3, 16)
+    _assert_bitwise(_state_tensors(fresh.state), _state_tensors(sess.state))
 
 
 def test_find_reference_checkpoints_takes_the_latest_iteration_per_class(

@@ -264,3 +264,43 @@ def test_a_cadence_below_one_is_a_usage_error(capsys, flag):
         main(["--synthetic", flag, "0", "--device", "cpu"])
     assert e.value.code == 2
     assert "must be >= 1" in capsys.readouterr().err
+
+
+def test_fit_cli_fits_an_instance_and_meshes_it(tmp_path, capsys,
+                                               monkeypatch):
+    """`python -m catnerf_torch.fit --device cpu` on a 2-step checkpoint
+    of the --synthetic scene: it restores the session, fits one
+    instance's codes (3 steps, pose refined), prints the PSNRs and writes
+    the fitted mesh (at grid 32: the adaptive grid at 5 mm voxels takes
+    seconds a mesh on one core)."""
+    from catnerf_torch import fit as fit_cli
+    from catnerf_torch.loaders import load_scene
+    from catnerf_torch.mesher import meshing
+
+    logdir = tmp_path / "logs"
+    assert main(["--synthetic", "--logdir", str(logdir), "--max-iter", "2",
+                 "--log-iter", "2", "--save-iter", "2",
+                 "--device", "cpu"]) == 0
+    capsys.readouterr()
+    _, inst_dict, _, _ = load_scene(None, synthetic=True)
+    cls_id = sorted(c for c in inst_dict if c != 0)[0]
+    obj = sorted(inst_dict[cls_id])[-1]
+    grids = []
+    monkeypatch.setattr(meshing, "adaptive_grid_dim",
+                        lambda *a: grids.append(a) or 32)
+    out = tmp_path / "fits"
+    assert fit_cli.main(["--logdir", str(logdir), "--synthetic", "--cls",
+                         str(cls_id), "--obj", str(obj), "--steps", "3",
+                         "--n-rays", "32", "--optimize-pose", "--mesh",
+                         "--out", str(out), "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith(f"fit obj {obj} (cls {cls_id}): 3 steps, "
+                               "psnr ")
+    assert lines[-1] == f"mesh: {out / f'obj{obj}_fit.obj'}"
+    assert len(grids) == 1
+    text = (out / f"obj{obj}_fit.obj").read_text().splitlines()
+    assert sum(line.startswith("v ") for line in text) > 0
+    assert sum(line.startswith("f ") for line in text) > 0
+    with pytest.raises(SystemExit, match="not in the dataset"):
+        fit_cli.main(["--logdir", str(logdir), "--synthetic", "--cls",
+                      str(cls_id), "--obj", "999", "--device", "cpu"])

@@ -42,6 +42,68 @@ def test_the_gate_trains_meshes_and_scores_all_six_spheres(tmp_path,
     assert len(psnr) == 2 and all(np.isfinite(psnr)) and min(psnr) > 0
 
 
+#: the keys of the JAX gate's fit_holdout dict (scripts/e2e_quality.py:
+#: 392-405)
+FIT_HOLDOUT_KEYS = {"held_out", "path", "registration_chamfer",
+                    "pose_center_err_cm", "pose_scale_err_pct", "fit_steps",
+                    "psnr_prior_init", "psnr_after_fit", "mesh", "wall_s"}
+
+
+def test_the_fit_holdout_gate_runs_the_new_instance_path(tmp_path, capsys,
+                                                        monkeypatch):
+    """--fit-holdout at 10 steps, 32-voxel grids and a 5-step fit: the
+    first category's last sphere is left out of training and scored only
+    through the fit (registration, fit with pose refinement, mesh), with
+    the JAX gate's keys, and the exit code of its pass rule."""
+    monkeypatch.setattr(e2e, "RENDER_BINS", 2)
+    monkeypatch.setattr(e2e, "FIT_STEPS", 5)
+    rc = e2e.main(["--device", "cpu", "--iters", "10", "--grid-dim", "32",
+                   "--out", str(tmp_path), "--fit-holdout"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    result = json.loads(lines[0])
+    assert rc == (0 if e2e.passes(result) else 1)
+    assert result["metric"] == "e2e_fit_holdout"
+    held_cls, held = e2e.holdout(e2e.make_scene(
+        **{**e2e.SCENE, "insts_per_cat": e2e.HOLDOUT_INSTS}).inst_dict)
+    assert result["n_objects"] == 9
+    assert sorted(int(k) for k in result["per_object"]) == sorted(
+        i for i in range(1, 10) if i != held)
+    fh = result["fit_holdout"]
+    assert set(fh) == FIT_HOLDOUT_KEYS
+    assert fh["held_out"] == held and fh["path"] == "gt_pose"
+    assert fh["fit_steps"] == 5
+    assert np.isfinite([fh["registration_chamfer"], fh["pose_center_err_cm"],
+                        fh["psnr_prior_init"], fh["psnr_after_fit"]]).all()
+    assert fh["mesh"] is None or set(fh["mesh"]) == {
+        "accuracy_cm", "completion_cm", "completion_ratio_pct"}
+
+
+def test_the_registered_fit_holdout_raises_naming_its_item():
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        e2e.run(registered=True, fit_holdout=True, device="cpu")
+
+
+@pytest.mark.parametrize("change,ok", [
+    ({}, True),
+    ({"n_meshed": 9}, False),           # 9 objects, one held out: 8 trained
+    ({"fit_holdout": {"mesh": None}}, False),
+    ({"fit_holdout": {"mesh": {"accuracy_cm": 5.0}}}, False),
+    ({"fit_holdout": {"psnr_after_fit": 20.0}}, False),
+])
+def test_the_fit_holdout_pass_rule_is_the_jax_gates(change, ok):
+    """scripts/e2e_quality.py:439-447: the trained objects all meshed and
+    in the band, the fitted mesh present and under 5 cm in accuracy, and
+    the fit's PSNR above its prior's."""
+    fh = {"mesh": {"accuracy_cm": 0.6}, "psnr_prior_init": 20.0,
+          "psnr_after_fit": 25.0}
+    result = {"n_meshed": 8, "n_objects": 9, "mean_accuracy_cm": 1.0,
+              "mean_completion_cm": 1.0, "mean_completion_ratio_pct": 99.0,
+              "fit_holdout": {**fh, **change.pop("fit_holdout", {})},
+              **change}
+    assert e2e.passes(result) == ok
+
+
 def test_the_pass_rule_is_the_jax_gates():
     ok = {"n_meshed": 6, "n_objects": 6, "mean_accuracy_cm": 4.9,
           "mean_completion_cm": 4.9, "mean_completion_ratio_pct": 80.1}

@@ -67,13 +67,14 @@ def test_importing_every_module_loads_no_jax():
     "catnerf_torch.data.replica", "catnerf_torch.data.interop",
     "catnerf_torch.geometry.registration", "catnerf_torch.loaders",
     "catnerf_torch.train.__main__",
-    "catnerf_torch.experimental.registration_check"])
+    "catnerf_torch.experimental.registration_check", "catnerf_torch.fit",
+    "catnerf_torch.experimental.fit_check"])
 def test_packed_and_xla_path_modules_load_no_jax(module):
     """Each module of the packed kernels, the XLA-path fields, the kernel
     comparison, the geometry library, the mesher, the metrics, the
-    checkpoints and the quality gate, imported alone in a fresh
-    interpreter, loads neither jax nor the JAX package, nor OpenCV or
-    PIL."""
+    checkpoints, the quality gate and the test-time fit, imported alone
+    in a fresh interpreter, loads neither jax nor the JAX package, nor
+    OpenCV or PIL."""
     code = (f"import json, sys\nimport {module}\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -113,7 +114,9 @@ def test_source_walk_covers_the_new_modules():
             "catnerf_torch/data/png.py", "catnerf_torch/data/replica.py",
             "catnerf_torch/geometry/field_pretrain.py",
             "catnerf_torch/geometry/uncertainty.py",
-            "catnerf_torch/experimental/registration_check.py"} <= names
+            "catnerf_torch/experimental/registration_check.py",
+            "catnerf_torch/fit.py",
+            "catnerf_torch/experimental/fit_check.py"} <= names
 
 
 def test_reading_a_jax_written_cache_loads_no_forbidden_module(tmp_path):
@@ -185,6 +188,18 @@ def test_session_without_device_raises_when_there_is_no_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
                         cam=scene.cam)
+
+
+def test_the_fit_cli_without_device_raises_when_there_is_no_gpu(
+        monkeypatch, tmp_path):
+    """`python -m catnerf_torch.fit` asked for no device wants the card;
+    with none it raises before it loads anything."""
+    from catnerf_torch import fit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit.main(["--logdir", str(tmp_path), "--synthetic", "--cls", "1",
+                  "--obj", "1"])
 
 
 @pytest.mark.parametrize("change,match", [

@@ -2,7 +2,8 @@
 package's, on the CPU: a real ThreadingHTTPServer of each package on a free
 port, serving the same scene and weights (test_torch_render_views.py's
 pair). The /object, /scene and /edit PNGs decode to pixels within 1 LSB of
-the JAX server's for the same query; /ingest answers 501."""
+the JAX server's for the same query; /ingest fits, adopts and serves a new
+instance."""
 
 from __future__ import annotations
 
@@ -32,7 +33,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _start(module, sess):
-    server = module.SceneServer(sess)
+    return _start_with(module.SceneServer(sess), sess, module)
+
+
+def _start_with(server, sess, module=tserve):
     httpd = module.serve(sess, port=0, scene_server=server)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -205,17 +209,119 @@ def _check_mesh(server, base):
     assert code == 400 and "unknown object id 999" in body["error"]
 
 
-def test_ingest_answers_501_and_other_posts_404(servers):
-    _, base = servers["port"]
-    code, body = _error(f"{base}/ingest?cls=80", data=b"x" * 100_000)
-    assert code == 501 and "fit" in body["error"]
-    assert "ROADMAP.md" in body["error"]
-    code, body = _error(f"{base}/ingest?cls=80", data=b"")
-    assert code == 501
-    code, _ = _error(f"{base}/nope", data=b"abc")
-    assert code == 404
-    # the handler thread survived: the server still answers
-    assert json.loads(_get(f"{base}/health")[2])["ok"]
+def _ingest_session():
+    """tests/test_serve.py's ingest scene on the port's CPU session: 3
+    frames of 64 x 48 (at 48 x 36 the held-out sphere's box sits at the
+    loaders' 10-px floor in 2 of 3 frames), one category of three spheres,
+    the last held out; 3 steps; and the held-out sphere's observations as
+    an .npz body."""
+    import copy
+    import io
+
+    from catnerf_torch.config import Config
+    from catnerf_torch.data.synthetic import make_scene
+    from catnerf_torch.train.loop import TrainingSession
+
+    cfg = Config()
+    cfg.net_hyperparams.latent_dim = 16
+    cfg.hidden_feature_size_bg = 32
+    scene = make_scene(n_frames=3, width=64, height=48, n_categories=1,
+                       insts_per_cat=3, seed=11)
+    cls_id = [c for c in scene.inst_dict if c != 0][0]
+    held = sorted(scene.inst_dict[cls_id])[-1]
+    train = copy.deepcopy(scene.inst_dict)
+    del train[cls_id][held]
+    sess = TrainingSession(cfg, train, scene.sample_dict, cam=scene.cam,
+                           device="cpu")
+    for _ in range(3):
+        sess.step_once()
+    frames = sorted(scene.sample_dict)
+    buf = io.BytesIO()
+    np.savez(buf,
+             rgb=np.stack([scene.sample_dict[f]["image"] for f in frames]),
+             depth=np.stack([scene.sample_dict[f]["depth"] for f in frames]),
+             mask=np.stack([scene.sample_dict[f]["obj_mask"] == held
+                            for f in frames]).astype(np.int8),
+             T_wc=np.stack([scene.sample_dict[f]["T"] for f in frames]))
+    return sess, scene, train, cls_id, buf.getvalue()
+
+
+def _post(url: str, body: bytes, timeout: float = 600):
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def test_ingest_answers_501_and_other_posts_404(tmp_path):
+    """POST /ingest (the name is from when the port answered 501): raw
+    posed RGB-D observations of an unseen instance -> register -> fit ->
+    adopt, served at once on the same socket (tests/test_serve.py's
+    ingest test): 200 with the summary, /health lists the new id, /object
+    renders it; the adoption saved as a new checkpoint iteration with its
+    sidecar, which a fresh session restores; save=0 saves none; a
+    non-npz body, an npz without the arrays, an unknown category and an
+    empty body answer 400; other POSTs 404."""
+    import io
+
+    from catnerf_torch.train import checkpoint as ckpt
+    from catnerf_torch.train.loop import TrainingSession
+
+    sess, scene, train, cls_id, body = _ingest_session()
+    ckpt_dir = str(tmp_path / "ckpt")
+    ckpt.save_session_checkpoint(ckpt_dir, sess, 3)
+    server = tserve.SceneServer(sess, ckpt_dir=ckpt_dir)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tserve, "_SIZES", (SMALL,) + tserve._SIZES)
+        _, httpd, thread, base = _start_with(server, sess)
+        try:
+            status, out = _post(f"{base}/ingest?cls={cls_id}&steps=20"
+                                f"&rays=64", body)
+            assert status == 200 and out["adopted"] and out["cls"] == cls_id
+            assert out["frames_used"] == 3 and out["fit_steps"] == 20
+            new_id = out["id"]
+            assert new_id == 3  # fresh id from the flat namespace
+            assert out["checkpoint"] == os.path.join(ckpt_dir, "4")
+            assert set(out) == {"id", "cls", "frames_used",
+                                "registration_chamfer", "fit_steps",
+                                "psnr_prior_init", "psnr_after_fit",
+                                "extent", "T_obj", "adopted", "checkpoint"}
+            assert new_id in json.loads(_get(f"{base}/health")[2])["objects"]
+            status, ctype, img = _get(f"{base}/object?id={new_id}&az=30"
+                                      f"&el=20&w=48&h=36&bins=16")
+            assert status == 200 and ctype == "image/png"
+            assert png.imdecode(img).shape == (36, 48, 3)
+
+            status, out2 = _post(f"{base}/ingest?cls={cls_id}&steps=2"
+                                 f"&rays=32&accumulate=tsdf&save=0", body)
+            assert status == 200 and out2["id"] == 4
+            assert "checkpoint" not in out2
+            assert sorted(os.listdir(ckpt_dir)) == ["3", "4",
+                                                    "4.adopted.json"]
+
+            bad = io.BytesIO()
+            np.savez(bad, rgb=np.zeros(3))
+            for url, data, what in (
+                    (f"{base}/ingest?cls={cls_id}", b"not an npz", "npz"),
+                    (f"{base}/ingest?cls={cls_id}", bad.getvalue(),
+                     "missing arrays"),
+                    (f"{base}/ingest?cls=424242", body, "unknown category"),
+                    (f"{base}/ingest?cls={cls_id}", b"", "needs an .npz")):
+                code, err = _error(url, data=data)
+                assert code == 400 and what in err["error"], (code, err)
+            code, _ = _error(f"{base}/nope", data=b"abc")
+            assert code == 404
+            # the handler threads survived: the server still answers
+            assert json.loads(_get(f"{base}/health")[2])["ok"]
+        finally:
+            _stop(httpd, thread)
+
+    fresh = TrainingSession(sess.cfg, train, scene.sample_dict,
+                            cam=scene.cam, device="cpu")
+    ckpt.restore_session_checkpoint(ckpt.latest_checkpoint(ckpt_dir), fresh)
+    assert fresh.categories[0].obj_ids == [1, 2, 3]
+    k = fresh.categories[0].inst_id_to_index[3]
+    assert torch.equal(fresh.state.params.codes.shape[0, k],
+                       sess.state.params.codes.shape[0, k])
 
 
 def test_bad_requests_are_structured_errors(servers):
@@ -237,8 +343,8 @@ def test_sharded_serving_raises_and_names_its_item():
 def test_serve_cli_end_to_end(tmp_path):
     """`python -m catnerf_torch.serve --device cpu --port 0` on a
     checkpoint of the --synthetic scene's session: it prints its port,
-    answers /health with the scene's six objects and /ingest with a 501,
-    and stops on SIGTERM."""
+    answers /health with the scene's six objects and a non-npz /ingest
+    body with a 400, and stops on SIGTERM."""
     from catnerf_torch.loaders import load_scene
     from catnerf_torch.train.checkpoint import save_session_checkpoint
     from catnerf_torch.train.loop import TrainingSession
@@ -261,7 +367,8 @@ def test_serve_cli_end_to_end(tmp_path):
         base = line.split(" at ")[1].split(" ")[0]
         health = json.loads(_get(f"{base}/health", timeout=60)[2])
         assert health["ok"] and len(health["objects"]) == 6
-        assert _error(f"{base}/ingest", data=b"npz")[0] == 501
+        code, err = _error(f"{base}/ingest?cls=1", data=b"npz")
+        assert code == 400 and "npz" in err["error"]
     finally:
         proc.terminate()
         proc.wait(timeout=60)
