@@ -1,41 +1,56 @@
-"""End-to-end quality gate: train the synthetic sphere scene, mesh every
+"""End-to-end quality gate: train the synthetic scene, mesh every
 object, and score the meshes against the analytic ground truth.
 
-The port of the JAX package's `scripts/e2e_quality.py` in its default
-mode (ground-truth object poses, sphere shapes, the fast path), in its
-test-time fitting mode (`--fit-holdout`, ground-truth poses, ref:
-scripts/e2e_quality.py:69-77, 159-172, 319-410: 3 instances a category,
-the first category's last held out of training, then registered to its
-category's canonical union, fitted against the frozen MLP (`fit.py`,
-1,000 steps with pose refinement), meshed and scored by the same
-protocol) and in its registered Replica mode (`--registered`, ref:
-scripts/e2e_quality.py:178-247 without --fit-holdout): the scene is
-written in the Replica layout (`data/replica.write_replica_layout`) and
-loaded through the real pipeline, `Replica(cfg)` with `load_pretrained =
-False` — point-cloud accumulation, self-pretrained uncertainty fields on
-the device, TEASER-style multi-init alignment, subcategorization — so
-training uses ESTIMATED object poses; mesh errors then include any pose
-misalignment.
-The scene is 3 categories x 2 spheres in 24 frames of 160x120
+The port of the JAX package's `scripts/e2e_quality.py`, in all its modes
+but ScanNet's (`--dataset scannet` and `--no-refined-mask` raise, naming
+ROADMAP.md Queue 1, item 4e):
+- default: ground-truth object poses, the fast path;
+- `--registered` (ref: scripts/e2e_quality.py:178-247): the scene is
+  written in the Replica layout (`data/replica.write_replica_layout`) and
+  loaded through the real pipeline, `Replica(cfg)` with `load_pretrained
+  = False` — point-cloud accumulation, self-pretrained uncertainty fields
+  on the device, TEASER-style multi-init alignment, subcategorization —
+  so training uses ESTIMATED object poses; mesh errors then include any
+  pose misalignment;
+- `--fit-holdout` (ref: :69-77, 159-172, 319-410): 3 instances a
+  category, the first category's last held out of training, then
+  registered to its category's canonical union, fitted against the
+  frozen MLP (`fit.py`, 1,000 steps with pose refinement), meshed and
+  scored by the same protocol; with `--registered` (:187-250, 327-374)
+  the held-out instance is erased from the training layout's masks, a
+  second, full layout (`Replica(cfg_full, run_registration=False)`)
+  gives its loader-grade cloud and frames, and the templates are the
+  trained instances' loader-grade clouds at their ESTIMATED poses;
+- `--shapes sphere|asym|mixed`: the scene's shape families
+  (`make_scene(shape_family=)`), each scored against its analytic surface
+  (`metrics/synthetic_eval.gt_shape_mesh`, marching cubes on the
+  object-frame SDF);
+- `--strict-parity`, `--parity`, `--flag NAME=VALUE` and `--dispatch
+  parity|fast`, resolved as :136-155 (`resolve_modes`): the strict-parity
+  flag set, then each override (bools as 0/1), then the dispatch;
+  parity dispatch trains `step_once` x 100 a chunk on the epoch cursor's
+  batches, fast dispatch `run_fast(100)` (:259-282).
+The scene is 3 categories x 2 shapes in 24 frames of 160x120
 (`make_scene`, seeded by --seed); the trainer is `Config()` with
 latent_dim 32 (the reference's default: bf16 activation storage on the XLA
-path), `run_fast` in runs of 100 steps (on a CUDA session each step a
-replayed CUDA graph); meshes come from `mesh_scene` at most `--grid-dim`
-voxels a side, and each sphere is scored by `score_shape` under the
-reference's protocol (accuracy on the mesh cropped to the GT box,
-completion, completion ratio under 5 cm; ref:
+path; on a CUDA session each fast step a replayed CUDA graph); meshes come
+from `mesh_scene` at most `--grid-dim` voxels a side, and each shape is
+scored by `score_shape` under the reference's protocol (accuracy on the
+mesh cropped to the GT box, completion, completion ratio under 5 cm; ref:
 metric/eval_3D_obj.py:15-34); then the scene composite from two dataset
-poses against their frames (`render_psnr`, dB). Prints one JSON line; exits 1 when an object
-was not meshed or a mean is outside the gate's band (accuracy and
-completion under 5 cm, completion ratio over 80%), or, with
---fit-holdout, when the fitted mesh is missing or 5 cm or more in
+poses against their frames (`render_psnr`, dB). Prints one JSON line;
+exits 1 when an object was not meshed or a mean is outside the gate's
+band (accuracy and completion under 5 cm, completion ratio over 80%), or,
+with --fit-holdout, when the fitted mesh is missing or 5 cm or more in
 accuracy, or the fit did not raise the PSNR.
 
     python -m catnerf_torch.experimental.e2e_quality            # the card
     python -m catnerf_torch.experimental.e2e_quality --device cpu \\
         --iters 100 --grid-dim 32
-    python -m catnerf_torch.experimental.e2e_quality --registered
-    python -m catnerf_torch.experimental.e2e_quality --fit-holdout
+    python -m catnerf_torch.experimental.e2e_quality --registered \\
+        --fit-holdout
+    python -m catnerf_torch.experimental.e2e_quality --strict-parity \\
+        --flag seg_propagation_rounds=3 --dispatch fast --shapes asym
 
 Also the flip rule that holds a uint8 occupancy grid evaluated on two
 devices (or by two packages) against each other (`count_flips`,
@@ -64,6 +79,7 @@ from catnerf_torch.mesher.mesh import load_mesh
 from catnerf_torch.mesher.meshing import (mesh_scene, mesh_timings,
                                           reset_mesh_timings)
 from catnerf_torch.metrics.synthetic_eval import score_shape
+from catnerf_torch.native.lib import geomlib
 from catnerf_torch.train.loop import TrainingSession
 from catnerf_torch.utils import phase_reset, phase_timings
 
@@ -90,17 +106,63 @@ FLIP_DEPTH = 1e-5
 FLIP_SHARE = 1e-3
 
 
-def make_session(seed: int = 0, grid_dim: int = 128, device=None,
-                 fit_holdout: bool = False):
-    """(scene, session) of the gate: `Config()` with latent_dim 32 and
-    `grid_dim`, on `device` (the card unless named). fit_holdout: the
-    scene has HOLDOUT_INSTS instances a category, and the session trains
-    all but `holdout`'s."""
+class Modes(NamedTuple):
+    """The JAX gate's mode flags (ref: scripts/e2e_quality.py:36-90)."""
+    strict_parity: bool = False
+    parity: bool = False
+    flags: tuple = ()         # "NAME=VALUE", applied after strict_parity
+    dispatch: str | None = None   # "parity" or "fast": overrides the two
+    shapes: str = "sphere"
+
+
+def resolve_modes(modes: Modes = Modes(), grid_dim: int = 128):
+    """(cfg, parity, sampling) as the JAX gate resolves its flags (ref:
+    scripts/e2e_quality.py:136-155, 429-433): `Config()` with latent_dim
+    32 and `grid_dim`; --strict-parity applies the strict-parity flag set
+    and implies parity dispatch; each --flag sets a Config attribute of
+    the type it has (bools as 0/1); --dispatch then sets the dispatch.
+    sampling: "strict-parity" under --strict-parity, else the dispatch
+    ("parity" or "fast")."""
     cfg = Config()
     cfg.net_hyperparams.latent_dim = 32
     cfg.grid_dim = grid_dim  # live_voxel_size stays 5 mm; the cap rules
+    parity = modes.parity
+    if modes.strict_parity:
+        cfg.apply_strict_parity()
+        parity = True
+    for ov in modes.flags:
+        name, _, val = ov.partition("=")
+        if not hasattr(cfg, name):
+            raise SystemExit(f"--flag: Config has no attribute {name!r}")
+        cur = getattr(cfg, name)
+        if isinstance(cur, bool):
+            setattr(cfg, name, bool(int(val)))
+        elif isinstance(cur, int):
+            setattr(cfg, name, int(val))
+        elif isinstance(cur, float):
+            setattr(cfg, name, float(val))
+        else:
+            setattr(cfg, name, val)
+    if modes.dispatch is not None:
+        parity = modes.dispatch == "parity"
+    sampling = ("strict-parity" if modes.strict_parity
+                else "parity" if parity else "fast")
+    return cfg, parity, sampling
+
+
+def make_session(seed: int = 0, grid_dim: int = 128, device=None,
+                 fit_holdout: bool = False, cfg=None,
+                 shapes: str = "sphere"):
+    """(scene, session) of the gate: `cfg` (by default `Config()` with
+    latent_dim 32) at `grid_dim`, on `device` (the card unless named), on
+    the scene of `shapes`. fit_holdout: the scene has HOLDOUT_INSTS
+    instances a category, and the session trains all but `holdout`'s."""
+    if cfg is None:
+        cfg, _, _ = resolve_modes(grid_dim=grid_dim)
+    cfg.grid_dim = grid_dim
     insts = HOLDOUT_INSTS if fit_holdout else SCENE["insts_per_cat"]
-    scene = make_scene(**{**SCENE, "insts_per_cat": insts}, seed=seed)
+    scene = make_scene(**{**SCENE, "insts_per_cat": insts}, seed=seed,
+                       shape_family=shapes)
     inst_dict = scene.inst_dict
     if fit_holdout:
         held_cls, held = holdout(inst_dict)
@@ -119,35 +181,54 @@ def holdout(inst_dict: dict) -> tuple[int, int]:
 
 
 def make_registered_session(seed: int = 0, grid_dim: int = 128,
-                            device=None, cfg=None):
-    """(scene, session, loader, seconds) of the gate's registered Replica
-    mode (ref: scripts/e2e_quality.py:178-247): the scene written in the
-    Replica layout under a new temporary directory, loaded and registered by `Replica(cfg)` with self-pretrained
-    fields (load_pretrained = False), and a session on the registered
-    poses. cfg: the gate's `Config()` with latent_dim 32 by default.
-    seconds: of writing the layout (`layout`), of the loader in all
-    (`loader`), and of its stages (`frames`, `stage1`, `pretrain`,
-    `uncertainty`, `align`)."""
+                            device=None, cfg=None, fit_holdout: bool = False,
+                            shapes: str = "sphere"):
+    """(scene, session, loader, seconds, full loader) of the gate's
+    registered Replica mode (ref: scripts/e2e_quality.py:178-247): the
+    scene written in the Replica layout under a new temporary directory,
+    loaded and registered by `Replica(cfg)` with self-pretrained fields
+    (load_pretrained = False), and a session on the registered poses.
+    cfg: the gate's `Config()` with latent_dim 32 by default.
+    fit_holdout (ref: :187-214, 238-245): the scene has HOLDOUT_INSTS
+    instances a category, `holdout`'s is erased from the training layout's
+    instance masks (it takes no part in registration or training), and a
+    second, full layout is loaded without registration (the full loader;
+    else None). seconds: of writing the layouts (`layout`), of the
+    training layout's loader in all (`loader`), and of its stages
+    (`frames`, `stage1`, `pretrain`, `uncertainty`, `align`)."""
     if cfg is None:
-        cfg = Config()
-        cfg.net_hyperparams.latent_dim = 32
+        cfg, _, _ = resolve_modes(grid_dim=grid_dim)
     cfg.grid_dim = grid_dim  # live_voxel_size stays 5 mm; the cap rules
-    scene = make_scene(**SCENE, seed=seed)
+    insts = HOLDOUT_INSTS if fit_holdout else SCENE["insts_per_cat"]
+    scene = make_scene(**{**SCENE, "insts_per_cat": insts}, seed=seed,
+                       shape_family=shapes)
     cfg.dataset_dir = tempfile.mkdtemp(prefix="e2e_registered_replica_")
     cfg.width, cfg.height = SCENE["width"], SCENE["height"]
     cfg.fx = cfg.fy = scene.cam.fx
     cfg.cx, cfg.cy = scene.cam.cx, scene.cam.cy
     cfg.load_pretrained = False   # self-pretrained uncertainty fields
     t0 = time.time()
-    write_replica_layout(scene, cfg.dataset_dir, cfg.depth_scale)
+    scene_train, cfg_full = scene, None
+    if fit_holdout:
+        _, held = holdout(scene.inst_dict)
+        scene_train = copy.deepcopy(scene)
+        for s in scene_train.sample_dict.values():
+            m = s["obj_mask"]
+            m[m == held] = 0
+        cfg_full = copy.deepcopy(cfg)
+        cfg_full.dataset_dir = tempfile.mkdtemp(prefix="e2e_fitreg_full_")
+        write_replica_layout(scene, cfg_full.dataset_dir, cfg.depth_scale)
+    write_replica_layout(scene_train, cfg.dataset_dir, cfg.depth_scale)
     t1 = time.time()
     phase_reset("registration")
     data = Replica(cfg, device=device)
     seconds = {"layout": t1 - t0, "loader": time.time() - t1,
                **phase_timings("registration")}
+    data_full = (Replica(cfg_full, run_registration=False, device=device)
+                 if cfg_full is not None else None)
     sess = TrainingSession(cfg, data.inst_dict, data.sample_dict,
                            device=device)
-    return scene, sess, data, seconds
+    return scene, sess, data, seconds, data_full
 
 
 def registration_report(scene, data) -> dict:
@@ -165,6 +246,8 @@ def registration_report(scene, data) -> dict:
     out = {}
     for s in scene.spheres:
         cls_id = where.get(s.inst_id)
+        if cls_id is None:
+            continue  # held out of the training layout
         T = np.asarray(data.inst_dict[cls_id][s.inst_id]["T_obj"],
                        np.float64)
         T_gt = s.gt_T_obj()
@@ -194,25 +277,36 @@ def fit_loss(sess, m) -> float:
                  + (m.cat_opacity.sum() + bg_opacity) * cfg.opacity_scaling)
 
 
-def train(sess, iters: int, log=None) -> dict:
-    """`iters` steps through the fast path:
-    the first step alone, then runs that end every CHUNK_STEPS steps. The
-    mean category PSNR after each run, the colour and opacity loss of the
-    first and the last step, and the seconds (device work included)."""
-    sess.enable_fast_path(CHUNK_STEPS)
+def train(sess, iters: int, log=None, parity: bool = False) -> dict:
+    """`iters` steps, the first alone, then runs that end every
+    CHUNK_STEPS steps: through the fast path, or with `parity` one
+    `step_once` a step on the epoch cursor's batches (ref:
+    scripts/e2e_quality.py:259-282). The mean category PSNR after each
+    run, the colour and opacity loss of the first and the last step, and
+    the seconds (device work included)."""
+    if parity:
+        def advance(k):
+            for _ in range(k):
+                m = sess.step_once()
+            return m
+    else:
+        sess.enable_fast_path(CHUNK_STEPS)
+        advance = sess.run_fast
     if sess.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.time()
-    first = sess.run_fast(1)
+    first = advance(1)
     fit_first = fit_loss(sess, first)
     m, psnr = first, []
     while sess.iteration < iters:
-        m = sess.run_fast(min(CHUNK_STEPS - sess.iteration % CHUNK_STEPS,
-                              iters - sess.iteration))
+        m = advance(min(CHUNK_STEPS - sess.iteration % CHUNK_STEPS,
+                        iters - sess.iteration))
         psnr.append(round(float(m.cat_psnr.mean()), 2))
         if log is not None and len(psnr) == 1:
-            log(f"first {sess.iteration} steps (graph capture included): "
-                f"{time.time() - t0:.1f} s")
+            log(f"first {sess.iteration} steps"
+                + ("" if parity else " (graph capture included)")
+                + f": {time.time() - t0:.1f} s")
+    sess.release_prefetch()
     train_s = time.time() - t0
     return {"iters": sess.iteration, "psnr_hist": psnr, "train_s": train_s,
             "steps_per_s": (sess.iteration - 1) / train_s if iters > 1
@@ -279,16 +373,35 @@ def render_psnr(sess) -> list[float]:
     return out
 
 
+def _loader_cloud(data_full, cls_id: int, oid: int, cam) -> np.ndarray:
+    """An instance's loader-grade cloud (ref: scripts/e2e_quality.py:
+    338-348): its `pcs` on the 0.01 voxel grid that get_all_poses feeds
+    registration, or, where the loader kept none, its accumulated cloud."""
+    from catnerf_torch.geometry.pointcloud import accumulate_pointcloud
+
+    info = data_full.inst_dict[cls_id][oid]
+    pcs = info.get("pcs")
+    if pcs is None:
+        return accumulate_pointcloud(oid, info["frame_info"],
+                                     data_full.sample_dict, cam)
+    return geomlib.voxel_downsample(np.asarray(pcs, np.float32), 0.01)
+
+
 def run_fit_holdout(sess, scene, held: tuple[int, int],
-                    steps: int | None = None):
+                    steps: int | None = None, data=None, data_full=None):
     """The new-instance path on the held-out instance (ref:
-    scripts/e2e_quality.py:319-410, GT-pose mode): its cloud registered
-    to the union of its trained siblings' canonical clouds
-    (`register_new_instance`), `fit.fit_instance` with pose refinement on
-    the session's device, the fitted field meshed at `adaptive_grid_dim`
-    and scored by `score_shape`. Returns (the JAX gate's `fit_holdout`
-    dict, the FitResult, the seconds of registration, fit, meshing and
-    scoring)."""
+    scripts/e2e_quality.py:319-410): its cloud registered to the union of
+    its trained siblings' canonical clouds (`register_new_instance`),
+    `fit.fit_instance` with pose refinement on the session's device, the
+    fitted field meshed at `adaptive_grid_dim` and scored by
+    `score_shape`. GT-pose mode by default: the siblings' and the held-out
+    instance's accumulated clouds and ground-truth poses. With the
+    registered loader `data` and the full loader `data_full`
+    (`make_registered_session(fit_holdout=True)`): the trained instances'
+    loader-grade clouds at their ESTIMATED poses, the held-out one's cloud
+    and frames from the full layout; nothing touches the ground truth.
+    Returns (the JAX gate's `fit_holdout` dict, the FitResult, the seconds
+    of registration, fit, meshing and scoring)."""
     from catnerf_torch.fit import fit_instance
     from catnerf_torch.geometry.pointcloud import accumulate_pointcloud
     from catnerf_torch.geometry.registration import register_new_instance
@@ -299,26 +412,42 @@ def run_fit_holdout(sess, scene, held: tuple[int, int],
     cfg = sess.cfg
     sec = {}
     t_fit = t0 = time.time()
-    registered = []
-    for oid in sorted(scene.inst_dict[held_cls]):
-        if oid == held_out:
-            continue
-        info_o = scene.inst_dict[held_cls][oid]
-        registered.append((accumulate_pointcloud(
-            oid, info_o["frame_info"], scene.sample_dict, sess.cam),
-            info_o["T_obj"]))
-    info_gt = scene.inst_dict[held_cls][held_out]
-    pcs_new = accumulate_pointcloud(held_out, info_gt["frame_info"],
-                                    scene.sample_dict, sess.cam)
+    if data_full is not None:
+        trained = data.inst_dict.get(held_cls, {})
+        if held_cls not in sess.cls_ids or len(trained) < 1:
+            raise SystemExit(
+                f"fit-holdout: category {held_cls} was split or dropped "
+                f"during registration (trained ids "
+                f"{sorted(data.inst_dict)}); no trained multi-instance "
+                f"category to adopt into")
+        registered = [(_loader_cloud(data_full, held_cls, oid, sess.cam),
+                       info_o["T_obj"])
+                      for oid, info_o in sorted(trained.items())]
+        pcs_new = _loader_cloud(data_full, held_cls, held_out, sess.cam)
+        fi_new = data_full.inst_dict[held_cls][held_out]["frame_info"]
+        sdict_fit = data_full.sample_dict
+    else:
+        registered = []
+        for oid in sorted(scene.inst_dict[held_cls]):
+            if oid == held_out:
+                continue
+            info_o = scene.inst_dict[held_cls][oid]
+            registered.append((accumulate_pointcloud(
+                oid, info_o["frame_info"], scene.sample_dict, sess.cam),
+                info_o["T_obj"]))
+        fi_new = scene.inst_dict[held_cls][held_out]["frame_info"]
+        pcs_new = accumulate_pointcloud(held_out, fi_new, scene.sample_dict,
+                                        sess.cam)
+        sdict_fit = scene.sample_dict
     T_est, reg_cd = register_new_instance(registered, pcs_new)
     sec["register"] = time.time() - t0
-    T_gt = np.asarray(info_gt["T_obj"], np.float64)
+    T_gt = np.asarray(scene.inst_dict[held_cls][held_out]["T_obj"],
+                      np.float64)
     s_gt = abs(np.linalg.det(T_gt[:3, :3])) ** (1 / 3)
 
     t0 = time.time()
-    res = fit_instance(sess, held_cls, info_gt["frame_info"],
-                       scene.sample_dict, sess.cam, T_est, held_out,
-                       steps=steps, optimize_pose=True)
+    res = fit_instance(sess, held_cls, fi_new, sdict_fit, sess.cam, T_est,
+                       held_out, steps=steps, optimize_pose=True)
     sec["fit"] = time.time() - t0
     t0 = time.time()
     params = sess.category_params(held_cls)
@@ -337,7 +466,7 @@ def run_fit_holdout(sess, scene, held: tuple[int, int],
     sec["score"] = time.time() - t0
     out = {
         "held_out": held_out,
-        "path": "gt_pose",
+        "path": "registered" if data_full is not None else "gt_pose",
         "registration_chamfer": round(reg_cd, 4),
         "pose_center_err_cm": round(100.0 * float(
             np.linalg.norm(res.T_obj[:3, 3] - T_gt[:3, 3])), 3),
@@ -381,35 +510,38 @@ class GateRun(NamedTuple):
 
 def run(iters: int = 10000, grid_dim: int = 128, seed: int = 0,
         device=None, out: str = "", log=None, registered: bool = False,
-        fit_holdout: bool = False) -> GateRun:
+        fit_holdout: bool = False, modes: Modes = Modes(),
+        cfg=None) -> GateRun:
     """The gate: ground-truth poses, or with `registered` the registered
     Replica mode (`make_registered_session`); `fit_holdout` adds the
-    new-instance path on a held-out instance (GT-pose mode)."""
-    extra, held = {}, None
-    if registered and fit_holdout:
-        raise NotImplementedError(
-            "--registered --fit-holdout is not in the port yet (ROADMAP.md "
-            "Queue 1, item 4c)")
+    new-instance path on a held-out instance; `modes` the JAX gate's
+    other flags (`resolve_modes`). cfg: the resolved config, for a caller
+    that cuts its registration (the dispatch still comes from `modes`)."""
+    extra, held, data, data_full = {}, None, None, None
+    resolved, parity, sampling = resolve_modes(modes, grid_dim)
+    cfg = resolved if cfg is None else cfg
     if registered:
-        scene, sess, data, seconds = make_registered_session(
-            seed, grid_dim, device)
+        scene, sess, data, seconds, data_full = make_registered_session(
+            seed, grid_dim, device, cfg, fit_holdout, modes.shapes)
         extra = {"registration": registration_report(scene, data),
                  "registration_s": {k: round(v, 3)
                                     for k, v in seconds.items()}}
     else:
-        scene, sess = make_session(seed, grid_dim, device, fit_holdout)
-        held = holdout(scene.inst_dict) if fit_holdout else None
+        scene, sess = make_session(seed, grid_dim, device, fit_holdout, cfg,
+                                   modes.shapes)
+    if fit_holdout:
+        held = holdout(scene.inst_dict)
     if iters >= CHUNK_STEPS:  # whole runs, as the JAX package's gate
         iters = iters // CHUNK_STEPS * CHUNK_STEPS
-    tr = train(sess, iters, log)
+    tr = train(sess, iters, log, parity)
     scored = mesh_and_score(sess, scene, iters,
                             out or tempfile.mkdtemp(prefix="e2e_quality_"),
                             skip=(held[1],) if held else ())
     psnr = render_psnr(sess)
     res = None
     if held is not None:
-        extra["fit_holdout"], res, sec = run_fit_holdout(sess, scene,
-                                                             held)
+        extra["fit_holdout"], res, sec = run_fit_holdout(
+            sess, scene, held, data=data, data_full=data_full)
         if log is not None:
             log(f"fit-holdout: {extra['fit_holdout']}; seconds "
                 + json.dumps({k: round(v, 3) for k, v in sec.items()}))
@@ -425,8 +557,10 @@ def run(iters: int = 10000, grid_dim: int = 128, seed: int = 0,
             "per_object")},
         "render_psnr": psnr,
         "seed": seed,
-        "shapes": "sphere",
-        "sampling": "fast",
+        "shapes": modes.shapes,
+        "sampling": sampling,
+        "flag_overrides": list(modes.flags),
+        "dispatch_override": modes.dispatch,
         "device": str(sess.device),
         "train_s": round(tr["train_s"], 3),
         "mesh_s": round(scored["mesh_s"], 3),
@@ -536,11 +670,43 @@ def main(argv=None) -> int:
                     "(catnerf_torch/fit.py), and score its mesh with the "
                     "standard protocol. Uses 3 instances/category so the "
                     "held-out category stays multi-instance.")
+    ap.add_argument("--parity", action="store_true",
+                    help="train with the reference's sampling semantics "
+                    "(per-epoch shuffle cursor, one step_once a step) "
+                    "instead of the fast path")
+    ap.add_argument("--strict-parity", action="store_true",
+                    help="Config.apply_strict_parity() (every "
+                    "algorithmic-improvement flag off) and parity dispatch")
+    ap.add_argument("--flag", action="append", default=[],
+                    metavar="NAME=VALUE",
+                    help="a Config override applied after --strict-parity "
+                    "(repeatable); bools as 0/1")
+    ap.add_argument("--dispatch", choices=("parity", "fast"), default=None,
+                    help="override the dispatch that --parity / "
+                    "--strict-parity imply")
+    ap.add_argument("--shapes", choices=("sphere", "asym", "mixed"),
+                    default="sphere",
+                    help="the synthetic shape families: sphere, asym "
+                    "(ellipsoid / blob / notched box, really rotated) or "
+                    "mixed")
+    ap.add_argument("--dataset", choices=("replica", "scannet"),
+                    default="replica",
+                    help="the layout and loader of --registered; scannet "
+                    "is not in the port yet (ROADMAP.md Queue 1, item 4e)")
+    ap.add_argument("--no-refined-mask", action="store_true",
+                    help="scannet only: not in the port yet (ROADMAP.md "
+                    "Queue 1, item 4e)")
     args = ap.parse_args(argv)
+    if args.dataset == "scannet" or args.no_refined_mask:
+        raise NotImplementedError(
+            "the ScanNet layout and loader are not in the port yet "
+            "(ROADMAP.md Queue 1, item 4e)")
+    modes = Modes(args.strict_parity, args.parity, tuple(args.flag),
+                  args.dispatch, args.shapes)
     result = run(args.iters, args.grid_dim, args.seed, args.device, args.out,
                  log=lambda s: print(s, file=sys.stderr),
                  registered=args.registered,
-                 fit_holdout=args.fit_holdout).result
+                 fit_holdout=args.fit_holdout, modes=modes).result
     print(json.dumps(result))
     return 0 if passes(result) else 1
 

@@ -7,8 +7,9 @@ save and resume it, and mesh it.
     python -m catnerf_torch.train --synthetic --max-iter 20 --log-iter 5 \\
         --device cpu
     python -m catnerf_torch.train --synthetic --strict-parity
+    python -m catnerf_torch.train --synthetic --parity --trace
     python -m catnerf_torch.train --synthetic --logdir logs/synthetic \\
-        --max-iter 4000 --save-iter 2000 --mesh-it 4000 --grid-dim 128
+        --max-iter 4001 --save-iter 2000 --mesh-it 4000 --grid-dim 128
     python -m catnerf_torch.train --synthetic --logdir logs/synthetic \\
         --resume --mesh-only
 
@@ -25,18 +26,30 @@ frames of 160x120, `Config()` with latent_dim 32, seeded by
 `Config.seed`; its --max-iter and --log-iter default to 200 and 50, a
 config's to its own.
 
-It trains through the session's fast path, as the JAX package's `train.py`
-does: the device ray store and the superstep (`TrainingSession.run_fast`;
-on a CUDA session each step a replayed CUDA graph), in runs that end at
-each log, save and mesh iteration. --strict-parity applies
-`Config.apply_strict_parity()` and trains on host-staged batches, one
-`step_once` a step (the reference's execution shape), as `train.py
---strict-parity` does. `Config()` is the reference's default trainer: the
-XLA-path field modules with bf16 activation storage. The fused-kernel
-trainer (use_fused_kernels=True, bf16_activations=False) is reached
-through `TrainingSession` with such a config. Each log step prints one
-JSON line of metrics and appends it to <logdir>/metrics.jsonl
-(`train/logging.MetricsWriter`).
+It trains iterations start+1 ... max_iter-1, as the JAX package's
+`train.py` (ref: train.py:157-160, 253-265): a config's max_iter 10001
+trains 10,000 steps. The fast path (the device ray store and the
+superstep, `TrainingSession.run_fast`; on a CUDA session each step a
+replayed CUDA graph) runs when log_iter > 1, save_iter, mesh_it and the
+start are multiples of log_iter, and neither --parity nor
+--strict-parity is given: (max_iter-1-start) // log_iter runs of log_iter
+steps, then the rest one `step_once` a step. Otherwise every step is a
+`step_once` on host-staged batches (the reference's execution shape: the
+epoch cursor's batches, one packed copy a step, train/packing.py). The
+rule decides where the batches come from, so it decides the result.
+--strict-parity also applies `Config.apply_strict_parity()`. `Config()`
+is the reference's default trainer: the XLA-path field modules with bf16
+activation storage. The fused-kernel trainer (use_fused_kernels=True,
+bf16_activations=False) is reached through `TrainingSession` with such a
+config. Each log step prints one JSON line of metrics and appends it to
+<logdir>/metrics.jsonl (`train/logging.MetricsWriter`). --trace writes a
+torch.profiler trace of the first run or step into <logdir>/trace
+(`utils.device_trace`).
+
+Each step's total loss is checked two steps behind (ref:
+train.py:188-215): one that is not finite or over 1e8 saves a post-mortem
+checkpoint labelled with the session's iteration and exits with a message
+naming both iterations.
 
 As `train.py` (ref: train.py:19-146, 217-232): a checkpoint every
 --save-iter steps under <logdir>/ckpt (train/checkpoint.py), the scene's
@@ -44,18 +57,21 @@ meshes every --mesh-it steps under <logdir>/scene_mesh
 (mesher/meshing.py::mesh_scene, one `.obj` per object, at most --grid-dim
 voxels a side); --resume restores the latest checkpoint and
 --import-reference-ckpt DIR loads the reference's per-category `.pth`
-files, both before the fast path is built; --mesh-only meshes the weights
-so loaded (or the initial ones) and trains nothing; --no-background
-trains without the background model. The device is cuda unless --device
-names another; the registration runs there too. With --config, one
-line on stderr gives the seconds of loading and of each stage of the
-registration (`frames`, `stage1`, `pretrain`, `uncertainty`, `align`).
+files, both before the fast path is built (--resume sets the start; an
+import does not, as in train.py); --mesh-only meshes the weights so loaded
+(or the initial ones) and trains nothing; --no-background trains without
+the background model. --train-sharded and --mesh-sharded raise: the
+port has no `parallel/` yet. The device is cuda unless --device names
+another; the registration runs there too. With --config, one line on
+stderr gives the seconds of loading and of each stage of the registration
+(`frames`, `stage1`, `pretrain`, `uncertainty`, `align`).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import sys
@@ -66,7 +82,8 @@ from catnerf_torch.mesher.meshing import mesh_scene
 from catnerf_torch.train import checkpoint as ckpt_mod
 from catnerf_torch.train.logging import MetricsWriter
 from catnerf_torch.train.loop import TrainingSession
-from catnerf_torch.utils import phase_reset, phase_timings, resolve_device
+from catnerf_torch.utils import (device_trace, phase_reset, phase_timings,
+                                 resolve_device)
 
 # --synthetic's defaults for --max-iter and --log-iter
 SYNTHETIC_ITERS = {"max_iter": 200, "log_iter": 50}
@@ -109,11 +126,30 @@ def main(argv=None) -> int:
                     help="train without the background model")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--parity", action="store_true",
+                    help="train every step with step_once on host-staged "
+                    "batches (the reference's execution shape) instead of "
+                    "the fast path")
     ap.add_argument("--strict-parity", action="store_true",
                     help="Config.apply_strict_parity(): float32 "
-                    "activations instead of bf16 storage, on host-staged "
-                    "batches (step_once) instead of the fast path")
+                    "activations instead of bf16 storage; implies --parity")
+    ap.add_argument("--trace", action="store_true",
+                    help="a torch.profiler trace of the first training run "
+                    "or step into <logdir>/trace")
+    ap.add_argument("--train-sharded", type=int, nargs="?", const=1,
+                    default=None, metavar="N_MODEL",
+                    help="not in the port yet (ROADMAP.md Queue 1, item "
+                    "4g): raises")
+    ap.add_argument("--mesh-sharded", action="store_true",
+                    help="not in the port yet (ROADMAP.md Queue 1, item "
+                    "4g): raises")
     args = ap.parse_args(argv)
+    if args.train_sharded is not None or args.mesh_sharded:
+        raise NotImplementedError(
+            "--train-sharded and --mesh-sharded need parallel/, which is "
+            "not in the port yet (ROADMAP.md Queue 1, item 4g)")
+    if args.strict_parity:
+        args.parity = True
     if args.synthetic == (args.config is not None):
         ap.error("give one of --config or --synthetic")
     if args.logdir is None:
@@ -169,11 +205,13 @@ def main(argv=None) -> int:
         sess.iteration = int(step)
         print(f"imported reference checkpoints (global_step={step}) from "
               f"{args.import_reference_ckpt}", file=sys.stderr)
+    start = 0
     if args.resume:
         latest = ckpt_mod.latest_checkpoint(ckpt_dir)
         if latest is not None:
             ckpt_mod.restore_session_checkpoint(latest, sess)
-            print(f"resumed from {latest} at iteration {sess.iteration}",
+            start = sess.iteration
+            print(f"resumed from {latest} at iteration {start}",
                   file=sys.stderr)
 
     def mesh(it: int) -> None:
@@ -187,39 +225,104 @@ def main(argv=None) -> int:
         mesh(sess.iteration)
         return 0
 
-    fast = not args.strict_parity
+    fast = uses_fast_path(cfg, start, args.parity)
     if fast:
         sess.enable_fast_path(cfg.log_iter)
     writer = MetricsWriter(args.logdir)
+    trace_dir = os.path.join(args.logdir, "trace") if args.trace else None
     try:
-        train(sess, cfg, fast, writer, ckpt_dir, mesh)
+        train(sess, cfg, start, fast, writer, ckpt_dir, mesh, trace_dir)
     finally:
+        sess.release_prefetch()
         writer.close()
     return 0
 
 
-def train(sess, cfg, fast: bool, writer, ckpt_dir: str, mesh) -> None:
+def uses_fast_path(cfg, start: int, parity: bool) -> bool:
+    """train.py's rule (ref: train.py:157-160): the fast path only where
+    every periodic action lands on a run's end."""
+    return (not parity and cfg.log_iter > 1
+            and cfg.save_iter % cfg.log_iter == 0
+            and cfg.mesh_it % cfg.log_iter == 0
+            and start % cfg.log_iter == 0)
+
+
+def schedule(cfg, start: int, fast: bool) -> list[tuple[int, str]]:
+    """(iteration, "run_fast" or "step_once") of each training call, in
+    order (ref: train.py:253-265): a run_fast call stands for the
+    log_iter steps that end at its iteration."""
+    if not fast:
+        return [(it, "step_once") for it in range(start + 1, cfg.max_iter)]
+    n_runs = (cfg.max_iter - 1 - start) // cfg.log_iter
+    it = start + n_runs * cfg.log_iter
+    return ([(start + (c + 1) * cfg.log_iter, "run_fast")
+             for c in range(n_runs)]
+            + [(j, "step_once") for j in range(it + 1, cfg.max_iter)])
+
+
+class LossGuard:
+    """Loss-explosion detection (ref: train.py:188-215; the reference
+    calls exit(-1) from inside the loss, src/render_rays.py:87-89). Reading
+    a step's total waits for the device, so the check runs two steps
+    behind and the host keeps queueing. On a total that is not finite or
+    over 1e8 it saves a post-mortem checkpoint labelled with the
+    session's iteration (up to two updates past the explosion) and exits
+    naming both iterations."""
+
+    SLACK = 2
+    LIMIT = 1e8
+
+    def __init__(self, sess, ckpt_dir: str, writer):
+        self.sess, self.ckpt_dir, self.writer = sess, ckpt_dir, writer
+        self.pending = []
+
+    def __call__(self, it: int | None, metrics, flush: bool = False):
+        if metrics is not None:
+            self.pending.append((it, metrics))
+        while len(self.pending) > (0 if flush else self.SLACK):
+            it0, m0 = self.pending.pop(0)
+            total = float(m0.total)
+            if math.isfinite(total) and total < self.LIMIT:
+                continue
+            it_state = self.sess.iteration
+            self.sess.settle_prefetch()
+            path = ckpt_mod.save_session_checkpoint(self.ckpt_dir,
+                                                    self.sess, it_state)
+            self.writer.close()
+            raise SystemExit(
+                f"loss explosion detected at iteration {it0} "
+                f"(total={total}); post-mortem state snapshot (iteration "
+                f"{it_state}, {it_state - it0} steps past the explosion — "
+                f"may be poisoned) saved to {path}")
+
+
+def train(sess, cfg, start: int, fast: bool, writer, ckpt_dir: str, mesh,
+          trace_dir: str | None = None) -> None:
     t0 = time.time()
-    while sess.iteration < cfg.max_iter:
-        it = sess.iteration
-        if fast:
-            # one run up to the next log, save or mesh iteration
-            stop = min([cfg.max_iter] + [(it // k + 1) * k for k in (
-                cfg.log_iter, cfg.save_iter, cfg.mesh_it)])
-            metrics = sess.run_fast(stop - it)
+    guard = LossGuard(sess, ckpt_dir, writer)
+    for n, (it, how) in enumerate(schedule(cfg, start, fast)):
+        step = ((lambda: sess.run_fast(cfg.log_iter)) if how == "run_fast"
+                else sess.step_once)
+        if n == 0 and trace_dir is not None:
+            with device_trace(trace_dir, sess.device):
+                metrics = step()
+            print(f"device trace written to {trace_dir}", file=sys.stderr)
         else:
-            metrics = sess.step_once()
-        it = sess.iteration
-        if it % cfg.log_iter == 0 or it == cfg.max_iter:
+            metrics = step()
+        guard(it, metrics)
+        if it % cfg.log_iter == 0:
             row = writer.log_step(sess, metrics, it)
             row["elapsed_s"] = time.time() - t0
             row["device"] = str(sess.device)
             print(json.dumps(row), flush=True)
+        if it % cfg.save_iter == 0 or it % cfg.mesh_it == 0:
+            sess.settle_prefetch()
         if it % cfg.save_iter == 0:
             path = ckpt_mod.save_session_checkpoint(ckpt_dir, sess, it)
             print(f"saved checkpoint {path}", file=sys.stderr)
         if it % cfg.mesh_it == 0:
             mesh(it)
+    guard(None, None, flush=True)
 
 
 if __name__ == "__main__":

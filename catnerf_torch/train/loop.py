@@ -1,13 +1,15 @@
 """Training session driver (ref: train.py:15-243; the JAX package's
 `train/loop.py`): builds the per-category ray buffers, the stacked train
-state, and runs the step — host-staged (`step_once`) or from the device
-ray store (`enable_fast_path` + `run_fast`), on a CUDA session as a
-replayed CUDA graph of the step.
+state, and runs the step — host-staged (`step_once`, `run`: one packed
+copy a step, the next host batch assembled on a worker thread while the
+device runs the current step) or from the device ray store
+(`enable_fast_path` + `run_fast`), on a CUDA session as a replayed CUDA
+graph of the step.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -20,6 +22,7 @@ from catnerf_torch.models.codenerf import CodeNeRF
 from catnerf_torch.models.codes import obj_validity_mask
 from catnerf_torch.models.embedding import UniDirsEmbed
 from catnerf_torch.models.layers import Linear
+from catnerf_torch.train import packing
 from catnerf_torch.train import step as step_mod
 from catnerf_torch.train.graph import make_superstep
 from catnerf_torch.train.state import TrainState, init_train_state
@@ -31,11 +34,18 @@ from catnerf_torch.utils import phase_timer, resolve_device
 class TrainingSession:
     """device: "cuda" unless the caller names another ("cpu" runs the
     plain PyTorch versions of the kernels); with no GPU and no device
-    named, it raises."""
+    named, it raises. staging: how `step_once` ships its host batch,
+    "packed" (one copy of one buffer, train/packing.py, the next batch
+    prefetched) or "fields" (one copy a field, assembled when the step
+    asks); both give the same tensors, bit for bit."""
 
     def __init__(self, cfg: Config, inst_dict: dict, sample_dict: dict,
                  cam: CameraInfo | None = None, with_background: bool = True,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 staging: str = "packed"):
+        if staging not in ("packed", "fields"):
+            raise ValueError(f"staging {staging!r}: packed or fields")
+        self.staging = staging
         self.device = resolve_device(device)
         step_mod.check_supported(cfg)
         if self.device.type == "cuda":
@@ -75,6 +85,13 @@ class TrainingSession:
         # adoption order; checkpoints persist them as a sidecar
         self.adopted_instances: list[dict] = []
         self.iteration = 0
+        self._pack_spec = packing.make_spec(
+            len(cls_ids), self.n_per_cls, cfg.n_per_optim_bg,
+            with_background=self.background is not None)
+        self._stager = None
+        self._slot = 1
+        self._prefetch_pool = None
+        self._prefetch_fut = None
         self._store = None
         self._superstep = None
         self._fast_state = None
@@ -96,17 +113,85 @@ class TrainingSession:
             self.cfg.n_per_optim_bg if self.background is not None else None,
             self.draw_gen if gen is None else gen, self.device)
 
+    def _fill(self, slot: int) -> int:
+        """The next host batch packed into the stager's host buffer
+        `slot` (on the prefetch worker, or on the calling thread when no
+        batch is prefetched)."""
+        cat_np, bg_np = self.batcher.next_batch(self.n_per_cls,
+                                                self.cfg.n_per_optim_bg)
+        return self._stager.fill(slot, cat_np, bg_np)
+
+    def _packed_batch(self):
+        """The next batch as views of one staged buffer; the batch after
+        it is submitted to the worker first. The epoch cursor's order is
+        unchanged: only the assembly overlaps the device's step."""
+        if self._stager is None:
+            self._stager = packing.Stager(self._pack_spec, self.device)
+        if self._prefetch_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._prefetch_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="batch-prefetch")
+        fut, self._prefetch_fut = self._prefetch_fut, None
+        slot = fut.result() if fut is not None else self._fill(1 - self._slot)
+        self._slot = slot
+        self._prefetch_fut = self._prefetch_pool.submit(self._fill, 1 - slot)
+        return self._stager.stage(slot)
+
     def step_once(self, draws: StepDraws | None = None) -> StepMetrics:
         """One optimizer step on the next host batch (the reference's
-        per-iteration shape, ref: train.py:98-201). `draws` injects the
-        sampling uniforms; by default they come from the session's
-        generator."""
-        cat, bg = self._device_batch()
+        per-iteration shape, ref: train.py:98-201), staged as
+        `self.staging` says. `draws` injects the sampling uniforms; by
+        default they come from the session's generator, on the calling
+        thread."""
+        if self.staging == "packed":
+            cat, bg = self._packed_batch()
+        else:
+            cat, bg = self._device_batch()
         draws = draws if draws is not None else self._draws()
         metrics = step_mod.train_step(self.state, cat, bg, draws, self.cfg,
                                       self.obj_mask)
         self.iteration += 1
         return metrics
+
+    def settle_prefetch(self) -> None:
+        """Wait until the prefetched host batch is assembled, and keep it:
+        nothing of the session is then touched by the worker (before a
+        checkpoint or a mesh in the middle of a run)."""
+        if self._prefetch_fut is not None:
+            self._prefetch_fut.result()
+
+    def release_prefetch(self) -> None:
+        """Drop the prefetched host batch, as the JAX package's
+        `release_prefetch` (ref: train/loop.py:136-144), and stop the
+        worker. The epoch cursor has passed it: the next step_once takes
+        the batch after it."""
+        fut, self._prefetch_fut = self._prefetch_fut, None
+        if fut is not None:
+            fut.result()
+        if self._prefetch_pool is not None:
+            self._prefetch_pool.shutdown()
+            self._prefetch_pool = None
+
+    def run(self, n_iters: int,
+            callback: Callable[[int, StepMetrics], None] | None = None,
+            callback_every: int = 100) -> list[dict[str, Any]]:
+        """n_iters host-staged steps (ref: train/loop.py:146-166): the
+        callback and the history at every iteration that is a multiple of
+        callback_every, and at the run's last one; then the prefetched
+        batch is released."""
+        history = []
+        end_iter = self.iteration + n_iters
+        for _ in range(n_iters):
+            metrics = self.step_once()
+            at_mark = (self.iteration % callback_every == 0
+                       or self.iteration == end_iter)
+            if callback is not None and at_mark:
+                callback(self.iteration, metrics)
+            if at_mark:
+                history.append(self.metrics_to_dict(metrics))
+        self.release_prefetch()
+        return history
 
     # ------------------------------------------------------------------
     # Fast path: the device-resident ray store, one window draw per step,
@@ -125,6 +210,9 @@ class TrainingSession:
         reference checkpoint import does) keeps the superstep valid."""
         if graph is None:
             graph = self.device.type == "cuda"
+        # the store reads the host ray buffers, which the worker may be
+        # reshuffling at an epoch's end
+        self.settle_prefetch()
         with phase_timer("fast_path", "store_build"):
             store = build_device_store(
                 self.categories, self.background, window_pad=self.n_per_cls,
@@ -157,6 +245,8 @@ class TrainingSession:
                                "enable_fast_path(): call it again")
         if draws is not None and len(draws) != n_steps:
             raise ValueError(f"{len(draws)} draws for {n_steps} steps")
+        # no worker calls into CUDA while a step may be captured
+        self.settle_prefetch()
         metrics = None
         n_inner = self._superstep.n_inner
         for s in range(0, n_steps, n_inner):

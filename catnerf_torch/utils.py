@@ -1,10 +1,11 @@
 """Small shared utilities: the named phase-timing registry (a copy of
 `phase_add`/`phase_timer` from the JAX package's utils.py, ref:
-src/scene_cateogries.py:10-22) and device resolution."""
+src/scene_cateogries.py:10-22), device resolution and `device_trace`."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 
@@ -52,3 +53,27 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
                 "PyTorch path on the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, device: str | torch.device = "cpu"):
+    """A torch.profiler capture of the block (the port's counterpart of the
+    JAX package's `device_trace`): the host's activities, and the card's
+    on a CUDA `device`. The device is synchronised inside the capture
+    before it stops, so that the work the block queued is in the trace;
+    then a Chrome trace is written under `log_dir` (`trace_<pid>_<ns>.json`,
+    for chrome://tracing or Perfetto). Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    with profile(activities=activities) as prof:
+        try:
+            yield prof
+        finally:
+            if cuda:
+                torch.cuda.synchronize()
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

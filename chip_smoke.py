@@ -124,10 +124,18 @@ Phases, each printing one or more lines:
 12. the CLI on a dataset config: a layout of CLI_SCENE (4 frames of
    600 x 340, half a side of room0's 1,200 x 680), room0's
    config pointed at it (its camera, self-pretrained registration), and
-   `python -m catnerf_torch.train --config` as a subprocess: CLI_ITERS
-   steps logged every CLI_LOG, a checkpoint at the end, then `--resume
+   `python -m catnerf_torch.train --config` as a subprocess: max_iter
+   CLI_ITERS + 1, so CLI_ITERS steps (train.py's range) through the fast
+   path, logged every CLI_LOG, a checkpoint at CLI_ITERS, then `--resume
    --mesh-only` at grid CLI_GRID; the stage seconds it reports, the
-   metrics file, the checkpoint and one mesh per object;
+   metrics file, the checkpoint and one mesh per object; then
+   `--synthetic --parity --trace` for CLI_ITERS steps (one `step_once` a
+   step on packed, prefetched batches), its first step traced by
+   torch.profiler into a Chrome trace that must name the step's CUDA
+   kernels; then `python -m catnerf_torch.metrics.eval_obj` and
+   `eval_scene` on the meshes against ground-truth PLYs of CLI_SCENE's
+   analytic shapes (and its room box) in a `habitat/` layout: each
+   object's accuracy, completion and ratio, and the scene's aggregate;
 13. the serving surface on phase 10's trained session
    (`catnerf_torch.render_views`, `edit`, `serve`): the gate's
    `render_psnr` (the scene composite from frames 0 and 12 against their
@@ -160,9 +168,26 @@ Phases, each printing one or more lines:
    view bitwise); the restored session served on 127.0.0.1: POST /ingest
    of the held-out instance's observations as an .npz (accumulate=direct,
    INGEST_STEPS steps, then /health and /object of the new id; then
-   accumulate=tsdf with save=0), each timed; no fused kernel launched.
+   accumulate=tsdf with save=0), each timed; no fused kernel launched;
+15. the host-staged step and the JAX gate's registered fit-holdout: for
+   the fused trainer (kernels 1-4, each launched once a step) and
+   `Config()` on the bench scene, STAGING_STEPS `step_once` steps staged
+   one copy a field (`staging="fields"`) and as many staged through
+   train/packing.py (one packed copy, the next batch assembled on a worker
+   thread), from one state, cloned, on the same draws: every metric and
+   parameter bitwise equal; then each staging's eager steps/s
+   (STAGING_TIMED steps a run, in turns); the loss guard tripped once in
+   process (`python -m catnerf_torch.train --synthetic --parity` with a
+   NaN written into one background weight: the post-mortem checkpoint and
+   train.py's message); then `e2e_quality.run(registered=True,
+   fit_holdout=True)` uncut (3 categories x 3 spheres, the held-out one
+   erased from the training layout, `Replica(cfg)` with self-pretrained
+   fields, E2E_ITERS steps, the mesher at grid 128, the held-out sphere
+   registered to the trained ones' loader-grade clouds at their estimated
+   poses and fitted for 1,000 steps), held to the JAX gate's pass rule
+   and its fit under E2E_CM_BOUND cm, beside the JAX package's record.
 
-Each main path (5, 7, 8, 9, 10, 11, 13, 14) is driven with the launch
+Each main path (5, 7, 8, 9, 10, 11, 13, 14, 15) is driven with the launch
 counts set to 0 just before it and read just after. Then a
 `{"kernels": [...]}` line, the card line again, and as the last line
 `{"ok": true, "device": {...}}`. Exits non-zero, with no result, when
@@ -257,6 +282,13 @@ PRETRAIN_CHECK_STEPS = 100
 CLI_SCENE = dict(n_frames=4, width=600, height=340, n_categories=3,
                  insts_per_cat=2, seed=1)
 CLI_ITERS, CLI_LOG, CLI_GRID = 200, 100, 128
+# phase 15: the steps of each staging held bitwise, the steps of each
+# timed run, and the registered fit-holdout's record in the JAX package
+STAGING_STEPS = 20
+STAGING_TIMED = 50
+JAX_REGFIT_RECORD = ("the JAX package's registered --fit-holdout on a TPU "
+                     "v5e (BASELINE.md:179): held-out pose 0.07 cm / 1.13% "
+                     "scale, mesh 0.632 cm; trained objects 0.80 cm / 100%")
 # phase 13, the serving surface on phase 10's trained session: the gate's
 # render readout (experimental/e2e_quality.render_psnr) and its floor, the
 # card-vs-CPU renders (160 x 120, 32 bins) under the flip rule (RENDER_TOL
@@ -1705,7 +1737,8 @@ def registered_phase() -> None:
     from catnerf_torch.experimental import e2e_quality as e2e
 
     t0 = time.time()
-    scene, sess, data, sec = e2e.make_registered_session(grid_dim=E2E_GRID)
+    scene, sess, data, sec, _ = e2e.make_registered_session(
+        grid_dim=E2E_GRID)
     cfg = sess.cfg
     n_steps = -(-cfg.pretrain_steps // 100) * 100
     log(f"registered: layout written in {sec['layout']:.2f} s; Replica "
@@ -1798,7 +1831,9 @@ def uncertainty_card_vs_cpu(objects, fields) -> None:
 
 def cli_phase() -> None:
     """Phase 12: `python -m catnerf_torch.train --config` with room0's
-    config on a Replica layout of CLI_SCENE, then --resume --mesh-only."""
+    config on a Replica layout of CLI_SCENE, then --resume --mesh-only,
+    a `--synthetic --parity --trace` run, and the evaluation CLIs on the
+    meshes."""
     import tempfile
 
     from catnerf_torch.data.synthetic import make_scene
@@ -1831,25 +1866,16 @@ def cli_run(scene, root: str, scene_s: float) -> None:
     cfg_path = os.path.join(root, "room.json")
     with open(cfg_path, "w") as f:
         json.dump(raw, f)
-    logdir = os.path.join(root, "logs")
+    # <log_dir>/<scene>/scene_mesh, where the evaluation CLIs look
+    logdir = os.path.join(root, "logs", "room")
     base = [sys.executable, "-m", "catnerf_torch.train", "--config",
             cfg_path, "--logdir", logdir]
-    runs = (("train", ["--max-iter", str(CLI_ITERS), "--log-iter",
+    runs = (("train", ["--max-iter", str(CLI_ITERS + 1), "--log-iter",
                        str(CLI_LOG), "--save-iter", str(CLI_ITERS)]),
             ("mesh", ["--resume", "--mesh-only", "--grid-dim",
                       str(CLI_GRID)]))
     for what, extra in runs:
-        t0 = time.time()
-        out = subprocess.run(base + extra, cwd=ROOT, capture_output=True,
-                             text=True, timeout=600)
-        if out.returncode != 0:
-            raise AssertionError(f"cli {what}: exit {out.returncode}\n"
-                                 f"{out.stderr[-4000:]}")
-        for line in out.stderr.splitlines():
-            if line.startswith(("loaded ", "resumed ", "saved ",
-                                "exported ")):
-                log(f"cli {what}: {line}")
-        log(f"cli {what}: {time.time() - t0:.1f} s in all")
+        cli_subprocess(what, base + extra)
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     if [r["iteration"] for r in rows] != list(range(CLI_LOG, CLI_ITERS + 1,
@@ -1861,13 +1887,133 @@ def cli_run(scene, root: str, scene_s: float) -> None:
         raise AssertionError("cli: no checkpoint")
     meshes = os.listdir(os.path.join(logdir, "scene_mesh"))
     missing = [s.inst_id for s in scene.spheres
-               if not any(m.endswith(f"_obj{s.inst_id}.obj")
-                          for m in meshes)]
+               if f"iteration_{CLI_ITERS}_obj{s.inst_id}.obj" not in meshes]
     if missing:
         raise AssertionError(f"cli: no mesh of objects {missing}: {meshes}")
     log(f"cli: metrics {[round(r['total'], 3) for r in rows]} (total at "
         f"{[r['iteration'] for r in rows]}), checkpoint {CLI_ITERS}, "
         f"{len(meshes)} meshes")
+    cli_trace(root)
+    cli_eval(scene, root)
+
+
+def cli_subprocess(what: str, argv: list) -> str:
+    """One CLI as a subprocess from the repo's root; its status lines
+    logged; returns its stdout."""
+    t0 = time.time()
+    out = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"cli {what}: exit {out.returncode}\n"
+                             f"{out.stderr[-4000:]}")
+    for line in out.stderr.splitlines():
+        if line.startswith(("loaded ", "resumed ", "saved ", "exported ",
+                            "device trace ")):
+            log(f"cli {what}: {line}")
+    log(f"cli {what}: {time.time() - t0:.1f} s in all")
+    return out.stdout
+
+
+def cli_trace(root: str) -> None:
+    """`--synthetic --parity --trace`: CLI_ITERS host-staged steps, the
+    first under torch.profiler; the Chrome trace must name CUDA kernels."""
+    from collections import Counter
+
+    logdir = os.path.join(root, "trace_run")
+    cli_subprocess("parity trace", [
+        sys.executable, "-m", "catnerf_torch.train", "--synthetic",
+        "--logdir", logdir, "--max-iter", str(CLI_ITERS + 1), "--log-iter",
+        str(CLI_LOG), "--parity", "--trace"])
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    traces = [n for n in os.listdir(os.path.join(logdir, "trace"))
+              if n.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"cli parity trace: traces {traces}")
+    path = os.path.join(logdir, "trace", traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    log(f"cli parity trace: rows at {[r['iteration'] for r in rows]}, total "
+        f"{[round(r['total'], 3) for r in rows]}; trace "
+        f"{os.path.getsize(path) / 2**20:.1f} MB, {sum(kernels.values())} "
+        f"kernel launches of {len(kernels)} kernels in the traced step, "
+        f"the most launched: "
+        + "; ".join(f"{n[:60]} x{c}" for n, c in kernels.most_common(4)))
+    if [r["iteration"] for r in rows] != list(range(CLI_LOG, CLI_ITERS + 1,
+                                                   CLI_LOG)) or \
+            not all(math.isfinite(r["total"]) for r in rows):
+        raise AssertionError(f"cli parity trace: rows {rows}")
+    if not kernels:
+        raise AssertionError("cli parity trace: no CUDA kernel in the trace")
+
+
+def room_mesh(scene):
+    """The synthetic room's walls, floor and ceiling: the inside of its
+    box (inst_dict[0]'s bbox3D) as 12 triangles."""
+    import numpy as np
+
+    from catnerf_torch.mesher.mesh import TriMesh
+
+    box = scene.inst_dict[0]["bbox3D"]
+    lo = np.asarray(box.center) - np.asarray(box.extent) / 2
+    hi = np.asarray(box.center) + np.asarray(box.extent) / 2
+    v = np.array([[(lo, hi)[i >> 2 & 1][0], (lo, hi)[i >> 1 & 1][1],
+                   (lo, hi)[i & 1][2]] for i in range(8)], np.float64)
+    f = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],
+                  [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
+                  [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]], np.int64)
+    return TriMesh(v, f)
+
+
+def cli_eval(scene, root: str) -> None:
+    """`python -m catnerf_torch.metrics.eval_obj`, then `eval_scene`, on
+    the CLI's meshes of iteration CLI_ITERS, against a Replica `habitat/`
+    layout of the scene's analytic shapes (gt_shape_mesh) and its room."""
+    import numpy as np
+
+    from catnerf_torch.metrics.synthetic_eval import gt_shape_mesh
+
+    t0 = time.time()
+    gt_dir = os.path.join(root, "Replica", "room", "habitat")
+    os.makedirs(gt_dir)
+    for s in scene.spheres:
+        gt_shape_mesh(s).export_ply(
+            os.path.join(gt_dir, f"mesh_semantic.ply_{s.inst_id}.ply"))
+    room_id = max(s.inst_id for s in scene.spheres) + 1
+    room_mesh(scene).export_ply(
+        os.path.join(gt_dir, f"mesh_semantic.ply_{room_id}.ply"))
+    with open(os.path.join(gt_dir, "info_semantic.json"), "w") as f:
+        json.dump({"objects": [{"id": s.inst_id, "class_id": s.cls_id}
+                               for s in scene.spheres]
+                   + [{"id": room_id, "class_id": 93}]}, f)
+    log(f"cli eval: ground truth written in {time.time() - t0:.1f} s")
+    args = ["--data_dir", os.path.join(root, "Replica"), "--log_dir",
+            os.path.join(root, "logs"), "--iteration", str(CLI_ITERS),
+            "--scenes", "room"]
+    cli_subprocess("eval_obj", [sys.executable, "-m",
+                                "catnerf_torch.metrics.eval_obj", *args])
+    out_dir = os.path.join(root, "logs", "room", "eval_mesh")
+    per_obj = {}
+    for obj_id in [0] + [s.inst_id for s in scene.spheres]:
+        path = os.path.join(out_dir, f"metric_obj{obj_id}.npy")
+        if not os.path.exists(path):
+            raise AssertionError(f"cli eval: object {obj_id} not scored")
+        acc, comp, ratio = (float(x) for x in np.load(path).reshape(3))
+        per_obj[obj_id] = (acc, comp, ratio)
+        log(f"cli eval: object {obj_id}: accuracy {acc:.3f} cm, completion "
+            f"{comp:.3f} cm, ratio {ratio:.2f} %")
+    if not all(math.isfinite(x) for m in per_obj.values() for x in m):
+        raise AssertionError(f"cli eval: metrics not finite: {per_obj}")
+    cli_subprocess("eval_scene", [sys.executable, "-m",
+                                  "catnerf_torch.metrics.eval_scene", *args])
+    with open(os.path.join(root, "logs", "eval_3D_scene.json")) as f:
+        table = json.load(f)
+    log(f"cli eval: eval_scene {json.dumps(table['aggregate'])} over "
+        f"{table['scenes']['room']['n_objects']} objects (background "
+        f"included; {CLI_ITERS} steps on 4 frames, no quality bound)")
+    if table["scenes"]["room"]["n_objects"] != len(per_obj):
+        raise AssertionError(f"cli eval: eval_scene {table}")
 
 
 def field_flops(fc, is_background: bool) -> float:
@@ -2374,6 +2520,167 @@ def fit_phase() -> None:
         raise AssertionError(f"fit: fused kernels launched: {launches}")
 
 
+def clone_state(src, dst) -> None:
+    """dst's parameters and optimizer state become copies of src's."""
+    with torch.no_grad():
+        for a, b in zip(dst.state.params.parameters(),
+                        src.state.params.parameters()):
+            a.copy_(b)
+    dst.state.optimizer.load_state_dict(src.state.optimizer.state_dict())
+    dst.state.step = src.state.step
+
+
+def staging_phase(scene) -> None:
+    """Phase 15's staging: per-field against packed and prefetched
+    `step_once`, bitwise, then each one's eager steps/s, for the fused
+    trainer (kernels 1-4 launched once a step) and `Config()`."""
+    from catnerf_torch.kernels import fused_field as ff
+    from catnerf_torch.train.loop import TrainingSession
+
+    for what, cfg_fn, kernels in (("fused", fused_config, FUSED_KERNELS),
+                                  ("default (bf16)", default_config, ())):
+        cfg = cfg_fn()
+        fields, packed = (TrainingSession(cfg, scene.inst_dict,
+                                          scene.sample_dict, cam=scene.cam,
+                                          staging=how)
+                          for how in ("fields", "packed"))
+        clone_state(fields, packed)
+        draws = [fields._draws() for _ in range(STAGING_STEPS)]
+        m_f = [fields.step_once(d) for d in draws]
+        ff.reset_launch_counts()
+        m_p = [packed.step_once(d) for d in draws]
+        torch.cuda.synchronize()
+        launches = dict(ff.LAUNCHES)
+        same = all(torch.equal(a, b) for x, y in zip(m_f, m_p)
+                   for a, b in zip(x, y)) and tensors_equal(
+            state_tensors(fields.state), state_tensors(packed.state))
+        want = {k: STAGING_STEPS if k in kernels else 0 for k in launches}
+        rates = {}
+        for turn, sess in (("fields", fields), ("packed", packed),
+                           ("fields again", fields),
+                           ("packed again", packed)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STAGING_TIMED):
+                m = sess.step_once()
+            float(m.total)
+            rates[turn] = STAGING_TIMED / (time.perf_counter() - t0)
+        packed.release_prefetch()
+        verdict = "bitwise equal" if same else "DIFFERENT"
+        log(f"staging: {what} trainer, {STAGING_STEPS} step_once from one "
+            f"state on the same draws, per-field vs packed and prefetched: "
+            f"metrics and parameters {verdict}; launches of the packed run "
+            f"{json.dumps(launches)}; eager steps/s ({STAGING_TIMED} a run, "
+            f"in turns) "
+            + json.dumps({k: round(v, 2) for k, v in rates.items()}))
+        if not same:
+            raise AssertionError(f"staging: {what}: packed staging left "
+                                 f"per-field staging")
+        if launches != want:
+            raise AssertionError(f"staging: {what}: launches {launches}, "
+                                 f"want {want}")
+
+
+def guard_phase() -> None:
+    """Phase 15's loss guard: the training CLI in process, on the card,
+    with a NaN written into one background weight."""
+    from catnerf_torch.train import __main__ as cli
+
+    logdir = os.path.join(ROOT, "build", "guard_logs")
+    if os.path.isdir(logdir):
+        import shutil
+
+        shutil.rmtree(logdir)
+    session = cli.TrainingSession
+
+    def poisoned(cfg, *args, **kw):
+        sess = session(cfg, *args, **kw)
+        with torch.no_grad():
+            next(sess.state.params.bg_fc.parameters()).view(-1)[0] = \
+                float("nan")
+        return sess
+
+    t0 = time.time()
+    cli.TrainingSession = poisoned
+    try:
+        cli.main(["--synthetic", "--logdir", logdir, "--max-iter", "6",
+                  "--log-iter", "5", "--parity"])
+        message = None
+    except SystemExit as e:
+        message = str(e)
+    finally:
+        cli.TrainingSession = session
+    ckpt = os.path.join(logdir, "ckpt", "3")
+    log(f"guard: {message} ({time.time() - t0:.1f} s; checkpoint "
+        f"{'written' if os.path.exists(ckpt) else 'MISSING'})")
+    if message != (f"loss explosion detected at iteration 1 (total=nan); "
+                   f"post-mortem state snapshot (iteration 3, 2 steps past "
+                   f"the explosion — may be poisoned) saved to {ckpt}") or \
+            not os.path.exists(ckpt):
+        raise AssertionError(f"guard: {message}")
+
+
+def regfit_gate() -> None:
+    """Phase 15's gate: `e2e_quality.run(registered=True,
+    fit_holdout=True)` uncut, held to the JAX gate's pass rule and a fit
+    accuracy under E2E_CM_BOUND."""
+    from catnerf_torch.experimental import e2e_quality as e2e
+
+    t0 = time.time()
+    run = e2e.run(E2E_ITERS, E2E_GRID,
+                  out=os.path.join(ROOT, "build", "e2e_regfit_mesh"),
+                  log=lambda m: log(f"regfit: {m}"), registered=True,
+                  fit_holdout=True)
+    res, fh = run.result, run.result["fit_holdout"]
+    sec = res["registration_s"]
+    log(f"regfit: layouts written in {sec['layout']:.2f} s; Replica loader "
+        f"{sec['loader']:.2f} s: frames {sec['frames']:.2f}, stage 1 "
+        f"{sec['stage1']:.2f}, pretraining {sec['pretrain']:.2f}, "
+        f"uncertainty {sec['uncertainty']:.2f}, alignment {sec['align']:.2f}")
+    for obj_id, r in sorted(res["registration"].items()):
+        log(f"regfit: registered {obj_id}: {json.dumps(r)}")
+    for obj_id, m in sorted(res["per_object"].items()):
+        log(f"regfit: trained object {obj_id}: {json.dumps(m)}")
+    log(f"regfit: gate in {time.time() - t0:.1f} s (training "
+        f"{res['train_s']} s, meshing {res['mesh_s']} s, scoring "
+        f"{res['score_s']} s); trained objects {res['mean_accuracy_cm']} cm "
+        f"accuracy, {res['mean_completion_cm']} cm completion, "
+        f"{res['mean_completion_ratio_pct']} % over {res['n_meshed']}; "
+        f"render_psnr {res['render_psnr']} dB")
+    log(f"regfit: fit_holdout {json.dumps(fh)} ({JAX_REGFIT_RECORD})")
+    mesh = fh["mesh"]
+    if fh["path"] != "registered" or not e2e.passes(res) or mesh is None \
+            or not mesh["accuracy_cm"] < E2E_CM_BOUND:
+        raise AssertionError(f"regfit: the registered fit-holdout gate "
+                             f"failed: {json.dumps(fh)}; trained means "
+                             f"{res['mean_accuracy_cm']} cm, "
+                             f"{res['n_meshed']} meshed")
+
+
+def staging_and_regfit_phase(scene) -> None:
+    """Phase 15: the staging, the loss guard, the registered
+    fit-holdout."""
+    from catnerf_torch.kernels import fused_field as ff
+
+    split = {}
+    t0 = time.time()
+    staging_phase(scene)
+    split["staging"] = time.time() - t0
+    t0 = time.time()
+    guard_phase()
+    split["guard"] = time.time() - t0
+    ff.reset_launch_counts()
+    t0 = time.time()
+    regfit_gate()
+    split["registered fit-holdout"] = time.time() - t0
+    launches = dict(ff.LAUNCHES)
+    log("phase 15 by part (s): "
+        + json.dumps({k: round(v, 1) for k, v in split.items()})
+        + f"; launches of the gate {json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError(f"regfit: fused kernels launched: {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2465,6 +2772,9 @@ def main() -> int:
     t0 = time.time()
     fit_phase()
     log(f"fit: phase 14 in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    staging_and_regfit_phase(scene)
+    log(f"phase 15 in {time.time() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if not r["launches"] > 0:

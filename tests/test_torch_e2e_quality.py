@@ -80,8 +80,11 @@ def test_the_fit_holdout_gate_runs_the_new_instance_path(tmp_path, capsys,
 
 
 def test_the_registered_fit_holdout_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        e2e.run(registered=True, fit_holdout=True, device="cpu")
+    """The registered fit-holdout runs on the Replica layout (below); on
+    the ScanNet layout it raises, naming the item that ports ScanNet."""
+    with pytest.raises(NotImplementedError, match="item 4e"):
+        e2e.main(["--device", "cpu", "--registered", "--fit-holdout",
+                  "--dataset", "scannet"])
 
 
 @pytest.mark.parametrize("change,ok", [
@@ -163,3 +166,229 @@ def test_carve_boundary_marks_half_pixels_and_the_depth_margin():
     seen_b = np.array([True, False, False])
     with pytest.raises(AssertionError, match="carve bits differ"):
         e2e.count_flips(occ, u8, u8, seen_a, seen_b, near)
+
+
+# ---------------------------------------------------------------------------
+# The JAX gate's other modes (ref: scripts/e2e_quality.py:36-90, 136-155,
+# 187-250, 259-282, 327-374, 429-433)
+# ---------------------------------------------------------------------------
+
+class _FakeMetrics:
+    def __init__(self):
+        self.cat_psnr = np.zeros(2)
+
+
+class _FakeJaxSession:
+    """What the JAX gate touches of a session, recording its config and
+    which dispatch trained it."""
+
+    def __init__(self, cfg, inst_dict, sample_dict, cam=None, **kw):
+        self.cfg, self.sample_dict, self.cam = cfg, sample_dict, cam
+        self.dispatch = None
+        _FakeJaxSession.made.append(self)
+
+    def step_once(self):
+        self.dispatch = self.dispatch or "parity"
+        return _FakeMetrics()
+
+    def enable_fast_path(self, n_inner):
+        self.dispatch = "fast"
+
+    def run_fast(self, n):
+        return _FakeMetrics()
+
+
+def _jax_gate(argv, monkeypatch, capsys) -> tuple[dict, object]:
+    """The JAX package's scripts/e2e_quality.py on `argv`, on a fake
+    session, mesher and renderer: (its JSON result, its session)."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    from catnerf_tpu import render_views as jrender
+    from catnerf_tpu import utils as jutils
+    from catnerf_tpu.data import synthetic as jsynthetic
+    from catnerf_tpu.mesher import meshing as jmeshing
+    from catnerf_tpu.train import loop as jloop
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "jax_e2e_gate", root / "scripts" / "e2e_quality.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    make_scene = jsynthetic.make_scene
+    _FakeJaxSession.made = []
+    monkeypatch.setattr(jutils, "enable_compilation_cache", lambda: None)
+    monkeypatch.setattr(jsynthetic, "make_scene", lambda **kw: make_scene(
+        **{**kw, "n_frames": 2, "width": 16, "height": 12}))
+    monkeypatch.setattr(jloop, "TrainingSession", _FakeJaxSession)
+    monkeypatch.setattr(jmeshing, "mesh_scene", lambda *a, **kw: {})
+    monkeypatch.setattr(jrender, "scene_far", lambda sess: 1.0)
+    monkeypatch.setattr(jrender, "render_scene_view", lambda sess, T, cam,
+                        **kw: (np.zeros((16, 12, 3), np.float32), None,
+                               None))
+    monkeypatch.setattr(sys, "argv", ["e2e_quality.py", "--iters", "100",
+                                      "--out", "unused", *argv])
+    with pytest.raises(SystemExit):
+        mod.main()
+    result = json.loads(capsys.readouterr().out.splitlines()[-1])
+    (sess,) = _FakeJaxSession.made
+    return result, sess
+
+
+def _config_items(cfg) -> dict:
+    out = {}
+    for k, v in vars(cfg).items():
+        out[k] = _config_items(v) if hasattr(v, "__dict__") else v
+    return out
+
+
+MODE_ARGS = [
+    [],
+    ["--parity"],
+    ["--strict-parity"],
+    ["--strict-parity", "--flag", "seg_propagation_rounds=3", "--flag",
+     "bf16_activations=1"],
+    ["--strict-parity", "--dispatch", "fast"],
+    ["--dispatch", "parity", "--shapes", "asym"],
+    ["--flag", "mesh_method=tetra", "--flag", "eta1=0.05", "--flag",
+     "mesh_space_carving=0", "--shapes", "mixed"],
+]
+
+
+@pytest.mark.parametrize("argv", MODE_ARGS, ids=lambda a: " ".join(a) or
+                         "default")
+def test_each_mode_resolves_the_jax_gates_config_and_sampling(
+        argv, monkeypatch, capsys):
+    """The port's gate parses the JAX gate's flags into the same Modes,
+    and `resolve_modes` gives the Config the JAX gate trains (every
+    attribute), its dispatch, and the result's
+    `sampling`, `flag_overrides`, `dispatch_override` and `shapes`."""
+    jresult, jsess = _jax_gate(argv, monkeypatch, capsys)
+    seen = {}
+
+    def fake_run(*args, **kw):
+        seen.update(kw)
+        return e2e.GateRun({"n_objects": 6, "n_meshed": 0,
+                            "mean_accuracy_cm": None}, None, None, None)
+
+    monkeypatch.setattr(e2e, "run", fake_run)
+    monkeypatch.setattr(e2e, "passes", lambda result: False)
+    assert e2e.main(["--device", "cpu", *argv]) == 1
+    capsys.readouterr()
+    modes = seen["modes"]
+    cfg, parity, sampling = e2e.resolve_modes(modes, grid_dim=128)
+    got, want = _config_items(cfg), _config_items(jsess.cfg)
+    assert got == want
+    assert ("parity" if parity else "fast") == jsess.dispatch
+    assert sampling == jresult["sampling"]
+    assert list(modes.flags) == jresult["flag_overrides"]
+    assert modes.dispatch == jresult["dispatch_override"]
+    assert modes.shapes == jresult["shapes"]
+
+
+def test_an_unknown_flag_exits_as_the_jax_gate_does():
+    with pytest.raises(SystemExit, match="Config has no attribute 'nope'"):
+        e2e.resolve_modes(e2e.Modes(flags=("nope=1",)))
+
+
+@pytest.mark.parametrize("shapes", ["asym", "mixed"])
+def test_the_ground_truth_of_each_shape_is_the_jax_packages(shapes):
+    """Every shape of an asym or mixed scene: the port's ground-truth
+    mesh (`gt_shape_mesh`, marching cubes on the object-frame SDF) equals
+    the JAX package's, vertices within 1e-12 and faces equal; the gate's
+    session is built on that scene."""
+    from catnerf_tpu.data.synthetic import make_scene as jmake_scene
+    from catnerf_tpu.metrics.synthetic_eval import (
+        gt_shape_mesh as jgt_shape_mesh)
+
+    from catnerf_torch.metrics.synthetic_eval import gt_shape_mesh
+
+    kw = dict(n_frames=2, width=16, height=12, n_categories=3,
+              insts_per_cat=2, seed=0, shape_family=shapes)
+    scene, jscene = e2e.make_scene(**kw), jmake_scene(**kw)
+    assert [type(s).__name__ for s in scene.spheres] == [
+        type(s).__name__ for s in jscene.spheres]
+    assert len({type(s).__name__ for s in scene.spheres}) > 1
+    for s, js in zip(scene.spheres, jscene.spheres):
+        got, want = gt_shape_mesh(s), jgt_shape_mesh(js)
+        np.testing.assert_allclose(got.vertices, want.vertices, rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_array_equal(got.faces, want.faces)
+
+
+def test_the_parity_dispatch_trains_step_once_in_chunks(monkeypatch):
+    """--parity: one step_once a step on the epoch cursor's batches, no
+    fast path, the prefetched batch released at the end."""
+    _, sess = e2e.make_session(grid_dim=32, device="cpu")
+    calls = []
+    step_once = sess.step_once
+    monkeypatch.setattr(sess, "step_once",
+                        lambda: calls.append(1) or step_once())
+    tr = e2e.train(sess, 3, parity=True)
+    assert len(calls) == 3 and sess.iteration == 3
+    assert sess._superstep is None and sess._prefetch_fut is None
+    assert len(tr["psnr_hist"]) == 1
+
+
+def test_a_split_category_exits_with_the_jax_gates_message():
+    """The registered fit-holdout needs the held-out instance's category
+    trained as registered; where registration split or dropped it, the
+    gate exits with the JAX gate's message."""
+    class Data:
+        inst_dict = {0: {}, 181: {1: {}}}
+
+    class Sess:
+        cls_ids = [181]
+        cfg = cam = None
+
+    with pytest.raises(SystemExit, match="category 80 was split or dropped "
+                       r"during registration \(trained ids \[0, 181\]\)"):
+        e2e.run_fit_holdout(Sess(), None, (80, 3), data=Data(),
+                            data_full=Data())
+
+
+def test_the_registered_fit_holdout_runs_on_estimated_poses(tmp_path,
+                                                            monkeypatch):
+    """--registered --fit-holdout at a tiny size (one category of 3
+    spheres in 4 frames of 64 x 48, a 20-step pretraining, 10 steps, a
+    5-step fit): the held-out sphere is erased from the training layout
+    (the loader never sees it), the full layout gives its cloud and
+    frames, the templates are the trained spheres at their registered
+    poses, and the result has the JAX gate's keys with path
+    "registered"."""
+    monkeypatch.setattr(e2e, "SCENE", dict(n_frames=4, width=64, height=48,
+                                           n_categories=1, insts_per_cat=2))
+    monkeypatch.setattr(e2e, "RENDER_BINS", 2)
+    monkeypatch.setattr(e2e, "FIT_STEPS", 5)
+    cfg, _, _ = e2e.resolve_modes(grid_dim=32)
+    cfg.pretrain_steps, cfg.pretrain_rays = 20, 64
+    cfg.multi_init_pose = False
+    calls = []
+    run_fit_holdout = e2e.run_fit_holdout
+
+    def spy(sess, scene, held, **kw):
+        calls.append(kw)
+        return run_fit_holdout(sess, scene, held, **kw)
+
+    monkeypatch.setattr(e2e, "run_fit_holdout", spy)
+    run = e2e.run(10, 32, device="cpu", out=str(tmp_path), registered=True,
+                  fit_holdout=True, cfg=cfg)
+    result, sess = run.result, run.session
+    held_cls, held = e2e.holdout(run.scene.inst_dict)
+    assert result["metric"] == "e2e_synthetic_quality_registered"
+    (kw,) = calls
+    data, data_full = kw["data"], kw["data_full"]
+    trained = {o for c, objs in data.inst_dict.items() if c for o in objs}
+    assert held not in trained and trained == {1, 2}
+    assert held in data_full.inst_dict[held_cls]
+    assert not any((s["obj_mask"] == held).any()
+                   for s in data.sample_dict.values())
+    assert set(result["registration"]) == trained
+    fh = result["fit_holdout"]
+    assert set(fh) == FIT_HOLDOUT_KEYS
+    assert fh["held_out"] == held and fh["path"] == "registered"
+    assert fh["fit_steps"] == 5
+    assert np.isfinite([fh["registration_chamfer"], fh["pose_center_err_cm"],
+                        fh["psnr_prior_init"], fh["psnr_after_fit"]]).all()
+    assert sorted(int(k) for k in result["per_object"]) == [1, 2]

@@ -771,6 +771,14 @@ def test_an_adopted_checkpoint_restores_bitwise_and_steps_alike(adopted,
         for name in s1[k]:
             assert torch.equal(s1[k][name], s2[k][name]), (k, name)
     assert torch.equal(fresh.obj_mask, tsess.obj_mask)
+    # the device store is built from the host ray buffers in their epoch
+    # cursor's order, which no checkpoint holds (in either package); the
+    # trained session's step_once has drawn one batch ahead (its prefetch)
+    # and may have reshuffled them, so the fresh session takes its order
+    tsess.release_prefetch()
+    for c2, c in zip(fresh.categories + [fresh.background],
+                     tsess.categories + [tsess.background]):
+        c2.buffer.arrays, c2.buffer.cursor = c.buffer.arrays, c.buffer.cursor
     tsess.enable_fast_path(1, graph=False)
     fresh.enable_fast_path(1, graph=False)
     m1 = tsess.run_fast(1, _fast(tsess, 5))

@@ -68,11 +68,13 @@ def test_importing_every_module_loads_no_jax():
     "catnerf_torch.geometry.registration", "catnerf_torch.loaders",
     "catnerf_torch.train.__main__",
     "catnerf_torch.experimental.registration_check", "catnerf_torch.fit",
-    "catnerf_torch.experimental.fit_check"])
+    "catnerf_torch.experimental.fit_check", "catnerf_torch.train.packing",
+    "catnerf_torch.metrics.eval_obj", "catnerf_torch.metrics.eval_scene"])
 def test_packed_and_xla_path_modules_load_no_jax(module):
     """Each module of the packed kernels, the XLA-path fields, the kernel
     comparison, the geometry library, the mesher, the metrics, the
-    checkpoints, the quality gate and the test-time fit, imported alone
+    checkpoints, the quality gate, the test-time fit, the packed staging
+    and the evaluation CLIs, imported alone
     in a fresh interpreter, loads neither jax nor the JAX package, nor
     OpenCV or PIL."""
     code = (f"import json, sys\nimport {module}\n"
@@ -116,7 +118,34 @@ def test_source_walk_covers_the_new_modules():
             "catnerf_torch/geometry/uncertainty.py",
             "catnerf_torch/experimental/registration_check.py",
             "catnerf_torch/fit.py",
-            "catnerf_torch/experimental/fit_check.py"} <= names
+            "catnerf_torch/experimental/fit_check.py",
+            "catnerf_torch/train/packing.py",
+            "catnerf_torch/metrics/eval_obj.py",
+            "catnerf_torch/metrics/eval_scene.py"} <= names
+
+
+@pytest.mark.parametrize("entry", ["catnerf_torch.metrics.eval_obj",
+                                   "catnerf_torch.metrics.eval_scene",
+                                   "catnerf_torch.train"])
+def test_the_cli_entry_points_load_no_jax(entry):
+    """`python -m <entry> --help`, run as `-m` runs it in a fresh
+    interpreter: it prints its usage and loads neither jax nor the JAX
+    package, nor OpenCV or PIL."""
+    code = ("import json, runpy, sys\n"
+            f"sys.argv = [{entry!r}, '--help']\n"
+            "try:\n"
+            f"    runpy.run_module({entry!r}, run_name='__main__',"
+            " alter_sys=True)\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    assert "usage: python -m " in out.stdout
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in loaded if _forbidden(m)] == []
 
 
 def test_reading_a_jax_written_cache_loads_no_forbidden_module(tmp_path):
