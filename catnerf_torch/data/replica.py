@@ -206,10 +206,9 @@ def get_dataset(cfg: Config, run_registration: bool = True, device=None):
     if cfg.dataset_format == "Replica":
         return Replica(cfg, run_registration=run_registration, device=device)
     if cfg.dataset_format == "ScanNet":
-        raise NotImplementedError(
-            "the ScanNet loader is not ported yet (ROADMAP.md Queue 1, "
-            "item 4: ScanNet's JPEG decoding, Undistort, segmentation and "
-            "TSDF route)")
+        from catnerf_torch.data.scannet import ScanNet
+
+        return ScanNet(cfg, run_registration=run_registration, device=device)
     raise ValueError(f"Dataset format {cfg.dataset_format} not found")
 
 

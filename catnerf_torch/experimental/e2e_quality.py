@@ -1,9 +1,7 @@
 """End-to-end quality gate: train the synthetic scene, mesh every
 object, and score the meshes against the analytic ground truth.
 
-The port of the JAX package's `scripts/e2e_quality.py`, in all its modes
-but ScanNet's (`--dataset scannet` and `--no-refined-mask` raise, naming
-ROADMAP.md Queue 1, item 4e):
+The port of the JAX package's `scripts/e2e_quality.py`, in all its modes:
 - default: ground-truth object poses, the fast path;
 - `--registered` (ref: scripts/e2e_quality.py:178-247): the scene is
   written in the Replica layout (`data/replica.write_replica_layout`) and
@@ -21,6 +19,15 @@ ROADMAP.md Queue 1, item 4e):
   second, full layout (`Replica(cfg_full, run_registration=False)`)
   gives its loader-grade cloud and frames, and the templates are the
   trained instances' loader-grade clouds at their ESTIMATED poses;
+- `--registered --dataset scannet` (ref: :216-247): the scene is written
+  in the ScanNet layout instead (`data/scannet.write_scannet_layout`:
+  JPEG colour, 16-bit PNG depth and masks, one pose file a frame), the
+  last frame's pose set to inf (the loader skips it), and loaded by
+  `ScanNet(cfg)` with a 4-pixel edge crop and, unless `--no-refined-mask`,
+  the geometric-segmentation mask refinement (its image stages on the
+  device); its point clouds come from TSDF fusion. The loader shifts
+  instance ids by +1 and the layout's class ids are the scene's + 50, so
+  the scored targets are remapped alike;
 - `--shapes sphere|asym|mixed`: the scene's shape families
   (`make_scene(shape_family=)`), each scored against its analytic surface
   (`metrics/synthetic_eval.gt_shape_mesh`, marching cubes on the
@@ -64,6 +71,7 @@ import argparse
 import copy
 import json
 import math
+import os
 import sys
 import tempfile
 import time
@@ -74,6 +82,8 @@ import torch
 
 from catnerf_torch.config import Config
 from catnerf_torch.data.replica import Replica, write_replica_layout
+from catnerf_torch.data.scannet import (LAYOUT_CLS_OFFSET, ScanNet,
+                                        write_scannet_layout)
 from catnerf_torch.data.synthetic import make_scene
 from catnerf_torch.mesher.mesh import load_mesh
 from catnerf_torch.mesher.meshing import (mesh_scene, mesh_timings,
@@ -182,12 +192,17 @@ def holdout(inst_dict: dict) -> tuple[int, int]:
 
 def make_registered_session(seed: int = 0, grid_dim: int = 128,
                             device=None, cfg=None, fit_holdout: bool = False,
-                            shapes: str = "sphere"):
+                            shapes: str = "sphere", dataset: str = "replica",
+                            refined_mask: bool = True):
     """(scene, session, loader, seconds, full loader) of the gate's
-    registered Replica mode (ref: scripts/e2e_quality.py:178-247): the
-    scene written in the Replica layout under a new temporary directory,
-    loaded and registered by `Replica(cfg)` with self-pretrained fields
+    registered mode (ref: scripts/e2e_quality.py:178-247): the scene
+    written in the Replica layout under a new temporary directory, loaded
+    and registered by `Replica(cfg)` with self-pretrained fields
     (load_pretrained = False), and a session on the registered poses.
+    dataset "scannet" (ref: :216-247): the ScanNet layout with the last
+    frame's pose inf, `ScanNet(cfg)` with mw = mh = 4 and, with
+    `refined_mask`, the mask refinement; the scene's spheres are then
+    remapped to the loader's ids (inst + 1, cls + LAYOUT_CLS_OFFSET).
     cfg: the gate's `Config()` with latent_dim 32 by default.
     fit_holdout (ref: :187-214, 238-245): the scene has HOLDOUT_INSTS
     instances a category, `holdout`'s is erased from the training layout's
@@ -195,18 +210,38 @@ def make_registered_session(seed: int = 0, grid_dim: int = 128,
     second, full layout is loaded without registration (the full loader;
     else None). seconds: of writing the layouts (`layout`), of the
     training layout's loader in all (`loader`), and of its stages
-    (`frames`, `stage1`, `pretrain`, `uncertainty`, `align`)."""
+    (`frames`, `stage1`, `pretrain`, `uncertainty`, `align`); for ScanNet
+    also the frames' parts (`decode`, `resize`, `refine`) and the
+    refinement's (`normals`, `image`, `components`, `fill`)."""
     if cfg is None:
         cfg, _, _ = resolve_modes(grid_dim=grid_dim)
     cfg.grid_dim = grid_dim  # live_voxel_size stays 5 mm; the cap rules
     insts = HOLDOUT_INSTS if fit_holdout else SCENE["insts_per_cat"]
     scene = make_scene(**{**SCENE, "insts_per_cat": insts}, seed=seed,
                        shape_family=shapes)
-    cfg.dataset_dir = tempfile.mkdtemp(prefix="e2e_registered_replica_")
+    cfg.dataset_dir = tempfile.mkdtemp(prefix=f"e2e_registered_{dataset}_")
     cfg.width, cfg.height = SCENE["width"], SCENE["height"]
     cfg.fx = cfg.fy = scene.cam.fx
     cfg.cx, cfg.cy = scene.cam.cx, scene.cam.cy
     cfg.load_pretrained = False   # self-pretrained uncertainty fields
+    scannet = dataset == "scannet"
+    if scannet:
+        cfg.dataset_format = "ScanNet"
+        cfg.mw = cfg.mh = 4            # edge crop (ref: cfg mw=10)
+        cfg.use_refined_mask = refined_mask
+    loader = ScanNet if scannet else Replica
+    inf_frame = max(scene.sample_dict.keys())
+
+    def write(sc, out_dir):
+        if not scannet:
+            write_replica_layout(sc, out_dir, cfg.depth_scale)
+            return
+        write_scannet_layout(sc, out_dir, cfg.depth_scale)
+        # one inf pose: the loader skips the frame (ref:
+        # src/dataset.py:295-301)
+        np.savetxt(os.path.join(out_dir, "pose", f"{inf_frame}.txt"),
+                   np.full((4, 4), np.inf))
+
     t0 = time.time()
     scene_train, cfg_full = scene, None
     if fit_holdout:
@@ -217,15 +252,22 @@ def make_registered_session(seed: int = 0, grid_dim: int = 128,
             m[m == held] = 0
         cfg_full = copy.deepcopy(cfg)
         cfg_full.dataset_dir = tempfile.mkdtemp(prefix="e2e_fitreg_full_")
-        write_replica_layout(scene, cfg_full.dataset_dir, cfg.depth_scale)
-    write_replica_layout(scene_train, cfg.dataset_dir, cfg.depth_scale)
+        write(scene, cfg_full.dataset_dir)
+    write(scene_train, cfg.dataset_dir)
     t1 = time.time()
-    phase_reset("registration")
-    data = Replica(cfg, device=device)
+    for group in ("registration", "scannet", "segmentation"):
+        phase_reset(group)
+    data = loader(cfg, device=device)
     seconds = {"layout": t1 - t0, "loader": time.time() - t1,
-               **phase_timings("registration")}
-    data_full = (Replica(cfg_full, run_registration=False, device=device)
+               **phase_timings("registration"), **phase_timings("scannet"),
+               **phase_timings("segmentation")}
+    data_full = (loader(cfg_full, run_registration=False, device=device)
                  if cfg_full is not None else None)
+    if scannet:
+        # the loader's ids: inst + 1, cls + LAYOUT_CLS_OFFSET
+        for s in scene.spheres:
+            s.inst_id += 1
+            s.cls_id += LAYOUT_CLS_OFFSET
     sess = TrainingSession(cfg, data.inst_dict, data.sample_dict,
                            device=device)
     return scene, sess, data, seconds, data_full
@@ -388,7 +430,8 @@ def _loader_cloud(data_full, cls_id: int, oid: int, cam) -> np.ndarray:
 
 
 def run_fit_holdout(sess, scene, held: tuple[int, int],
-                    steps: int | None = None, data=None, data_full=None):
+                    steps: int | None = None, data=None, data_full=None,
+                    loader_held: tuple[int, int] | None = None):
     """The new-instance path on the held-out instance (ref:
     scripts/e2e_quality.py:319-410): its cloud registered to the union of
     its trained siblings' canonical clouds (`register_new_instance`),
@@ -400,31 +443,34 @@ def run_fit_holdout(sess, scene, held: tuple[int, int],
     (`make_registered_session(fit_holdout=True)`): the trained instances'
     loader-grade clouds at their ESTIMATED poses, the held-out one's cloud
     and frames from the full layout; nothing touches the ground truth.
-    Returns (the JAX gate's `fit_holdout` dict, the FitResult, the seconds
-    of registration, fit, meshing and scoring)."""
+    held: (cls, id) in the scene's ids; loader_held: the same in the
+    loader's and the session's ids (ScanNet's shift them; by default
+    `held`). Returns (the JAX gate's `fit_holdout` dict, the FitResult,
+    the seconds of registration, fit, meshing and scoring)."""
     from catnerf_torch.fit import fit_instance
     from catnerf_torch.geometry.pointcloud import accumulate_pointcloud
     from catnerf_torch.geometry.registration import register_new_instance
     from catnerf_torch.mesher.meshing import adaptive_grid_dim, mesh_field
 
     held_cls, held_out = held
+    cls_l, out_l = held if loader_held is None else loader_held
     steps = FIT_STEPS if steps is None else steps
     cfg = sess.cfg
     sec = {}
     t_fit = t0 = time.time()
     if data_full is not None:
-        trained = data.inst_dict.get(held_cls, {})
-        if held_cls not in sess.cls_ids or len(trained) < 1:
+        trained = data.inst_dict.get(cls_l, {})
+        if cls_l not in sess.cls_ids or len(trained) < 1:
             raise SystemExit(
-                f"fit-holdout: category {held_cls} was split or dropped "
+                f"fit-holdout: category {cls_l} was split or dropped "
                 f"during registration (trained ids "
                 f"{sorted(data.inst_dict)}); no trained multi-instance "
                 f"category to adopt into")
-        registered = [(_loader_cloud(data_full, held_cls, oid, sess.cam),
+        registered = [(_loader_cloud(data_full, cls_l, oid, sess.cam),
                        info_o["T_obj"])
                       for oid, info_o in sorted(trained.items())]
-        pcs_new = _loader_cloud(data_full, held_cls, held_out, sess.cam)
-        fi_new = data_full.inst_dict[held_cls][held_out]["frame_info"]
+        pcs_new = _loader_cloud(data_full, cls_l, out_l, sess.cam)
+        fi_new = data_full.inst_dict[cls_l][out_l]["frame_info"]
         sdict_fit = data_full.sample_dict
     else:
         registered = []
@@ -446,11 +492,11 @@ def run_fit_holdout(sess, scene, held: tuple[int, int],
     s_gt = abs(np.linalg.det(T_gt[:3, :3])) ** (1 / 3)
 
     t0 = time.time()
-    res = fit_instance(sess, held_cls, fi_new, sdict_fit, sess.cam, T_est,
-                       held_out, steps=steps, optimize_pose=True)
+    res = fit_instance(sess, cls_l, fi_new, sdict_fit, sess.cam, T_est,
+                       out_l, steps=steps, optimize_pose=True)
     sec["fit"] = time.time() - t0
     t0 = time.time()
-    params = sess.category_params(held_cls)
+    params = sess.category_params(cls_l)
     dim = adaptive_grid_dim(res.extent, cfg.live_voxel_size, cfg.grid_dim)
     fmesh = mesh_field(params, cfg, grid_dim=dim, is_background=False,
                        shape_code=res.shape_code,
@@ -461,11 +507,11 @@ def run_fit_holdout(sess, scene, held: tuple[int, int],
     if fmesh is not None:
         # canonical -> scene: one affine
         fmesh.apply_transform(np.asarray(res.T_obj, np.float64))
-        sp = next(s for s in scene.spheres if s.inst_id == held_out)
+        sp = next(s for s in scene.spheres if s.inst_id == out_l)
         _, fit_metrics = score_shape(fmesh, sp)
     sec["score"] = time.time() - t0
     out = {
-        "held_out": held_out,
+        "held_out": out_l,
         "path": "registered" if data_full is not None else "gt_pose",
         "registration_chamfer": round(reg_cd, 4),
         "pose_center_err_cm": round(100.0 * float(
@@ -511,42 +557,52 @@ class GateRun(NamedTuple):
 def run(iters: int = 10000, grid_dim: int = 128, seed: int = 0,
         device=None, out: str = "", log=None, registered: bool = False,
         fit_holdout: bool = False, modes: Modes = Modes(),
-        cfg=None) -> GateRun:
+        cfg=None, dataset: str = "replica",
+        refined_mask: bool = True) -> GateRun:
     """The gate: ground-truth poses, or with `registered` the registered
-    Replica mode (`make_registered_session`); `fit_holdout` adds the
-    new-instance path on a held-out instance; `modes` the JAX gate's
-    other flags (`resolve_modes`). cfg: the resolved config, for a caller
-    that cuts its registration (the dispatch still comes from `modes`)."""
+    mode (`make_registered_session`) on the layout of `dataset` (replica
+    or scannet; `refined_mask` the ScanNet loader's mask refinement);
+    `fit_holdout` adds the new-instance path on a held-out instance;
+    `modes` the JAX gate's other flags (`resolve_modes`). cfg: the
+    resolved config, for a caller that cuts its registration (the dispatch
+    still comes from `modes`)."""
     extra, held, data, data_full = {}, None, None, None
     resolved, parity, sampling = resolve_modes(modes, grid_dim)
     cfg = resolved if cfg is None else cfg
+    scannet = registered and dataset == "scannet"
     if registered:
         scene, sess, data, seconds, data_full = make_registered_session(
-            seed, grid_dim, device, cfg, fit_holdout, modes.shapes)
+            seed, grid_dim, device, cfg, fit_holdout, modes.shapes,
+            dataset, refined_mask)
         extra = {"registration": registration_report(scene, data),
                  "registration_s": {k: round(v, 3)
                                     for k, v in seconds.items()}}
     else:
         scene, sess = make_session(seed, grid_dim, device, fit_holdout, cfg,
                                    modes.shapes)
+    held_l = None
     if fit_holdout:
         held = holdout(scene.inst_dict)
+        held_l = ((held[0] + LAYOUT_CLS_OFFSET, held[1] + 1) if scannet
+                  else held)
     if iters >= CHUNK_STEPS:  # whole runs, as the JAX package's gate
         iters = iters // CHUNK_STEPS * CHUNK_STEPS
     tr = train(sess, iters, log, parity)
     scored = mesh_and_score(sess, scene, iters,
                             out or tempfile.mkdtemp(prefix="e2e_quality_"),
-                            skip=(held[1],) if held else ())
+                            skip=(held_l[1],) if held else ())
     psnr = render_psnr(sess)
     res = None
     if held is not None:
         extra["fit_holdout"], res, sec = run_fit_holdout(
-            sess, scene, held, data=data, data_full=data_full)
+            sess, scene, held, data=data, data_full=data_full,
+            loader_held=held_l)
         if log is not None:
             log(f"fit-holdout: {extra['fit_holdout']}; seconds "
                 + json.dumps({k: round(v, 3) for k, v in sec.items()}))
     result = {
-        "metric": ("e2e_synthetic_quality_registered" if registered
+        "metric": (("e2e_synthetic_quality_registered"
+                    + ("_scannet" if scannet else "")) if registered
                    else "e2e_fit_holdout" if held is not None
                    else "e2e_synthetic_quality"),
         "iters": iters,
@@ -691,22 +747,19 @@ def main(argv=None) -> int:
                     "mixed")
     ap.add_argument("--dataset", choices=("replica", "scannet"),
                     default="replica",
-                    help="the layout and loader of --registered; scannet "
-                    "is not in the port yet (ROADMAP.md Queue 1, item 4e)")
+                    help="the layout and loader of --registered")
     ap.add_argument("--no-refined-mask", action="store_true",
-                    help="scannet only: not in the port yet (ROADMAP.md "
-                    "Queue 1, item 4e)")
+                    help="scannet only: load the raw instance masks, "
+                    "without the geometric-segmentation refinement")
     args = ap.parse_args(argv)
-    if args.dataset == "scannet" or args.no_refined_mask:
-        raise NotImplementedError(
-            "the ScanNet layout and loader are not in the port yet "
-            "(ROADMAP.md Queue 1, item 4e)")
     modes = Modes(args.strict_parity, args.parity, tuple(args.flag),
                   args.dispatch, args.shapes)
     result = run(args.iters, args.grid_dim, args.seed, args.device, args.out,
                  log=lambda s: print(s, file=sys.stderr),
                  registered=args.registered,
-                 fit_holdout=args.fit_holdout, modes=modes).result
+                 fit_holdout=args.fit_holdout, modes=modes,
+                 dataset=args.dataset,
+                 refined_mask=not args.no_refined_mask).result
     print(json.dumps(result))
     return 0 if passes(result) else 1
 

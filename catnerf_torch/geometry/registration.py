@@ -7,8 +7,7 @@ card unless `device` names another.
 Parity target: `src/category_registration.py` — three stages driven from the
 dataset constructor and cached to `inst_dict.pkl`:
 
-  1. get_all_poses        — per-instance world clouds (unprojection; the
-                             ScanNet route's TSDF fusion is not ported yet)
+  1. get_all_poses        — per-instance world clouds (unproject / TSDF)
   2. get_uncertainty_fields — template completeness scoring via pretrained
                              vMAP fields (on the device)
   3. align_poses          — TEASER-style multi-init alignment to the
@@ -38,6 +37,7 @@ from catnerf_torch.geometry.obb import (
 )
 from catnerf_torch.geometry.pointcloud import (
     accumulate_pointcloud,
+    accumulate_pointcloud_tsdf,
     chamfer_unidirectional,
 )
 from catnerf_torch.geometry.teaser import teaser_fpfh_icp
@@ -55,26 +55,34 @@ def get_all_poses(inst_dict: dict, sample_dict: dict, cam: CameraInfo,
     want_color (ours): additionally store per-point observed RGB for each
     instance cloud (`pcs_rgb`, NN-transferred from the masked unprojected
     pixels so `pcs` itself stays bit-identical) — consumed by the
-    appearance-aware candidate tie-break in align_poses.
-
-    Replica only: the ScanNet route (TSDF fusion, refined segmentation)
-    raises NotImplementedError (ROADMAP.md Queue 1)."""
-    if name != "replica":
-        raise NotImplementedError(
-            f"registration stage 1 for {name!r}: only the Replica route is "
-            f"ported (ScanNet's TSDF route: ROADMAP.md Queue 1, item 4)")
+    appearance-aware candidate tie-break in align_poses."""
     t1 = time.time()
     for cls_id, inst_dict_cls in inst_dict.items():
         if cls_id == 0:
             frame_info = inst_dict_cls["frame_info"]
-            bg_pcs = accumulate_pointcloud(0, frame_info, sample_dict, cam)
+            if name == "replica":
+                bg_pcs = accumulate_pointcloud(0, frame_info, sample_dict, cam)
+            else:
+                bg_pcs = accumulate_pointcloud_tsdf(
+                    0, frame_info, sample_dict, cam, max_depth=max_depth)
             bbox3d = get_bound(bg_pcs)
             inst_dict_cls["bbox3D"] = bbox3d
             inst_dict_cls["pcs"] = bg_pcs
         else:
             for inst_id, info in inst_dict_cls.items():
-                info["pcs"] = accumulate_pointcloud(
-                    inst_id, info["frame_info"], sample_dict, cam)
+                if name == "replica":
+                    info["pcs"] = accumulate_pointcloud(
+                        inst_id, info["frame_info"], sample_dict, cam)
+                else:
+                    if "pcs" not in info:
+                        print(f"{inst_id} missing from refined segmentation")
+                        info["T_obj"] = np.eye(4)
+                        info["pcs"] = None
+                    else:
+                        from catnerf_torch.native.lib import geomlib
+
+                        info["pcs"] = geomlib.voxel_downsample(
+                            np.asarray(info["pcs"], np.float32), 0.01)
                 if want_color and info["pcs"] is not None \
                         and len(info["pcs"]):
                     from catnerf_torch.geometry.pointcloud import \

@@ -1,13 +1,13 @@
 """ctypes bindings for the C++ geometry library (marching cubes, the
-KD-tree, point-cloud operations, registration solvers, TSDF fusion) and
-the PNG reader's row unfiltering.
+KD-tree, point-cloud operations, registration solvers, TSDF fusion), the
+PNG reader's row unfiltering and the JPEG codec.
 
 The geometry sources under `src/` are byte-for-byte copies of the JAX
 package's `native/src/`, and their bindings below are its
-`native/lib.py`'s; `src/png.cpp` is the port's own (the JAX package reads
-PNGs with OpenCV). The library is built at first use, never at import:
-`g++` (or `$CXX`) with the JAX package's Makefile flags compiles the four
-sources into one
+`native/lib.py`'s; `src/png.cpp` and `src/jpeg.cpp` are the port's own
+(the JAX package reads PNG and JPEG files with OpenCV). The library is
+built at first use, never at import: `g++` (or `$CXX`) with the JAX
+package's Makefile flags compiles the five sources into one
 shared library under `build/catnerf_torch/native/` of the checkout, named
 by the hash of the sources and the flags, so an edit rebuilds and a
 library built on another machine is never loaded. A cross-process `flock`
@@ -28,7 +28,8 @@ from pathlib import Path
 import numpy as np
 
 SRC_DIR = Path(__file__).resolve().parent / "src"
-SOURCES = ("geomlib.cpp", "registration.cpp", "tsdf.cpp", "png.cpp")
+SOURCES = ("geomlib.cpp", "registration.cpp", "tsdf.cpp", "png.cpp",
+           "jpeg.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "catnerf_torch" \
     / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
@@ -185,6 +186,19 @@ def _load() -> ctypes.CDLL:
                                      ctypes.c_int, c_u8p]
         lib.png_unfilter.restype = ctypes.c_int64
 
+        lib.jpeg_last_error.argtypes = []
+        lib.jpeg_last_error.restype = ctypes.c_char_p
+        lib.jpeg_info.argtypes = [c_u8p, ctypes.c_int64, c_ip, c_ip, c_ip]
+        lib.jpeg_info.restype = ctypes.c_int
+        lib.jpeg_decode_bgr.argtypes = [c_u8p, ctypes.c_int64, c_u8p,
+                                        ctypes.c_int, ctypes.c_int]
+        lib.jpeg_decode_bgr.restype = ctypes.c_int
+        lib.jpeg_encode.argtypes = [c_u8p, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int]
+        lib.jpeg_encode.restype = ctypes.c_int64
+        lib.jpeg_encoded.argtypes = [c_u8p]
+        lib.jpeg_encoded.restype = None
+
         _lib = lib
         return lib
 
@@ -244,6 +258,43 @@ class geomlib:
             raise ValueError(f"unknown row filter {int(r[bad, 0])} in row "
                              f"{bad}")
         return out
+
+    # -------------------------------------------------- JPEG
+    @staticmethod
+    def jpeg_decode(data: bytes) -> np.ndarray:
+        """A JPEG file's bytes -> (H, W, 3) uint8 in BGR order (a grey
+        file's samples in all three). Raises ValueError with the decoder's
+        message on a file it does not take."""
+        lib = _load()
+        buf = np.frombuffer(data, np.uint8)
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+        w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        if lib.jpeg_info(buf.ctypes.data_as(u8), len(buf), ctypes.byref(w),
+                         ctypes.byref(h), ctypes.byref(c)):
+            raise ValueError(lib.jpeg_last_error().decode())
+        out = np.empty((h.value, w.value, 3), np.uint8)
+        if lib.jpeg_decode_bgr(buf.ctypes.data_as(u8), len(buf),
+                               out.ctypes.data_as(u8), w.value, h.value):
+            raise ValueError(lib.jpeg_last_error().decode())
+        return out
+
+    @staticmethod
+    def jpeg_encode(img: np.ndarray, quality: int) -> bytes:
+        """(H, W, 3) BGR uint8 -> the bytes of a baseline JPEG file
+        (YCbCr 4:2:0) at `quality` (1-100)."""
+        lib = _load()
+        a = np.ascontiguousarray(img, dtype=np.uint8)
+        if a.ndim != 3 or a.shape[2] != 3:
+            raise ValueError(f"cannot encode an image of shape {a.shape} "
+                             f"(BGR only)")
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+        n = lib.jpeg_encode(a.ctypes.data_as(u8), a.shape[1], a.shape[0],
+                            int(quality))
+        if n < 0:
+            raise ValueError(lib.jpeg_last_error().decode())
+        out = np.empty(n, np.uint8)
+        lib.jpeg_encoded(out.ctypes.data_as(u8))
+        return out.tobytes()
 
     # -------------------------------------------------- marching cubes
     @staticmethod

@@ -1,8 +1,10 @@
-"""Train the port on a Replica-layout dataset or the synthetic scene,
-save and resume it, and mesh it.
+"""Train the port on a Replica- or ScanNet-layout dataset or the
+synthetic scene, save and resume it, and mesh it.
 
     python -m catnerf_torch.train --config configs/Replica/config_replica_room0.json \\
         --logdir logs/room0
+    python -m catnerf_torch.train --config configs/ScanNet/config_scannet_0013.json \\
+        --logdir logs/scannet_0013 [--device cpu]
     python -m catnerf_torch.train --synthetic --max-iter 200 --log-iter 50
     python -m catnerf_torch.train --synthetic --max-iter 20 --log-iter 5 \\
         --device cpu
@@ -14,13 +16,16 @@ save and resume it, and mesh it.
         --resume --mesh-only
 
 --config reads a reference-schema config JSON (`loaders.load_scene`, as
-the JAX package's `train.py --config`): the Replica loader reads the
-sequence under `dataset.path` and registers its instances (registration
-stage 1 on the host, the per-object field pretraining and uncertainty
-scoring on the device, the alignment on the host), or reads its cached
-registration (`inst_dict.pkl`); the config is copied into --logdir. The
-ScanNet loader is not ported yet: a ScanNet config raises
-NotImplementedError. --synthetic takes the JAX package's `--synthetic`
+the JAX package's `train.py --config`): the Replica or ScanNet loader
+reads the sequence under `dataset.path` and registers its instances
+(registration stage 1 on the host, through TSDF fusion for ScanNet; the
+per-object field pretraining and uncertainty scoring on the device; the
+alignment on the host), or reads its cached registration
+(`inst_dict.pkl`). A ScanNet config with `use_refined_mask` refines each
+frame's instance masks by geometric segmentation (its image stages on
+the device) and caches them under the dataset (`instance-refined/`,
+`instance-disputed/`, `inst_to_cls/`), which `load_refined_mask` reads
+back. The config is copied into --logdir. --synthetic takes the JAX package's `--synthetic`
 scene and config (ref: loaders.py:24-33): 3 categories x 2 instances, 8
 frames of 160x120, `Config()` with latent_dim 32, seeded by
 `Config.seed`; its --max-iter and --log-iter default to 200 and 50, a

@@ -185,9 +185,35 @@ Phases, each printing one or more lines:
    fields, E2E_ITERS steps, the mesher at grid 128, the held-out sphere
    registered to the trained ones' loader-grade clouds at their estimated
    poses and fitted for 1,000 steps), held to the JAX gate's pass rule
-   and its fit under E2E_CM_BOUND cm, beside the JAX package's record.
+   and its fit under E2E_CM_BOUND cm, beside the JAX package's record;
+16. the ScanNet path: (a) the JAX package's `scripts/e2e_quality.py
+   --registered --dataset scannet` uncut (`e2e_quality.
+   make_registered_session(dataset="scannet")`: the gate's scene written in
+   the ScanNet layout by the port's JPEG and PNG writers, the last frame's
+   pose inf, `ScanNet(cfg)` with a 4-pixel crop, the geometric-segmentation
+   mask refinement with its image stages on the card, registration stage 1
+   through TSDF fusion, self-pretrained fields), the seconds of each loader
+   stage (frames: decode, resize, refinement split into normals, image
+   stages, components and hole filling; stage 1, pretraining, uncertainty,
+   alignment), each instance's registered pose, E2E_ITERS steps of the
+   default trainer, the mesher at grid 128, each sphere beside the JAX
+   package's record; it fails unless all 6 are meshed, the mean accuracy
+   and completion are each under SCANNET_CM_BOUND cm and the mean ratio
+   at least SCANNET_RATIO_BOUND %; (b) the segmentation of every kept
+   frame of (a)'s layout on the card and on the CPU from the same host
+   normals: label maps, segment masks and refined masks bitwise equal;
+   (c) one frame at ScanNet's size (SCANNET_FRAME, 640 x 480 depth, its
+   colour written at SCANNET_COLOR) through the loader's per-frame path
+   with mw = SCANNET_MW: the JPEG decode, the linear resize, the two
+   nearest resizes, the normals, the image stages, the components, the
+   hole filling and the TSDF fusion, each timed; (d) `python -m
+   catnerf_torch.train --config` on configs/ScanNet/config_scannet_0013.json
+   pointed at (a)'s layout (its camera, a 4-pixel crop), reading the
+   gate's refined-mask and registration caches (no registration), for
+   CLI_ITERS steps with a checkpoint at the end, its stage seconds and
+   metrics file.
 
-Each main path (5, 7, 8, 9, 10, 11, 13, 14, 15) is driven with the launch
+Each main path (5, 7, 8, 9, 10, 11, 13, 14, 15, 16) is driven with the launch
 counts set to 0 just before it and read just after. Then a
 `{"kernels": [...]}` line, the card line again, and as the last line
 `{"ok": true, "device": {...}}`. Exits non-zero, with no result, when
@@ -289,6 +315,25 @@ STAGING_TIMED = 50
 JAX_REGFIT_RECORD = ("the JAX package's registered --fit-holdout on a TPU "
                      "v5e (BASELINE.md:179): held-out pose 0.07 cm / 1.13% "
                      "scale, mesh 0.632 cm; trained objects 0.80 cm / 100%")
+# phase 16, the ScanNet path: the gate's band and the frame at ScanNet's
+# size (its depth 640 x 480, its colour 1296 x 968, the shipped configs'
+# 10-pixel crop). The JAX package's gate as it stands (`JAX_PLATFORMS=cpu
+# python scripts/e2e_quality.py --registered --dataset scannet`, seed 0,
+# on a CPU) reads 1.314 / 1.215 cm / 97.97%: its registration leaves the
+# first category's spheres 3.4 and 4.7 cm off (the port's loader and
+# registration give the same poses), and their meshes 91-97% complete.
+# BASELINE.md:35, 162, 191 record 1.0-1.18 cm / 99.7-100% from an older
+# state of that package. So the ratio is held one point under the JAX
+# package's reading, the means under 1.5 cm.
+SCANNET_CM_BOUND = 1.5
+SCANNET_RATIO_BOUND = 97.0
+JAX_SCANNET_RECORD = ("the JAX package's gate on a CPU, seed 0: 1.314 / "
+                      "1.215 cm, 97.97%; its older record (BASELINE.md:35, "
+                      "162, 191) 1.0-1.18 cm, 99.7-100%")
+SCANNET_FRAME = dict(n_frames=1, width=640, height=480, n_categories=3,
+                     insts_per_cat=2, seed=0)
+SCANNET_COLOR = (1296, 968)
+SCANNET_MW = 10
 # phase 13, the serving surface on phase 10's trained session: the gate's
 # render readout (experimental/e2e_quality.render_psnr) and its floor, the
 # card-vs-CPU renders (160 x 120, 32 bins) under the flip rule (RENDER_TOL
@@ -2681,6 +2726,256 @@ def staging_and_regfit_phase(scene) -> None:
         raise AssertionError(f"regfit: fused kernels launched: {launches}")
 
 
+def scannet_gate():
+    """Phase 16 (a): the registered ScanNet gate uncut. Returns (scene,
+    session, loader, the band's failure or None)."""
+    from catnerf_torch.experimental import e2e_quality as e2e
+
+    t0 = time.time()
+    scene, sess, data, sec, _ = e2e.make_registered_session(
+        grid_dim=E2E_GRID, dataset="scannet")
+    cfg = sess.cfg
+    n_steps = -(-cfg.pretrain_steps // 100) * 100
+
+    def s(key):
+        return f"{sec.get(key, 0.0):.2f}"
+
+    log(f"scannet: layout written in {s('layout')} s ({len(scene.sample_dict)}"
+        f" frames of {cfg.width}x{cfg.height}, JPEG colour); ScanNet loader "
+        f"{s('loader')} s: frames {s('frames')} (decode {s('decode')}, "
+        f"resize {s('resize')}, refinement {s('refine')}: normals "
+        f"{s('normals')}, image stages {s('image')}, components "
+        f"{s('components')}, hole filling {s('fill')}), stage 1 (TSDF) "
+        f"{s('stage1')}, pretraining {s('pretrain')} ({n_steps} steps of "
+        f"{cfg.pretrain_rays} rays), uncertainty {s('uncertainty')}, "
+        f"alignment {s('align')}; {len(data.sample_dict)} frames kept; "
+        f"session {time.time() - t0 - sec['layout'] - sec['loader']:.2f} s")
+    for obj_id, r in sorted(e2e.registration_report(scene, data).items()):
+        log(f"scannet: object {obj_id}: {json.dumps(r)}")
+    e2e_train((scene, sess))
+    res = e2e.mesh_and_score(sess, scene, sess.iteration,
+                             os.path.join(ROOT, "build", "e2e_scannet_mesh"))
+    for obj_id, m in sorted(res["per_object"].items()):
+        log(f"scannet: object {obj_id}: {json.dumps(m)}")
+    log(f"scannet: quality {res['mean_accuracy_cm']} cm accuracy, "
+        f"{res['mean_completion_cm']} cm completion, "
+        f"{res['mean_completion_ratio_pct']} % over {res['n_meshed']} of "
+        f"{res['n_objects']} objects ({JAX_SCANNET_RECORD}); meshing "
+        f"{res['mesh_s']:.2f} s, scoring {res['score_s']:.2f} s")
+    failure = None
+    if (res["n_meshed"] != res["n_objects"] or res["n_objects"] != 6
+            or not res["mean_accuracy_cm"] < SCANNET_CM_BOUND
+            or not res["mean_completion_cm"] < SCANNET_CM_BOUND
+            or res["mean_completion_ratio_pct"] < SCANNET_RATIO_BOUND):
+        failure = (
+            f"scannet: the gate is outside its band ({res['n_meshed']} of "
+            f"{res['n_objects']} meshed, means under {SCANNET_CM_BOUND} cm, "
+            f"ratio at least {SCANNET_RATIO_BOUND} %): "
+            + json.dumps({k: res[k] for k in (
+                "mean_accuracy_cm", "mean_completion_cm",
+                "mean_completion_ratio_pct")}))
+    return scene, sess, data, failure
+
+
+def scannet_segmentation_card_vs_cpu(data) -> None:
+    """Phase 16 (b): every kept frame of the gate's layout segmented on
+    the card and on the CPU from the same host normals; the label maps,
+    the segment masks and the masks refined from the raw instance masks
+    must be bitwise equal."""
+    import copy
+
+    import numpy as np
+
+    from catnerf_torch.data.scannet import ScanNet
+    from catnerf_torch.geometry import segmentation as seg
+
+    cfg = copy.deepcopy(data.cfg)
+    cfg.use_refined_mask = cfg.load_refined_mask = False
+    cfg.load_registration_result = False
+    raw = ScanNet(cfg, run_registration=False, device="cuda")
+    cam = raw.cam
+    n_frames = n_segments = 0
+    seconds = {"normals": 0.0, "card": 0.0, "cpu": 0.0}
+    differ = []
+    for k in sorted(raw.sample_dict):
+        s = raw.sample_dict[k]
+        t0 = time.time()
+        d, P, N = seg.host_normals(s["depth"].transpose(1, 0), cam.fx,
+                                   cam.fy, cam.cx, cam.cy)
+        seconds["normals"] += time.time() - t0
+        out = {}
+        for where in ("card", "cpu"):
+            t0 = time.time()
+            out[where] = seg.segment(
+                d, P, N, propagation_rounds=cfg.seg_propagation_rounds,
+                device="cuda" if where == "card" else "cpu")
+            seconds[where] += time.time() - t0
+        (lc, mc), (lh, mh) = out["card"], out["cpu"]
+        inst = np.asarray(s["obj_mask"].transpose(1, 0), np.int32)
+        same = (np.array_equal(lc, lh) and len(mc) == len(mh)
+                and all(np.array_equal(a, b) for a, b in zip(mc, mh))
+                and np.array_equal(seg.refine_inst_data(inst, mc),
+                                   seg.refine_inst_data(inst, mh)))
+        if not same:
+            differ.append((k, int((lc != lh).sum())))
+        n_frames += 1
+        n_segments += len(mh)
+    log(f"scannet: segmentation card vs CPU on {n_frames} frames of "
+        f"{cam.width}x{cam.height} ({n_segments} segments): "
+        + ("label maps, segment masks and refined masks bitwise equal"
+           if not differ else f"frames differ (frame, labels): {differ}")
+        + f"; host normals {seconds['normals']:.3f} s, the rest on the "
+        f"card {seconds['card']:.3f} s, on the CPU {seconds['cpu']:.3f} s")
+    if differ:
+        raise AssertionError(f"scannet: segmentation card vs CPU differs on "
+                             f"frames {differ}")
+
+
+def scannet_frame() -> None:
+    """Phase 16 (c): one frame at ScanNet's size through the loader's
+    per-frame path, each stage timed."""
+    import tempfile
+
+    import numpy as np
+
+    from catnerf_torch.config import Config
+    from catnerf_torch.data import jpeg, png, transforms
+    from catnerf_torch.data.scannet import ScanNet, write_scannet_layout
+    from catnerf_torch.data.synthetic import make_scene
+    from catnerf_torch.geometry.pointcloud import accumulate_pointcloud_tsdf
+    from catnerf_torch.utils import phase_reset, phase_timings
+
+    W, H = SCANNET_FRAME["width"], SCANNET_FRAME["height"]
+    t0 = time.time()
+    scene = make_scene(**SCANNET_FRAME)
+    made = time.time() - t0
+    with tempfile.TemporaryDirectory(prefix="scannet_frame_") as root:
+        t0 = time.time()
+        write_scannet_layout(scene, root, 1.0 / 1000.0,
+                             color_size=SCANNET_COLOR)
+        written = time.time() - t0
+        sec = {}
+
+        def timed(name, fn, *args):
+            t = time.time()
+            out = fn(*args)
+            sec[name] = time.time() - t
+            return out
+
+        bgr = timed("jpeg decode", jpeg.imread,
+                    os.path.join(root, "color", "0.jpg"))
+        timed("depth png", png.imread_unchanged,
+              os.path.join(root, "depth", "0.png"))
+        timed("linear resize", transforms.resize_linear,
+              np.ascontiguousarray(bgr[..., ::-1]), (W, H))
+        inst = png.imread_unchanged(os.path.join(root, "instance-filt",
+                                                 "0.png"))
+        sem = png.imread_unchanged(os.path.join(root, "label-filt", "0.png"))
+        t = time.time()
+        for m in (inst, sem):
+            transforms.resize_nearest(m, (W, H))
+        sec["two nearest resizes"] = time.time() - t
+        cfg = Config()
+        cfg.dataset_format = "ScanNet"
+        cfg.dataset_dir = root
+        cfg.width, cfg.height = W, H
+        cfg.mw = cfg.mh = SCANNET_MW
+        cfg.use_refined_mask = True
+        cfg.load_registration_result = False
+        for group in ("scannet", "segmentation"):
+            phase_reset(group)
+        data = timed("loader", ScanNet, cfg, False, "cuda")
+        parts = {**phase_timings("scannet"), **phase_timings("segmentation")}
+        t = time.time()
+        pcs = accumulate_pointcloud_tsdf(
+            0, data.inst_dict[0]["frame_info"], data.sample_dict, data.cam,
+            max_depth=cfg.max_depth)
+        sec["tsdf fusion"] = time.time() - t
+    points = int((data.sample_dict[0]["depth"] > 0).sum())
+    log(f"scannet frame: {W}x{H} depth, {SCANNET_COLOR[0]}x"
+        f"{SCANNET_COLOR[1]} JPEG colour, mw {SCANNET_MW} "
+        f"({data.cam.width}x{data.cam.height} kept, {points} valid points); "
+        f"scene made in {made:.2f} s, layout written in {written:.2f} s; "
+        "alone (s): " + json.dumps({k: round(v, 4) for k, v in sec.items()})
+        + "; the loader's per-frame path (s): "
+        + json.dumps({k: round(v, 4) for k, v in parts.items()})
+        + f"; the TSDF background cloud {len(pcs)} points")
+    if not len(pcs) or sec["loader"] <= 0:
+        raise AssertionError("scannet frame: no TSDF cloud")
+
+
+def scannet_cli(scene, layout: str) -> None:
+    """Phase 16 (d): `python -m catnerf_torch.train --config` on
+    scene0013_02's config pointed at the gate's layout, reading its
+    refined-mask and registration caches."""
+    import tempfile
+
+    cache = os.path.join(layout, "inst_dict.pkl")
+    stamp = os.stat(cache).st_mtime_ns
+    with open(os.path.join(ROOT, "configs", "ScanNet",
+                           "config_scannet_0013.json")) as f:
+        raw = json.load(f)
+    if not (raw["dataset"]["use_refined_mask"]
+            and raw["dataset"]["load_refined_mask"]
+            and raw["registration"]["load_registration_result"]):
+        raise AssertionError("scannet cli: the shipped config no longer "
+                             "reads its caches")
+    raw["dataset"]["path"] = layout
+    raw["camera"] = {"w": scene.cam.width, "h": scene.cam.height,
+                     "mw": 4, "mh": 4}
+    with tempfile.TemporaryDirectory(prefix="cli_scannet_") as root:
+        cfg_path = os.path.join(root, "config_scannet_0013.json")
+        with open(cfg_path, "w") as f:
+            json.dump(raw, f)
+        logdir = os.path.join(root, "logs", "scannet_0013")
+        cli_subprocess("scannet train", [
+            sys.executable, "-m", "catnerf_torch.train", "--config",
+            cfg_path, "--logdir", logdir, "--max-iter", str(CLI_ITERS + 1),
+            "--log-iter", str(CLI_LOG), "--save-iter", str(CLI_ITERS)])
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        if [r["iteration"] for r in rows] != list(
+                range(CLI_LOG, CLI_ITERS + 1, CLI_LOG)):
+            raise AssertionError(f"scannet cli: metrics rows {rows}")
+        if not all(math.isfinite(r["total"]) for r in rows):
+            raise AssertionError(f"scannet cli: loss not finite: {rows}")
+        if not os.path.exists(os.path.join(logdir, "ckpt", str(CLI_ITERS))):
+            raise AssertionError("scannet cli: no checkpoint")
+    if os.stat(cache).st_mtime_ns != stamp:
+        raise AssertionError("scannet cli: the loader registered again "
+                             "instead of reading the gate's cache")
+    log(f"scannet cli: metrics {[round(r['total'], 3) for r in rows]} "
+        f"(total at {[r['iteration'] for r in rows]}), checkpoint "
+        f"{CLI_ITERS}; the gate's registration cache read, not rewritten")
+
+
+def scannet_phase() -> None:
+    """Phase 16: the ScanNet path on the card; the gate's band is held
+    after the other parts have run."""
+    import shutil
+
+    split = {}
+    t0 = time.time()
+    scene, sess, data, failure = scannet_gate()
+    split["gate"] = time.time() - t0
+    layout = sess.cfg.dataset_dir
+    del sess
+    t0 = time.time()
+    scannet_segmentation_card_vs_cpu(data)
+    split["segmentation card vs CPU"] = time.time() - t0
+    t0 = time.time()
+    scannet_frame()
+    split["ScanNet-size frame"] = time.time() - t0
+    t0 = time.time()
+    scannet_cli(scene, layout)
+    split["cli"] = time.time() - t0
+    shutil.rmtree(layout, ignore_errors=True)
+    log("scannet: phase 16 by part (s): "
+        + json.dumps({k: round(v, 1) for k, v in split.items()}))
+    if failure:
+        raise AssertionError(failure)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2775,6 +3070,9 @@ def main() -> int:
     t0 = time.time()
     staging_and_regfit_phase(scene)
     log(f"phase 15 in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    scannet_phase()
+    log(f"scannet: phase 16 in {time.time() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if not r["launches"] > 0:

@@ -138,14 +138,81 @@ def test_config_loads_registers_and_trains_a_replica_layout(
 
 
 def test_a_scannet_config_raises_naming_the_roadmap_item(tmp_path):
+    """A ScanNet config now loads (below); what still raises is a ScanNet
+    sequence without its intrinsics when the config names none, as in
+    the JAX package's loader, before any frame is read."""
     raw = {"dataset": {"path": str(tmp_path), "format": "ScanNet"},
-           "camera": {"w": 64, "h": 48, "fx": 50.0, "fy": 50.0,
-                      "cx": 31.5, "cy": 23.5, "mw": 0, "mh": 0}}
+           "camera": {"w": 64, "h": 48, "mw": 0, "mh": 0}}
     path = tmp_path / "scannet.json"
     path.write_text(json.dumps(raw))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(FileNotFoundError,
+                       match="refusing to run with default intrinsics"):
         main(["--config", str(path), "--logdir", str(tmp_path / "logs"),
               "--device", "cpu"])
+
+
+SCANNET_FIXTURE = dict(n_frames=5, width=96, height=72, n_categories=2,
+                       insts_per_cat=2, seed=2)
+
+
+def _scannet_config(tmp_path) -> str:
+    """The ScanNet fixture of tests/test_scannet_fixture.py (written by
+    the port's layout writer, the middle frame's pose inf) and
+    scene0013_02's config pointed at it: its size, a 2-pixel crop, the
+    intrinsics from the layout, the mask refinement and its caches, a
+    quick registration with self-pretrained fields."""
+    from catnerf_torch.data.scannet import write_scannet_layout
+    from catnerf_torch.data.synthetic import make_scene
+
+    scene = make_scene(**SCANNET_FIXTURE)
+    data = tmp_path / "scannet"
+    write_scannet_layout(scene, str(data), 1.0 / 1000.0)
+    np.savetxt(data / "pose" / "2.txt", np.full((4, 4), np.inf))
+    with open(ROOT / "configs" / "ScanNet" /
+              "config_scannet_0013.json") as f:
+        raw = json.load(f)
+    raw["dataset"]["path"] = str(data)
+    raw["camera"] = {"w": SCANNET_FIXTURE["width"],
+                     "h": SCANNET_FIXTURE["height"], "mw": 2, "mh": 2}
+    raw["registration"].update(load_pretrained=False, pretrain_steps=20,
+                               pretrain_rays=64, multi_init_pose=False)
+    path = tmp_path / "scannet.json"
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return str(path)
+
+
+def test_config_loads_registers_and_trains_a_scannet_layout(
+        tmp_path, capsys, monkeypatch):
+    """--config on a ScanNet layout, on the CPU: the loader reads its
+    JPEG and PNG frames, refines the masks (caching them), registers
+    through the TSDF route and trains 3 steps; a second run reads the
+    refined-mask and registration caches and registers nothing."""
+    sessions = _spy_sessions(monkeypatch)
+    cfg_path = _scannet_config(tmp_path)
+    data = tmp_path / "scannet"
+    logdir = tmp_path / "logs"
+    assert main(["--config", cfg_path, "--logdir", str(logdir),
+                 "--max-iter", "4", "--log-iter", "3", "--device",
+                 "cpu"]) == 0
+    out = capsys.readouterr()
+    assert "4 of 5 frames kept, 1 inf-pose skipped" in out.out
+    assert "pretrained" in out.out
+    rows = [json.loads(line) for line in out.out.splitlines()
+            if line.startswith("{")]
+    assert [r["iteration"] for r in rows] == [3]
+    assert math.isfinite(rows[0]["total"])
+    (sess,) = sessions
+    assert sess.iteration == 3 and sess.cls_ids
+    assert (sess.cam.width, sess.cam.height) == (92, 68)
+    assert (data / "inst_dict.pkl").exists()
+    assert len(list((data / "instance-refined").iterdir())) == 4
+    assert len(list((data / "inst_to_cls").iterdir())) == 4
+    assert main(["--config", cfg_path, "--logdir", str(logdir),
+                 "--max-iter", "2", "--log-iter", "1", "--device",
+                 "cpu"]) == 0
+    assert "pretrained" not in capsys.readouterr().out
+    assert sessions[1].cls_ids == sess.cls_ids
 
 
 def test_config_without_a_device_wants_the_card(tmp_path, monkeypatch):

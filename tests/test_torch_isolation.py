@@ -69,12 +69,15 @@ def test_importing_every_module_loads_no_jax():
     "catnerf_torch.train.__main__",
     "catnerf_torch.experimental.registration_check", "catnerf_torch.fit",
     "catnerf_torch.experimental.fit_check", "catnerf_torch.train.packing",
-    "catnerf_torch.metrics.eval_obj", "catnerf_torch.metrics.eval_scene"])
+    "catnerf_torch.metrics.eval_obj", "catnerf_torch.metrics.eval_scene",
+    "catnerf_torch.data.jpeg", "catnerf_torch.data.transforms",
+    "catnerf_torch.data.scannet", "catnerf_torch.geometry.segmentation"])
 def test_packed_and_xla_path_modules_load_no_jax(module):
     """Each module of the packed kernels, the XLA-path fields, the kernel
     comparison, the geometry library, the mesher, the metrics, the
-    checkpoints, the quality gate, the test-time fit, the packed staging
-    and the evaluation CLIs, imported alone
+    checkpoints, the quality gate, the test-time fit, the packed staging,
+    the evaluation CLIs and the ScanNet path (JPEG codec, resampling,
+    loader, segmentation), imported alone
     in a fresh interpreter, loads neither jax nor the JAX package, nor
     OpenCV or PIL."""
     code = (f"import json, sys\nimport {module}\n"

@@ -26,8 +26,9 @@ def test_sources_equal_the_jax_packages_byte_for_byte(name):
         hashlib.sha256(theirs).hexdigest()
 
 
-# the port's own source beside the copies: the PNG reader's row filters
-OWN_SOURCES = ("png.cpp",)
+# the port's own sources beside the copies: the PNG reader's row filters
+# and the JPEG codec
+OWN_SOURCES = ("png.cpp", "jpeg.cpp")
 
 
 def test_the_sources_are_all_there_and_all_built():
