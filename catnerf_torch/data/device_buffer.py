@@ -1,17 +1,20 @@
-"""Device-resident ray store + on-device batch draws (window mode).
+"""Device-resident ray store + on-device batch draws.
 
 Parity target: the JAX package's `data/device_buffer.py`. The whole ray
 store lives on the device and each step draws its batch there, so the
 hot loop moves no rays from the host (the reference pays a CPU->GPU copy
 per category per step, ref: src/scene_cateogries.py:369-372,424-428).
 
-Each step takes, per buffer, one random offset and the contiguous window
-of rows after it from the build-time-shuffled rows: a uniform cyclic
-window, without replacement within the step, the execution shape of the
-reference's epoch cursor over a shuffled buffer (ref:
-src/scene_cateogries.py:421-449) minus the per-epoch reshuffle. The store
-is [n_cls, max_len + pad, 12]; the pad rows repeat each buffer's first
-rows, so a window at any offset in [0, length) needs no wraparound.
+The window draw (the training session's): each step takes, per buffer,
+one random offset and the contiguous window of rows after it from the
+build-time-shuffled rows: a uniform cyclic window, without replacement
+within the step, the execution shape of the reference's epoch cursor over
+a shuffled buffer (ref: src/scene_cateogries.py:421-449) minus the
+per-epoch reshuffle. The store is [n_cls, max_len + pad, 12]; the pad rows
+repeat each buffer's first rows, so a window at any offset in
+[0, length) needs no wraparound. The row draw (JAX's window=False):
+uniform row indices with replacement, gathered flat or per category.
+A sharded session's store holds its own categories only.
 """
 
 from __future__ import annotations
@@ -101,18 +104,40 @@ def check_window_pad(store: DeviceRayStore, n_per_cls: int,
                              f"bg_window_pad >= {n_bg} (has {bpad})")
 
 
-def draw_offsets(store: DeviceRayStore, gen: torch.Generator):
+def window_offsets(lengths: torch.Tensor, bg_length: int | None,
+                   gen: torch.Generator):
     """Uniform window offsets: [n_cls] in [0, lengths), and one in
-    [0, bg_length) (None without a background store)."""
-    dev = store.packed.device
-    u = torch.rand(store.lengths.shape[0], generator=gen, device=dev)
-    offs = torch.minimum((u * store.lengths).long(), store.lengths - 1)
+    [0, bg_length) (None without a background)."""
+    dev = lengths.device
+    u = torch.rand(lengths.shape[0], generator=gen, device=dev)
+    offs = torch.minimum((u * lengths).long(), lengths - 1)
     boff = None
-    if store.bg_packed is not None:
+    if bg_length is not None:
         ub = torch.rand((), generator=gen, device=dev)
-        boff = torch.clamp((ub * store.bg_length).long(),
-                           max=store.bg_length - 1)
+        boff = torch.clamp((ub * bg_length).long(), max=bg_length - 1)
     return offs, boff
+
+
+def draw_offsets(store: DeviceRayStore, gen: torch.Generator):
+    """window_offsets of the store's buffers."""
+    return window_offsets(
+        store.lengths,
+        store.bg_length if store.bg_packed is not None else None, gen)
+
+
+def draw_rows(lengths: torch.Tensor, bg_length: int | None, n_per_cls: int,
+              n_bg: int, gen: torch.Generator):
+    """Uniform row indices with replacement (JAX's window=False draw):
+    [n_cls, n_per_cls] each in [0, its length), and [n_bg] in
+    [0, bg_length) (None without a background)."""
+    dev = lengths.device
+    u = torch.rand(lengths.shape[0], n_per_cls, generator=gen, device=dev)
+    idx = torch.minimum((u * lengths[:, None]).long(), lengths[:, None] - 1)
+    bidx = None
+    if bg_length is not None:
+        ub = torch.rand(n_bg, generator=gen, device=dev)
+        bidx = torch.clamp((ub * bg_length).long(), max=bg_length - 1)
+    return idx, bidx
 
 
 def _unpack_cat(rows: torch.Tensor) -> CategoryBatch:
@@ -129,25 +154,45 @@ def _unpack_bg(rows: torch.Tensor) -> BackgroundBatch:
 
 
 def sample_batch(store: DeviceRayStore, n_per_cls: int, n_bg: int,
-                 offs: torch.Tensor, boff: torch.Tensor | None):
-    """Window draw (ref: device_buffer.py:176-245, window=True): rows
-    [off, off + n) of each buffer, on the device, with no host sync.
-    Returns (CategoryBatch, BackgroundBatch | None)."""
-    n_cls = store.packed.shape[0]
+                 offs: torch.Tensor, boff: torch.Tensor | None, *,
+                 window: bool = True, per_category_gather: bool = False):
+    """The step's batch from the store, on the device, with no host sync
+    (ref: device_buffer.py:176-245). Returns (CategoryBatch,
+    BackgroundBatch | None).
+
+    window=True: rows [off, off + n) of each buffer, offs [n_cls] and the
+    scalar boff from window_offsets. window=False: offs are row indices
+    [n_cls, n_per_cls] and boff [n_bg] (draw_rows), gathered as one flat
+    row gather over the whole store, or with per_category_gather one
+    gather along each category's rows (the JAX package's take_along_axis,
+    which stays on a category-sharded store)."""
+    n_cls, max_len = store.packed.shape[:2]
     dev = store.packed.device
-    idx = offs[:, None] + torch.arange(n_per_cls, device=dev)[None, :]
-    rows = store.packed[torch.arange(n_cls, device=dev)[:, None], idx]
     bg = None
-    if store.bg_packed is not None and boff is not None:
-        bg = _unpack_bg(store.bg_packed[boff + torch.arange(n_bg,
-                                                            device=dev)])
-    return _unpack_cat(rows), bg
+    if window:
+        idx = offs[:, None] + torch.arange(n_per_cls, device=dev)[None, :]
+        rows = store.packed[torch.arange(n_cls, device=dev)[:, None], idx]
+        if store.bg_packed is not None and boff is not None:
+            bg = store.bg_packed[boff + torch.arange(n_bg, device=dev)]
+    else:
+        if per_category_gather:
+            rows = torch.gather(store.packed, 1, offs[..., None].expand(
+                *offs.shape, store.packed.shape[2]))
+        else:
+            flat = offs + (torch.arange(n_cls, device=dev) * max_len)[:, None]
+            rows = store.packed.reshape(-1, store.packed.shape[2])[
+                flat.reshape(-1)].reshape(*offs.shape, -1)
+        if store.bg_packed is not None and boff is not None:
+            bg = store.bg_packed[boff]
+    return _unpack_cat(rows), (_unpack_bg(bg) if bg is not None else None)
 
 
 class FastDraws(NamedTuple):
     """One device-store step's random draws: the window offsets, [n_cls]
     (int64, each in [0, its buffer's length)) and the background's scalar
-    (None without a background), and the step's sampling uniforms."""
+    (None without a background), or for the row draw (window=False) the
+    row indices [n_cls, n_per_cls] and [n_bg]; and the step's sampling
+    uniforms."""
 
     offs: torch.Tensor
     boff: torch.Tensor | None

@@ -444,6 +444,11 @@ def _grow_codes(state) -> None:
 def _adopt_slot(session, rec: dict, shape_code, texture_code) -> None:
     from catnerf_torch.models.codes import obj_validity_mask
 
+    if getattr(session, "shard", None) is not None:
+        raise NotImplementedError(
+            "adopting an instance into a sharded session is not in the port "
+            "yet: the code tables would grow across the 'model' shards "
+            "(ROADMAP.md Queue 1, item 4h)")
     cls_id, inst_id = rec["cls"], rec["id"]
     cat = session.categories[session.cls_ids.index(cls_id)]
     if cat.n_obj <= 1:
@@ -485,7 +490,8 @@ def _adopt_slot(session, rec: dict, shape_code, texture_code) -> None:
         # the captured step reads the old tables and mask: rebuild the
         # fast path now. The ray store keeps only the ORIGINAL instances'
         # rays — further training never samples the adoptee.
-        session.enable_fast_path(sup.n_inner, graph=sup.graph)
+        session.enable_fast_path(sup.n_inner, graph=sup.graph,
+                                 device_mesh=session._device_mesh)
 
 
 # ---------------------------------------------------------------------------

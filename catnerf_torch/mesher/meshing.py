@@ -286,16 +286,16 @@ def _device_of(params: dict) -> torch.device:
     return params["pe"].B.device
 
 
-def _grid_occ_seen(params, cfg, shape_code, texture_code, *, grid_dim,
-                   scale_np, transform_np, world_transform, carve,
-                   is_background, voxel_w, chunk):
-    """THE grid-evaluation seam of mesh_field: (occ [dim^3],
-    seen_empty [dim^3] | None) for one affine grid placement, evaluated on
-    the params' device. Module-level so tests can stub the whole
-    evaluation with an analytic field."""
+def _grid_slabs(params, cfg, shape_code, texture_code, *, grid_dim,
+                scale_np, transform_np, world_transform, carve,
+                is_background, voxel_w, chunk, pick=None):
+    """[(occ_u8, seen_empty)] of the slabs `chunk` points long of one
+    affine grid placement, on the params' device, each enqueued before any
+    is read back: every slab, or those whose index `pick` takes (the
+    sharded mesher's, parallel/grid_eval.py: the same slabs, so the same
+    products)."""
     dev = _device_of(params)
     _full_f32(dev)
-    t0 = _time.time()
     grid_unit = _unit_grid(grid_dim, dev)
 
     def f32(x):
@@ -316,20 +316,17 @@ def _grid_occ_seen(params, cfg, shape_code, texture_code, *, grid_dim,
     args = (f32(scale_np), f32(transform_np[:3, :3]),
             f32(transform_np[:3, 3]), f32(Tw[:3, :3]), f32(Tw[:3, 3]),
             depths_t, twc_t, K, f32(3.0 * voxel_w))
-    # every slab is enqueued before any result is read back, so the
-    # device computes while the host waits on the first download
-    outs = [
+    return [
         _eval_grid_slab(
             params["pe"], params["fc"], sc_t, tc_t, slab, *args,
             is_background=is_background,
             scale=cfg.bg_scale if is_background else cfg.obj_scale,
             max_deg=cfg.n_unidir_funcs, carve=carve is not None)
-        for slab in grid_unit.split(chunk)
-    ]
-    occ = torch.cat([o for o, _ in outs]).cpu().numpy().astype(
-        np.float32) / 255.0
-    seen_empty = (torch.cat([s for _, s in outs]).cpu().numpy()
-                  if carve is not None else None)
+        for i, slab in enumerate(grid_unit.split(chunk))
+        if pick is None or pick(i)]
+
+
+def _grid_timing(grid_dim, is_background, carve, t0) -> None:
     dt = _time.time() - t0
     _t_add("grid_eval", dt)
     prog_key = (grid_dim, is_background, carve is not None)
@@ -337,24 +334,39 @@ def _grid_occ_seen(params, cfg, shape_code, texture_code, *, grid_dim,
         first = prog_key not in _GRID_PROGS_SEEN
         _GRID_PROGS_SEEN.add(prog_key)
     _t_add(f"grid_eval.dim{grid_dim}" + (".first" if first else ""), dt)
+
+
+def _grid_occ_seen(params, cfg, shape_code, texture_code, *, grid_dim,
+                   scale_np, transform_np, world_transform, carve,
+                   is_background, voxel_w, chunk):
+    """THE grid-evaluation seam of mesh_field: (occ [dim^3],
+    seen_empty [dim^3] | None) for one affine grid placement, evaluated on
+    the params' device. Module-level so tests can stub the whole
+    evaluation with an analytic field."""
+    t0 = _time.time()
+    outs = _grid_slabs(params, cfg, shape_code, texture_code,
+                       grid_dim=grid_dim, scale_np=scale_np,
+                       transform_np=transform_np,
+                       world_transform=world_transform, carve=carve,
+                       is_background=is_background, voxel_w=voxel_w,
+                       chunk=chunk)
+    occ = torch.cat([o for o, _ in outs]).cpu().numpy().astype(
+        np.float32) / 255.0
+    seen_empty = (torch.cat([s for _, s in outs]).cpu().numpy()
+                  if carve is not None else None)
+    _grid_timing(grid_dim, is_background, carve, t0)
     return occ, seen_empty
 
 
-@torch.no_grad()
-def eval_points(points: np.ndarray, params: dict, cfg: Config,
-                shape_code=None, texture_code=None, *, is_background: bool,
-                chunk: int = 262144, want_color: bool = True,
-                want_occ: bool = True, color_u8: bool = False):
-    """(occ, color) at arbitrary 3D points, in tiles on the params' device
-    (ref: src/trainer.py:125-151). want_color=False skips the color branch
-    and its download; want_occ=False computes occupancy but skips its
-    download (the vertex-color re-query discards it); color_u8 quantizes
-    colors to uint8 on the device (the mesh wants uint8 anyway — a 4x
-    smaller transfer)."""
+def _eval_tiles(points: np.ndarray, params: dict, cfg: Config,
+                shape_code, texture_code, *, is_background: bool,
+                chunk: int, want_color: bool, color_u8: bool, pick=None):
+    """[(n_valid, occ, rgb | None)] of eval_points' tiles (`_tile_plan`),
+    on the params' device, every tile enqueued before any is read back:
+    every tile, or those whose index `pick` takes."""
     dev = _device_of(params)
     _full_f32(dev)
     pts_np = np.asarray(points, np.float32)
-    n = len(pts_np)
     sc = tc = None
     if not is_background:
         sc = torch.as_tensor(np.asarray(shape_code, np.float32), device=dev)
@@ -364,18 +376,46 @@ def eval_points(points: np.ndarray, params: dict, cfg: Config,
                         scale=cfg.bg_scale if is_background
                         else cfg.obj_scale,
                         max_deg=cfg.n_unidir_funcs, want_color=want_color)
-    # full tiles at `chunk` and one tail padded to a _TAIL_BUCKETS size;
-    # every tile is enqueued before any result is read back
+    # full tiles at `chunk` and one tail padded to a _TAIL_BUCKETS size
     parts, off = [], 0
-    for n_valid, size in _tile_plan(n, chunk):
-        tile, _ = _pad_to_chunks(pts_np[off:off + n_valid], size)
-        out = fn(params["pe"], params["fc"], sc, tc,
-                 torch.from_numpy(tile).to(dev))
-        occ, rgb = out if want_color else (out, None)
-        if color_u8 and rgb is not None:
-            rgb = _to_u8(rgb)
-        parts.append((n_valid, occ, rgb))
+    for i, (n_valid, size) in enumerate(_tile_plan(len(pts_np), chunk)):
+        if pick is None or pick(i):
+            tile, _ = _pad_to_chunks(pts_np[off:off + n_valid], size)
+            out = fn(params["pe"], params["fc"], sc, tc,
+                     torch.from_numpy(tile).to(dev))
+            occ, rgb = out if want_color else (out, None)
+            if color_u8 and rgb is not None:
+                rgb = _to_u8(rgb)
+            parts.append((n_valid, occ, rgb))
         off += n_valid
+    return parts
+
+
+@torch.no_grad()
+def eval_points(points: np.ndarray, params: dict, cfg: Config,
+                shape_code=None, texture_code=None, *, is_background: bool,
+                chunk: int = 262144, want_color: bool = True,
+                want_occ: bool = True, color_u8: bool = False,
+                device_mesh=None):
+    """(occ, color) at arbitrary 3D points, in tiles on the params' device
+    (ref: src/trainer.py:125-151). want_color=False skips the color branch
+    and its download; want_occ=False computes occupancy but skips its
+    download (the vertex-color re-query discards it); color_u8 quantizes
+    colors to uint8 on the device (the mesh wants uint8 anyway — a 4x
+    smaller transfer). device_mesh: a DeviceMesh of more than one process
+    (every rank calls this) spreads the tiles over its processes and
+    gathers the results (parallel/grid_eval.py; bitwise the same)."""
+    if device_mesh is not None and device_mesh.size() > 1:
+        from catnerf_torch.parallel.grid_eval import eval_points_sharded
+
+        return eval_points_sharded(
+            points, params, cfg, device_mesh, shape_code, texture_code,
+            is_background=is_background, chunk=chunk, want_color=want_color,
+            want_occ=want_occ, color_u8=color_u8)
+    n = len(points)
+    parts = _eval_tiles(points, params, cfg, shape_code, texture_code,
+                        is_background=is_background, chunk=chunk,
+                        want_color=want_color, color_u8=color_u8)
     occ = (torch.cat([o[:m] for m, o, _ in parts]).cpu().numpy()[:n]
            if want_occ else None)
     rgb = (torch.cat([r[:m] for m, _, r in parts]).cpu().numpy()[:n]
@@ -394,7 +434,7 @@ def adaptive_grid_dim(extent, live_voxel_size: float, grid_dim_max: int) -> int:
 def mesh_field(params: dict, cfg: Config, *, grid_dim: int,
                is_background: bool, shape_code=None, texture_code=None,
                bound=None, extent=None, extent_canon=None, carve=None,
-               world_transform=None) -> TriMesh | None:
+               world_transform=None, device_mesh=None) -> TriMesh | None:
     """Extract one object's colored mesh (ref: src/trainer.py:62-123).
 
     Two layouts, as in the reference:
@@ -419,7 +459,19 @@ def mesh_field(params: dict, cfg: Config, *, grid_dim: int,
     removing spurious never-supervised occupancy before extraction.
     `world_transform` (sim(3)) maps the grid frame to world for carving
     when the grid is canonical (multi-instance categories).
+
+    device_mesh: a DeviceMesh of more than one process (every rank calls
+    this) spreads the grid's slabs and the colour re-query's tiles over
+    its processes (parallel/grid_eval.py); every rank gets the mesh.
     """
+    grid_occ_seen = _grid_occ_seen
+    if device_mesh is not None and device_mesh.size() > 1:
+        import functools
+
+        from catnerf_torch.parallel.grid_eval import grid_occ_seen_sharded
+
+        grid_occ_seen = functools.partial(grid_occ_seen_sharded,
+                                          device_mesh=device_mesh)
     occ_range = (-1.0, 1.0)
     range_dist = occ_range[1] - occ_range[0]
     bound_extent = BOUND_EXTENT_BG if is_background else BOUND_EXTENT_OBJ
@@ -462,7 +514,7 @@ def mesh_field(params: dict, cfg: Config, *, grid_dim: int,
         transform_np[:3, :3] = R if R is not None else np.eye(3)
         transform_np[:3, 3] = center + (R @ offset if R is not None else offset)
         voxel_w = float(np.max(scale_np)) * 2.0 / (grid_dim - 1) * ws
-        occ, seen_empty = _grid_occ_seen(
+        occ, seen_empty = grid_occ_seen(
             params, cfg, shape_code, texture_code, grid_dim=grid_dim,
             scale_np=scale_np, transform_np=transform_np,
             world_transform=world_transform,
@@ -542,7 +594,8 @@ def mesh_field(params: dict, cfg: Config, *, grid_dim: int,
     _, color = eval_points(mesh.vertices.astype(np.float32), params, cfg,
                            shape_code, texture_code,
                            is_background=is_background,
-                           want_occ=False, color_u8=True)
+                           want_occ=False, color_u8=True,
+                           device_mesh=device_mesh)
     mesh.vertex_colors = color
     _t_add("vertex_color", _time.time() - t0)
     return mesh
@@ -564,12 +617,12 @@ def build_carve_views(session):
     return (depths, T_wc, session.cam)
 
 
-def mesh_object(session, obj_id: int, *, carve="auto"):
+def mesh_object(session, obj_id: int, *, carve="auto", device_mesh=None):
     """Mesh ONE object (obj_id 0 = background) in SCENE frame — the
     per-object body of mesh_scene. Returns a TriMesh or None (marching
     failure / missing bound). carve='auto' derives the space-carving views
     from the session; pass a prebuilt tuple (or None) when meshing many
-    objects."""
+    objects. device_mesh: see mesh_field."""
     cfg = session.cfg
     if carve == "auto":
         carve = build_carve_views(session)
@@ -581,7 +634,8 @@ def mesh_object(session, obj_id: int, *, carve="auto"):
         dim = adaptive_grid_dim(bound.extent, cfg.live_voxel_size,
                                 cfg.grid_dim)
         return mesh_field(session.background_params(), cfg, grid_dim=dim,
-                          is_background=True, bound=bound)
+                          is_background=True, bound=bound,
+                          device_mesh=device_mesh)
 
     for cls_id, cat in zip(session.cls_ids, session.categories):
         if obj_id in cat.inst_id_to_index:
@@ -623,7 +677,8 @@ def mesh_object(session, obj_id: int, *, carve="auto"):
                           is_background=False, shape_code=sc,
                           texture_code=tc, extent=extent,
                           extent_canon=extent_canon,
-                          carve=carve, world_transform=T_world)
+                          carve=carve, world_transform=T_world,
+                          device_mesh=device_mesh)
         if mesh is not None:
             # canonical -> scene: sim(3) scale then rigid transform
             # (ref: train.py:233-243)
@@ -636,19 +691,32 @@ def mesh_object(session, obj_id: int, *, carve="auto"):
     dim = adaptive_grid_dim(bound.extent, cfg.live_voxel_size, cfg.grid_dim)
     return mesh_field(params, cfg, grid_dim=dim, is_background=False,
                       shape_code=sc, texture_code=tc, bound=bound,
-                      carve=carve)
+                      carve=carve, device_mesh=device_mesh)
 
 
 def mesh_scene(session, out_dir: str, iteration: int,
-               only_objects: list[int] | None = None) -> dict[int, str]:
+               only_objects: list[int] | None = None,
+               device_mesh=None) -> dict[int, str]:
     """Mesh every object + background and export .obj files in scene frame
     (ref: train.py:214-243). Returns {obj_id or 0: path}.
     only_objects: restrict to these obj ids (background 0 included only if
-    listed)."""
+    listed). Only rank 0 of a process group writes the files.
+    device_mesh: a DeviceMesh of more than one process (every rank calls
+    this, and every rank gets the paths) spreads each grid and colour
+    evaluation over its processes (parallel/grid_eval.py; the same
+    bytes), the objects meshed one after another. A sharded session's
+    categories are gathered to every rank first."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
-    os.makedirs(out_dir, exist_ok=True)
+    from catnerf_torch.parallel import mesh as pmesh
+
+    sharded = device_mesh is not None and device_mesh.size() > 1
+    write = pmesh.is_main()
+    if getattr(session, "shard", None) is not None:
+        session.full_params()  # the gather, on every rank, before meshing
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
     written: dict[int, str] = {}
     carve = build_carve_views(session)
 
@@ -658,29 +726,34 @@ def mesh_scene(session, out_dir: str, iteration: int,
         obj_ids = [o for o in obj_ids if o in set(only_objects)]
 
     def one(obj_id):
-        mesh = mesh_object(session, obj_id, carve=carve)
+        mesh = mesh_object(session, obj_id, carve=carve,
+                           device_mesh=device_mesh)
         if mesh is None:
             return obj_id, None
         path = os.path.join(out_dir,
                             f"iteration_{iteration}_obj{obj_id}.obj")
-        t0 = _time.time()
-        mesh.export(path)
-        _t_add("export", _time.time() - t0)
+        if write:
+            t0 = _time.time()
+            mesh.export(path)
+            _t_add("export", _time.time() - t0)
         return obj_id, path
 
     # Two objects in flight: the device grid evaluation of object k+1
     # overlaps the host phases (interior fill, marching cubes, export) of
     # object k — the device's work from both threads runs in order on its
     # stream, and the C++/numpy phases release the GIL for their bulk.
-    if len(obj_ids) > 1:
+    # Sequential when sharded: the ranks' collectives run in one order.
+    if len(obj_ids) > 1 and not sharded:
         with ThreadPoolExecutor(max_workers=2) as pool:
             results = list(pool.map(one, obj_ids))
     else:
         results = [one(o) for o in obj_ids]
     for obj_id, path in results:
         if path is None:
-            if obj_id != 0:
+            if obj_id != 0 and write:
                 print(f"mesh failed obj {obj_id}")
             continue
         written[obj_id] = path
+    if sharded:
+        pmesh.barrier()  # the files are written when any rank returns
     return written

@@ -37,17 +37,26 @@ def render(termination: torch.Tensor, vals: torch.Tensor,
 
 
 def reduce_batch_loss(loss_mat: torch.Tensor, var: torch.Tensor | None,
-                      mask: torch.Tensor) -> torch.Tensor:
+                      mask: torch.Tensor, counts=None) -> torch.Tensor:
     """Masked, optionally 1/sqrt(var)-weighted (L1) mean over the ray axis
     (ref: src/render_rays.py:66-95). loss_mat, mask: [n_models, n_rays];
     returns [n_models].
 
     Reference quirk preserved: if ANY model has an all-zero mask the whole
-    batch returns zero loss (render.py:86-87)."""
+    batch returns zero loss (render.py:86-87).
+
+    counts: (mask_num [n_models] float32, any_empty) given by a caller
+    whose batch is a shard of the whole: the whole batch's counts per model
+    and its empty-mask flag over every model (parallel/sharding.py), in
+    place of this shard's."""
     if var is not None:
         loss_mat = loss_mat * (1.0 / (torch.sqrt(var) + 1e-4))
     mask_f = mask.to(loss_mat.dtype)
-    mask_num = torch.sum(mask_f, dim=-1)
+    if counts is None:
+        mask_num = torch.sum(mask_f, dim=-1)
+        any_empty = torch.any(mask_num == 0)
+    else:
+        mask_num, any_empty = counts
+        mask_num = mask_num.to(loss_mat.dtype)
     per_model = torch.sum(loss_mat * mask_f, dim=-1) / (mask_num + 1e-10)
-    any_empty = torch.any(mask_num == 0)
     return torch.where(any_empty, torch.zeros_like(per_model), per_model)

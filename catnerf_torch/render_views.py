@@ -47,12 +47,6 @@ from catnerf_torch.models.layers import Linear
 from catnerf_torch.ops import render as render_ops
 from catnerf_torch.ops.sim3 import tensor_to_se3_np
 
-#: what a sharded render (the JAX package's device_mesh/shard_map branch)
-#: waits for
-SHARDED = ("a sharded render needs the port's parallel/ package "
-           "(ROADMAP.md Queue 1, item 4: parallel/)")
-
-
 def look_at(eye, target=(0.0, 0.0, 0.0), up=(0.0, 0.0, 1.0)) -> np.ndarray:
     """Camera-to-target-frame pose: z forward (towards target), matching the
     pipeline's z-depth ray convention (data/camera.py)."""
@@ -168,12 +162,17 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def _render_rays(tile_fn, cam: CameraInfo, T, near: float, far: float,
-                 n_bins: int, chunk: int, device: torch.device):
+                 n_bins: int, chunk: int, device: torch.device,
+                 device_mesh=None):
     """(rgb [W, H, 3], depth [W, H], alpha [W, H]) as numpy: the world ray
     grid of pose T (dirs @ R.T, bin midpoints of linspace(near, far,
     n_bins + 1)), `tile_fn(pts [n, 3]) -> (occ [n], rgb [n, 3])` over
     tiles of whole rays (about `chunk` points each), each tile composited
-    with ops/render's termination."""
+    with ops/render's termination. device_mesh: a DeviceMesh of more than
+    one process (every rank calls this) spreads the tiles over its
+    processes (tile i to rank i mod their count, parallel/grid_eval.py)
+    and gathers only the tiles' pixels; every rank gets the image, the
+    unsharded one bit for bit."""
     T = _f32(T, device)
     dirs = _dirs(cam, device) @ T[:3, :3].T
     near, far = _f32(near, device), _f32(far, device)
@@ -181,18 +180,28 @@ def _render_rays(tile_fn, cam: CameraInfo, T, near: float, far: float,
                                                  device=device)
     z = 0.5 * (edges[:-1] + edges[1:])
     rays = max(1, chunk // n_bins)
-    img, depth, alpha = [], [], []
-    for d in dirs.split(rays):
+    sharded = device_mesh is not None and device_mesh.size() > 1
+    if sharded:
+        n, r = device_mesh.size(), device_mesh.get_rank()
+    parts = []
+    for i, d in enumerate(dirs.split(rays)):
+        if sharded and i % n != r:
+            continue
         pts = T[:3, 3] + d[:, None, :] * z[None, :, None]
         occ, rgb = tile_fn(pts.reshape(-1, 3))
         term = render_ops.occupancy_to_termination(occ.reshape(-1, n_bins))
-        img.append((term[..., None] * rgb.reshape(-1, n_bins, 3)).sum(-2))
-        depth.append((term * z).sum(-1))
-        alpha.append(term.sum(-1))
+        parts.append(((term[..., None] * rgb.reshape(-1, n_bins, 3)).sum(-2),
+                      (term * z).sum(-1), term.sum(-1)))
     shape = (cam.width, cam.height)
-    return (torch.cat(img).reshape(*shape, 3).cpu().numpy(),
-            torch.cat(depth).reshape(shape).cpu().numpy(),
-            torch.cat(alpha).reshape(shape).cpu().numpy())
+    if not sharded:
+        return tuple(torch.cat(x).reshape(*shape, *tail).cpu().numpy()
+                     for x, tail in zip(zip(*parts), ((3,), (), ())))
+    from catnerf_torch.parallel.grid_eval import _in_order
+
+    tiles = _in_order([tuple(x.cpu().numpy() for x in p) for p in parts],
+                      device_mesh)
+    return tuple(np.concatenate(x).reshape(*shape, *tail)
+                 for x, tail in zip(zip(*tiles), ((3,), (), ())))
 
 
 @torch.inference_mode()
@@ -395,11 +404,14 @@ def render_scene_view(session, T: np.ndarray, cam: CameraInfo, *,
     the region the mesh grid would evaluate); inside each tile every
     object field runs as one stacked ensemble on the points inside some
     object's box (`_scene_tile`).
-    device_mesh (the JAX package's sharded composite) raises
-    NotImplementedError.
+    device_mesh: a DeviceMesh of more than one process (every rank calls
+    this; the JAX package's sharded composite): each rank composites its
+    own tiles of whole rays and only their pixels are gathered; every rank
+    gets the image, pixel-identical to the unsharded one.
     """
-    if device_mesh is not None:
-        raise NotImplementedError(SHARDED)
+    if device_mesh is not None and not hasattr(device_mesh, "get_rank"):
+        raise TypeError(f"device_mesh: a torch DeviceMesh "
+                        f"(parallel.mesh.make_mesh), not {device_mesh!r}")
     cfg = session.cfg
     staged = _stage_scene_fields(session, margin)
 
@@ -414,7 +426,7 @@ def render_scene_view(session, T: np.ndarray, cam: CameraInfo, *,
     _full_f32(dev)
     return _render_rays(
         lambda p: _scene_tile(staged, bg_params, cfg, p), cam, T, near,
-        far, n_bins, chunk, dev)
+        far, n_bins, chunk, dev, device_mesh=device_mesh)
 
 
 def _stage_scene_fields(session, margin: float):
@@ -471,7 +483,7 @@ def _stage_scene_fields(session, margin: float):
         staged = None
     else:
         dev = session.device
-        p = session.state.params
+        p = session.full_params()
         ci = torch.tensor(cls_idx, device=dev)
         ki = torch.tensor(inst_idx, device=dev)
 
@@ -500,9 +512,14 @@ def _stage_scene_fields(session, margin: float):
 def render_scene_views(session, out_dir: str, *, n_views: int = 4,
                        width: int = 320, height: int = 240,
                        n_bins: int = 64, device_mesh=None) -> list[str]:
-    """Composited whole-scene renders from up to n_views dataset poses."""
+    """Composited whole-scene renders from up to n_views dataset poses.
+    device_mesh: see render_scene_view. Only rank 0 of a process group
+    writes the PNGs."""
     if not getattr(session, "sample_dict", None):
         return []
+    from catnerf_torch.parallel.mesh import is_main
+
+    write = is_main()
     cam = default_orbit_cam(width, height)
     far = scene_far(session)
     written = []
@@ -513,7 +530,8 @@ def render_scene_views(session, out_dir: str, *, n_views: int = 4,
             session, T, cam, near=0.05, far=far, n_bins=n_bins,
             device_mesh=device_mesh)
         name = f"scene_frame{fr}_view{v:02d}"
-        _save(out_dir, name, img, depth, alpha)
+        if write:
+            _save(out_dir, name, img, depth, alpha)
         written.append(name)
     return written
 
@@ -569,21 +587,33 @@ def main(argv=None) -> int:
                              "(all objects + background) from dataset poses")
     parser.add_argument("--sharded", action="store_true",
                         help="shard --scene composite tiles over every "
-                             "visible device (not in the port yet: raises)")
+                             "process (torchrun --nproc-per-node N; "
+                             "identical pixels)")
     args = parser.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(SHARDED)
 
-    session = restore_session(args)
-    out = args.out or os.path.join(args.logdir, "renders")
-    written = render_session_orbits(
-        session, out, n_views=args.n_views, width=args.width,
-        height=args.height, n_bins=args.n_bins)
-    if args.scene:
-        written += render_scene_views(
-            session, out, n_views=args.n_views, width=args.width,
-            height=args.height, n_bins=min(args.n_bins, 64))
-    print(f"wrote {len(written)} views to {out}")
+    from catnerf_torch.parallel import mesh as pmesh
+
+    device_mesh = None
+    if args.sharded and args.scene:
+        device_mesh = pmesh.cli_mesh(args.device, "--sharded")
+    try:
+        session = restore_session(args)
+        out = args.out or os.path.join(args.logdir, "renders")
+        written = []
+        if pmesh.is_main():
+            written = render_session_orbits(
+                session, out, n_views=args.n_views, width=args.width,
+                height=args.height, n_bins=args.n_bins)
+        if args.scene:
+            written += render_scene_views(
+                session, out, n_views=args.n_views, width=args.width,
+                height=args.height, n_bins=min(args.n_bins, 64),
+                device_mesh=device_mesh)
+        if pmesh.is_main():
+            print(f"wrote {len(written)} views to {out}")
+    finally:
+        if device_mesh is not None:
+            pmesh.shutdown()
     return 0
 
 

@@ -65,7 +65,6 @@ import numpy as np
 
 from catnerf_torch.data import png
 from catnerf_torch.render_views import (
-    SHARDED,
     add_scene_args,
     default_orbit_cam,
     instance_frame,
@@ -557,6 +556,13 @@ def serve(session, port: int = 8765, host: str = "127.0.0.1",
     return httpd
 
 
+#: what sharded serving waits for
+SHARDED_SERVING = (
+    "serve --sharded is not in the port yet: rank 0 would serve HTTP while "
+    "the other ranks follow each request's tile loop (ROADMAP.md Queue 1, "
+    "item 4h)")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -571,10 +577,11 @@ def main(argv=None) -> int:
                              "accepting requests")
     parser.add_argument("--sharded", action="store_true",
                         help="shard scene-composite tiles over every "
-                             "visible device (not in the port yet: raises)")
+                             "process (not in the port yet: raises, "
+                             "ROADMAP.md item 4h)")
     args = parser.parse_args(argv)
     if args.sharded:
-        raise NotImplementedError(SHARDED)
+        raise NotImplementedError(SHARDED_SERVING)
 
     session = restore_session(args)
     scene_server = SceneServer(session,

@@ -65,9 +65,25 @@ voxels a side); --resume restores the latest checkpoint and
 files, both before the fast path is built (--resume sets the start; an
 import does not, as in train.py); --mesh-only meshes the weights so loaded
 (or the initial ones) and trains nothing; --no-background trains without
-the background model. --train-sharded and --mesh-sharded raise: the
-port has no `parallel/` yet. The device is cuda unless --device names
-another; the registration runs there too. With --config, one line on
+the background model. The device is cuda unless --device names
+another; the registration runs there too.
+
+Under torchrun (one process per GPU; `parallel/`), as `train.py`'s
+flags (ref: train.py:53-63, 128-180):
+
+    torchrun --nproc-per-node N -m catnerf_torch.train --config <json> \
+        --train-sharded [N_MODEL] --mesh-sharded
+
+--train-sharded shards the fast path DP(rays) x EP(categories) over an
+(N / N_MODEL) x N_MODEL mesh (N_MODEL 1 by default: pure data parallel;
+it must divide the categories), --mesh-sharded spreads every mesh grid
+and colour evaluation over the N processes. With one process each prints
+that it runs unsharded; --train-sharded without the fast path trains
+unsharded. The registration runs once, on rank 0, which writes its cache;
+the other ranks wait, then read it. Only rank 0 prints the log lines,
+writes metrics.jsonl, the checkpoints (gathered from the shards, the
+unsharded format) and the meshes; the metrics are the whole step's on
+every rank, so the loss guard stops every rank alike. With --config, one line on
 stderr gives the seconds of loading and of each stage of the registration
 (`frames`, `stage1`, `pretrain`, `uncertainty`, `align`).
 """
@@ -84,6 +100,7 @@ import time
 
 from catnerf_torch.loaders import load_scene
 from catnerf_torch.mesher.meshing import mesh_scene
+from catnerf_torch.parallel import mesh as pmesh
 from catnerf_torch.train import checkpoint as ckpt_mod
 from catnerf_torch.train.logging import MetricsWriter
 from catnerf_torch.train.loop import TrainingSession
@@ -143,16 +160,16 @@ def main(argv=None) -> int:
                     "or step into <logdir>/trace")
     ap.add_argument("--train-sharded", type=int, nargs="?", const=1,
                     default=None, metavar="N_MODEL",
-                    help="not in the port yet (ROADMAP.md Queue 1, item "
-                    "4g): raises")
+                    help="shard the fast-path training DP(rays) x "
+                    "EP(categories) over every process (torchrun; "
+                    "parallel/sharding.py); optional value = 'model'-axis "
+                    "width (default 1 = pure DP). Unsharded with one "
+                    "process or without the fast path")
     ap.add_argument("--mesh-sharded", action="store_true",
-                    help="not in the port yet (ROADMAP.md Queue 1, item "
-                    "4g): raises")
+                    help="shard every mesh grid/color evaluation "
+                    "data-parallel over every process (torchrun; "
+                    "parallel/grid_eval.py; identical output)")
     args = ap.parse_args(argv)
-    if args.train_sharded is not None or args.mesh_sharded:
-        raise NotImplementedError(
-            "--train-sharded and --mesh-sharded need parallel/, which is "
-            "not in the port yet (ROADMAP.md Queue 1, item 4g)")
     if args.strict_parity:
         args.parity = True
     if args.synthetic == (args.config is not None):
@@ -166,16 +183,38 @@ def main(argv=None) -> int:
             if getattr(args, name) is None:
                 setattr(args, name, value)
     device = resolve_device(args.device)
+    distributed = ((args.train_sharded is not None or args.mesh_sharded)
+                   and int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if distributed:
+        pmesh.init_distributed(device)
+    try:
+        return run(ap, args, device, distributed)
+    finally:
+        if distributed:
+            pmesh.shutdown()
+
+
+def run(ap, args, device, distributed: bool) -> int:
+    main_rank = pmesh.is_main()
+
+    def say(msg: str) -> None:
+        if main_rank:
+            print(msg, file=sys.stderr)
 
     t0 = time.time()
     phase_reset("registration")
+    # the registration once, on rank 0, which caches it under the dataset;
+    # the other ranks then read that cache
+    if distributed and args.config is not None and not main_rank:
+        pmesh.barrier()
     cfg, inst_dict, sample_dict, cam = load_scene(
         args.config, args.synthetic, strict_parity=args.strict_parity,
         device=device)
+    if distributed and args.config is not None and main_rank:
+        pmesh.barrier()
     if args.config is not None:
-        print(f"loaded {args.config} in {time.time() - t0:.3f} s, by stage "
-              f"(s): {json.dumps(phase_timings('registration'))}",
-              file=sys.stderr)
+        say(f"loaded {args.config} in {time.time() - t0:.3f} s, by stage "
+            f"(s): {json.dumps(phase_timings('registration'))}")
     if args.max_iter is not None:
         cfg.max_iter = args.max_iter
     if args.log_iter is not None:
@@ -192,7 +231,7 @@ def main(argv=None) -> int:
             ap.error(f"{name} must be >= 1 (got {getattr(cfg, name)}; use "
                      f"a value > max_iter to disable an action)")
     os.makedirs(args.logdir, exist_ok=True)
-    if args.config is not None:
+    if args.config is not None and main_rank:
         dst = os.path.join(args.logdir, os.path.basename(args.config))
         if not (os.path.exists(dst) and os.path.samefile(args.config, dst)):
             shutil.copy(args.config, args.logdir)
@@ -208,21 +247,25 @@ def main(argv=None) -> int:
             sess, args.import_reference_ckpt)
         # the checkpoints' iteration names the --mesh-only exports
         sess.iteration = int(step)
-        print(f"imported reference checkpoints (global_step={step}) from "
-              f"{args.import_reference_ckpt}", file=sys.stderr)
+        say(f"imported reference checkpoints (global_step={step}) from "
+            f"{args.import_reference_ckpt}")
     start = 0
     if args.resume:
         latest = ckpt_mod.latest_checkpoint(ckpt_dir)
         if latest is not None:
             ckpt_mod.restore_session_checkpoint(latest, sess)
             start = sess.iteration
-            print(f"resumed from {latest} at iteration {start}",
-                  file=sys.stderr)
+            say(f"resumed from {latest} at iteration {start}")
+
+    mesh_devices = None
+    if args.mesh_sharded:
+        mesh_devices = pmesh.cli_mesh(device, "--mesh-sharded")
+        if mesh_devices is not None:
+            say(f"mesh eval sharded over {mesh_devices.size()} devices")
 
     def mesh(it: int) -> None:
-        written = mesh_scene(sess, mesh_dir, it)
-        print(f"exported {len(written)} meshes to {mesh_dir}",
-              file=sys.stderr)
+        written = mesh_scene(sess, mesh_dir, it, device_mesh=mesh_devices)
+        say(f"exported {len(written)} meshes to {mesh_dir}")
 
     # after --resume / --import-reference-ckpt, so that the restored
     # weights are meshed, not a fresh initialization
@@ -232,9 +275,23 @@ def main(argv=None) -> int:
 
     fast = uses_fast_path(cfg, start, args.parity)
     if fast:
-        sess.enable_fast_path(cfg.log_iter)
-    writer = MetricsWriter(args.logdir)
-    trace_dir = os.path.join(args.logdir, "trace") if args.trace else None
+        train_mesh = None
+        if args.train_sharded is not None:
+            train_mesh = pmesh.cli_mesh(device, "--train-sharded",
+                                        n_model=args.train_sharded)
+            if train_mesh is not None:
+                say(f"training sharded over "
+                    f"{dict(zip(train_mesh.mesh_dim_names, train_mesh.shape))}"
+                    f" mesh")
+        sess.enable_fast_path(cfg.log_iter, device_mesh=train_mesh)
+    elif args.train_sharded is not None:
+        say("--train-sharded requires the fast path (not --parity, and "
+            "save/mesh iters multiples of log_iter); running unsharded")
+    # the other ranks make the rows and write nothing
+    writer = (MetricsWriter(args.logdir) if main_rank
+              else MetricsWriter(args.logdir, write=False))
+    trace_dir = (os.path.join(args.logdir, "trace")
+                 if args.trace and main_rank else None)
     try:
         train(sess, cfg, start, fast, writer, ckpt_dir, mesh, trace_dir)
     finally:
@@ -319,12 +376,14 @@ def train(sess, cfg, start: int, fast: bool, writer, ckpt_dir: str, mesh,
             row = writer.log_step(sess, metrics, it)
             row["elapsed_s"] = time.time() - t0
             row["device"] = str(sess.device)
-            print(json.dumps(row), flush=True)
+            if pmesh.is_main():
+                print(json.dumps(row), flush=True)
         if it % cfg.save_iter == 0 or it % cfg.mesh_it == 0:
             sess.settle_prefetch()
         if it % cfg.save_iter == 0:
             path = ckpt_mod.save_session_checkpoint(ckpt_dir, sess, it)
-            print(f"saved checkpoint {path}", file=sys.stderr)
+            if pmesh.is_main():
+                print(f"saved checkpoint {path}", file=sys.stderr)
         if it % cfg.mesh_it == 0:
             mesh(it)
     guard(None, None, flush=True)

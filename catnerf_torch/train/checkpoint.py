@@ -24,7 +24,6 @@ converter (ref: src/category_registration.py:76-92).
 
 from __future__ import annotations
 
-import copy
 import json
 import os
 import re
@@ -35,7 +34,8 @@ import torch
 
 from catnerf_torch.convert import tree_of
 from catnerf_torch.data.scene import OrientedBBox
-from catnerf_torch.train.state import TrainState
+from catnerf_torch.parallel import mesh as pmesh
+from catnerf_torch.train.state import TrainState, load_state, state_dict
 
 
 def _cpu(x):
@@ -49,39 +49,44 @@ def _cpu(x):
     return x
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState, iteration: int) -> str:
-    """Write <ckpt_dir>/<iteration> with the full train state."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def save_checkpoint(ckpt_dir: str, state: TrainState, iteration: int,
+                    shard=None) -> str:
+    """Write <ckpt_dir>/<iteration> with the full train state; in a
+    process group only rank 0 writes. On a sharded state (`shard`,
+    parallel/sharding.py) every rank calls this: the category shards and
+    their AdamW moments are gathered over 'model' and rank 0 writes the
+    unsharded file before any rank returns. Every rank returns its
+    path."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"{iteration}")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"params": _cpu(state.params.state_dict()),
-                "optimizer": _cpu(state.optimizer.state_dict()),
-                "step": int(state.step)}, tmp)
-    os.replace(tmp, path)
+    if shard is None:
+        raw = state_dict(state)
+    else:
+        from catnerf_torch.parallel import sharding
+
+        raw = sharding.gather_state_dict(state, shard)
+    if pmesh.is_main():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(_cpu(raw), tmp)
+        os.replace(tmp, path)
+    if shard is not None:
+        pmesh.barrier()
     return path
 
 
-def load_checkpoint(path: str, template: TrainState) -> TrainState:
+def load_checkpoint(path: str, template: TrainState,
+                    shard=None) -> TrainState:
     """A new TrainState restored from a file save_checkpoint wrote;
     `template` (an initialised state works) supplies the modules, the
-    optimizer's groups and the device, and is left unchanged."""
+    optimizer's groups and the device, and is left unchanged. With a
+    `shard`, `template` is the rank's shard of a state, and the rank keeps
+    its categories of the file's (unsharded) state."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
-    params, optimizer = copy.deepcopy((template.params, template.optimizer))
-    params.load_state_dict(raw["params"])
-    osd = raw["optimizer"]
-    # the saved groups' flags would replace this optimizer's: keep the
-    # template's, so that a capturable (CUDA) state loads into a CPU
-    # optimizer and the reverse; load_state_dict then places each step
-    # count by the capturable flag
-    groups = []
-    for saved, own in zip(osd["param_groups"], optimizer.param_groups,
-                          strict=True):
-        groups.append({**saved, **{k: own[k] for k in
-                                   ("capturable", "foreach", "fused",
-                                    "differentiable") if k in own}})
-    optimizer.load_state_dict({**osd, "param_groups": groups})
-    return TrainState(params=params, optimizer=optimizer,
-                      step=int(raw["step"]))
+    if shard is not None:
+        from catnerf_torch.parallel import sharding
+
+        raw = sharding.shard_state_dict(raw, template.params, shard)
+    return load_state(raw, template)
 
 
 def latest_checkpoint(ckpt_dir: str) -> str | None:
@@ -101,7 +106,11 @@ def save_session_checkpoint(ckpt_dir: str, session, iteration: int) -> str:
     restart loses adoptees entirely: the fresh session's code tables have
     neither their (possibly grown) shape nor their sim(3)/extent
     metadata."""
-    path = save_checkpoint(ckpt_dir, session.state, iteration)
+    shard = getattr(session, "shard", None)
+    path = save_checkpoint(ckpt_dir, session.state, iteration, shard=shard)
+    if shard is not None or not pmesh.is_main():
+        # a sharded session adopts nothing (fit.adopt_instance raises)
+        return path
     adopted = getattr(session, "adopted_instances", [])
     sidecar = f"{path}.adopted.json"
     if adopted:
@@ -122,7 +131,9 @@ def restore_session_checkpoint(path: str, session) -> None:
     optimizer's moments, where it has any) and registering pose/extent
     metadata, so the template's shapes match the saved state — then loads
     the train state. The state is replaced (so a fast path enabled before
-    must be enabled again) and the iteration set to the restored step."""
+    must be enabled again) and the iteration set to the restored step. A
+    sharded session (every rank calls this) keeps its categories of the
+    file's state."""
     sidecar = f"{path}.adopted.json"
     if os.path.exists(sidecar):
         from catnerf_torch.fit import apply_adopted_record
@@ -130,7 +141,8 @@ def restore_session_checkpoint(path: str, session) -> None:
         with open(sidecar) as f:
             for rec in json.load(f):
                 apply_adopted_record(session, rec)
-    session.state = load_checkpoint(path, session.state)
+    session.state = load_checkpoint(path, session.state,
+                                    shard=getattr(session, "shard", None))
     session.iteration = session.state.step
 
 
@@ -239,7 +251,9 @@ def _occupancy_state_dict(t, fc: dict) -> dict:
 def export_reference_checkpoints(session, path: str, iteration: int) -> list[str]:
     """Write per-category reference-schema checkpoints
     `<path>/cls_<id>_iteration_<it>.pth` (+ cls_0 for the background),
-    every tensor a CPU float32 one whatever the session's device.
+    every tensor a CPU float32 one whatever the session's device. A
+    sharded session's categories are gathered first (every rank calls
+    this) and rank 0 writes.
 
     Schema parity (ref: src/scene_cateogries.py:548-571): for object
     categories `bound` holds the trainer's extent_dict ({obj_id: extent}),
@@ -248,6 +262,15 @@ def export_reference_checkpoints(session, path: str, iteration: int) -> list[str
     dict loadable without Open3D. The full OBBs are additionally exported
     under the extension key `obb_dict`.
     """
+    if getattr(session, "shard", None) is not None:
+        session.full_params()  # the gather, on every rank
+        written = (_export_reference(session, path, iteration)
+                   if pmesh.is_main() else None)
+        return pmesh.broadcast_object(written)
+    return _export_reference(session, path, iteration)
+
+
+def _export_reference(session, path: str, iteration: int) -> list[str]:
     t = torch
     os.makedirs(path, exist_ok=True)
     written = []
@@ -435,6 +458,10 @@ def import_reference_checkpoints(session, path: str,
     are copied into the session's parameters in place, under no_grad, all
     shapes checked before the first copy; the optimizer's moments are left
     as they were. Returns the checkpoints' global_step."""
+    if getattr(session, "shard", None) is not None:
+        raise ValueError("import the reference checkpoints before "
+                         "enable_fast_path(device_mesh=...) shards the "
+                         "session")
     files = find_reference_checkpoints(path, iteration)
     if not files:
         raise FileNotFoundError(f"no cls_*_iteration_*.pth under {path}")

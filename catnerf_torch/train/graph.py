@@ -34,7 +34,7 @@ import torch
 
 from catnerf_torch.data.device_buffer import (DeviceRayStore, FastDraws,
                                               check_window_pad, draw_offsets,
-                                              sample_batch)
+                                              draw_rows, sample_batch)
 from catnerf_torch.kernels import fused_field
 from catnerf_torch.train.step import (BackgroundBatch, CategoryBatch,
                                       StepDraws, StepMetrics)
@@ -130,10 +130,13 @@ StepFn = Callable[[CategoryBatch, BackgroundBatch | None,
 
 class Superstep:
     """`make_superstep`'s callable: `superstep(draws, n_steps=n_inner)`
-    runs n_steps optimizer steps, each on a window batch drawn from the
-    store, and returns the last step's metrics. `draws` is the generator
-    to draw each step's offsets and uniforms from (in that order, as the
+    runs n_steps optimizer steps, each on a batch drawn from the store,
+    and returns the last step's metrics. `draws` is the generator to draw
+    each step's offsets (or rows) and uniforms from (in that order, as the
     eager loop draws them), or a list of n_steps injected FastDraws.
+
+    `draw(generator)` gives a step's (offsets, background offset) or
+    (rows, background rows), `sample(a, b)` the batch they select.
 
     graph=True: the step is a CapturedStep, one for each kind of `draws`,
     the generator registered with it, injected draws its static inputs;
@@ -142,19 +145,18 @@ class Superstep:
     steps run eagerly."""
 
     def __init__(self, step_fn: StepFn, store: DeviceRayStore,
-                 n_per_cls: int, n_bg: int, n_inner: int, graph: bool):
+                 n_inner: int, graph: bool, draw, sample):
         self.step_fn = step_fn
         self.store = store
-        self.n_per_cls = n_per_cls
-        self.n_bg = n_bg
         self.n_inner = n_inner
         self.graph = graph
-        self.offsets = None  # the last step's (offs, boff)
+        self.draw = draw
+        self.sample = sample
+        self.offsets = None  # the last step's (offs, boff) or rows
         self.captured: dict[str, CapturedStep] = {}  # "generator"|"injected"
 
     def _step(self, offs, boff, draws):
-        cat, bg = sample_batch(self.store, self.n_per_cls, self.n_bg, offs,
-                               boff)
+        cat, bg = self.sample(offs, boff)
         return self.step_fn(cat, bg, draws), (offs, boff)
 
     def _injected_step(self, offs, boff, u_cat, u_bg):
@@ -183,8 +185,7 @@ class Superstep:
             if drawn:
                 metrics, self.offsets = self._run(
                     "generator",
-                    lambda: self._step(*draw_offsets(self.store, draws),
-                                       draws),
+                    lambda: self._step(*self.draw(draws), draws),
                     (), (draws,))
             else:
                 d = draws[i]
@@ -195,17 +196,30 @@ class Superstep:
 
 
 def make_superstep(step_fn: StepFn, store: DeviceRayStore, n_per_cls: int,
-                   n_bg: int, n_inner: int, graph: bool = False) -> Superstep:
+                   n_bg: int, n_inner: int, graph: bool = False,
+                   window: bool = True, draw=None, sample=None) -> Superstep:
     """The counterpart of the JAX package's `make_superstep` (ref:
     data/device_buffer.py:248-288): a callable that advances the training
-    state by `n_inner` steps, each on its own window batch, and returns
-    the last step's metrics (`Superstep`). It takes the draw generator,
-    or a list of injected draws, in place of JAX's key. `step_fn` updates
-    the state in place. The port draws windows only (JAX's window=True);
-    JAX's default uniform draw with replacement is not ported. graph:
-    the step as a CUDA graph, replayed (`CapturedStep`)."""
-    check_window_pad(store, n_per_cls, n_bg)
+    state by `n_inner` steps, each on its own batch from the store, and
+    returns the last step's metrics (`Superstep`). It takes the draw
+    generator, or a list of injected draws, in place of JAX's key.
+    `step_fn` updates the state in place. window: each step a window
+    draw (the training session's, JAX's window=True), else uniform rows
+    with replacement (JAX's default). `draw` and `sample` replace the
+    store's own draw and batch (a sharded step's, parallel/sharding.py).
+    graph: the step as a CUDA graph, replayed (`CapturedStep`)."""
+    bg_length = store.bg_length if store.bg_packed is not None else None
+    if window:
+        check_window_pad(store, n_per_cls, n_bg)
+        draw = draw or (lambda gen: draw_offsets(store, gen))
+        sample = sample or (lambda offs, boff: sample_batch(
+            store, n_per_cls, n_bg, offs, boff))
+    else:
+        draw = draw or (lambda gen: draw_rows(store.lengths, bg_length,
+                                              n_per_cls, n_bg, gen))
+        sample = sample or (lambda idx, bidx: sample_batch(
+            store, n_per_cls, n_bg, idx, bidx, window=False))
     if graph and store.packed.device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA session (the store is "
                          f"on {store.packed.device})")
-    return Superstep(step_fn, store, n_per_cls, n_bg, n_inner, graph)
+    return Superstep(step_fn, store, n_inner, graph, draw, sample)

@@ -16,18 +16,25 @@ import os
 
 
 class MetricsWriter:
-    def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
+    """write=False (a sharded run's other ranks) makes the rows and writes
+    nothing."""
+
+    def __init__(self, log_dir: str, write: bool = True):
         self.path = os.path.join(log_dir, "metrics.jsonl")
-        self._scalar_log = open(self.path, "a")
+        self._scalar_log = None
+        if write:
+            os.makedirs(log_dir, exist_ok=True)
+            self._scalar_log = open(self.path, "a")
 
     def log_step(self, session, metrics, iteration: int) -> dict:
         """Append the step's row; returns it."""
         d = session.metrics_to_dict(metrics)
         d["iteration"] = iteration
-        self._scalar_log.write(json.dumps(d) + "\n")
-        self._scalar_log.flush()
+        if self._scalar_log is not None:
+            self._scalar_log.write(json.dumps(d) + "\n")
+            self._scalar_log.flush()
         return d
 
     def close(self) -> None:
-        self._scalar_log.close()
+        if self._scalar_log is not None:
+            self._scalar_log.close()

@@ -95,6 +95,13 @@ class TrainingSession:
         self._store = None
         self._superstep = None
         self._fast_state = None
+        # a sharded session (enable_fast_path(device_mesh=...)): this
+        # rank's place in the mesh (parallel/sharding.Shard); self.state
+        # is then the rank's shard
+        self.shard = None
+        self._device_mesh = None
+        self._reduction = None
+        self._full_params = None
 
     def _device_batch(self):
         cat_np, bg_np = self.batcher.next_batch(self.n_per_cls,
@@ -149,8 +156,16 @@ class TrainingSession:
         else:
             cat, bg = self._device_batch()
         draws = draws if draws is not None else self._draws()
-        metrics = step_mod.train_step(self.state, cat, bg, draws, self.cfg,
-                                      self.obj_mask)
+        if self.shard is None:
+            metrics = step_mod.train_step(self.state, cat, bg, draws,
+                                          self.cfg, self.obj_mask)
+        else:
+            sh = self.shard
+            metrics = step_mod.update(
+                self.state, sh.cat_batch(cat), sh.bg_batch(bg),
+                sh.draws(draws), self.cfg, self.obj_mask[sh.c0:sh.c1],
+                reduction=self._reduction)
+            self.state.step += 1
         self.iteration += 1
         return metrics
 
@@ -196,8 +211,8 @@ class TrainingSession:
     # ------------------------------------------------------------------
     # Fast path: the device-resident ray store, one window draw per step,
     # the superstep of the JAX API (ref: train/loop.py:174-236).
-    def enable_fast_path(self, n_inner: int,
-                         graph: bool | None = None) -> None:
+    def enable_fast_path(self, n_inner: int, graph: bool | None = None,
+                         device_mesh=None) -> None:
         """Build the device ray store and the superstep: `n_inner` steps
         per call (`run_fast` accepts any number of steps all the same).
         graph: the step as a CUDA graph, replayed (train/graph.py); None
@@ -207,17 +222,43 @@ class TrainingSession:
         runs on the state the session holds now: after replacing
         `self.state` (a checkpoint restore does), call this again; until
         then run_fast raises. Writing into the parameters in place (a
-        reference checkpoint import does) keeps the superstep valid."""
+        reference checkpoint import does) keeps the superstep valid.
+
+        device_mesh: a ('data', 'model') DeviceMesh of more than one
+        process (parallel/mesh.make_mesh; every rank calls this) shards
+        the session DP(rays) x EP(categories) (parallel/sharding.py): the
+        state becomes the rank's shard, the store holds the rank's
+        categories, and every later step (run_fast and step_once) is the
+        sharded step, its metrics the whole step's. None, or a mesh of
+        one process, runs unsharded (a sharded state is gathered back)."""
         if graph is None:
             graph = self.device.type == "cuda"
         # the store reads the host ray buffers, which the worker may be
         # reshuffling at an epoch's end
         self.settle_prefetch()
+        # remembered so that a rebuild keeps the placement
+        self._device_mesh = device_mesh
+        shard = None
+        if device_mesh is not None and device_mesh.size() > 1:
+            from catnerf_torch.parallel import sharding
+
+            shard = sharding.shard_plan(device_mesh, len(self.cls_ids))
+            sharding.check_rays(shard, self.n_per_cls,
+                                self.cfg.n_per_optim_bg)
+        self._reshard(shard)
+        state = self.state
+        if shard is not None:
+            with phase_timer("fast_path", "store_build"):
+                self._superstep = sharding.make_sharded_superstep(
+                    self.cfg, self.obj_mask, shard, state, self.categories,
+                    self.background, self.n_per_cls, self.cfg.n_per_optim_bg,
+                    n_inner, graph=graph, window=True)
+            self._store, self._fast_state = self._superstep.store, state
+            return
         with phase_timer("fast_path", "store_build"):
             store = build_device_store(
                 self.categories, self.background, window_pad=self.n_per_cls,
                 bg_window_pad=self.cfg.n_per_optim_bg, device=self.device)
-        state = self.state
 
         def step_fn(cat, bg, draws):
             if isinstance(draws, torch.Generator):
@@ -229,6 +270,22 @@ class TrainingSession:
             step_fn, store, self.n_per_cls, self.cfg.n_per_optim_bg,
             n_inner, graph=graph)
         self._store, self._fast_state = store, state
+
+    def _reshard(self, shard) -> None:
+        """Place the state as `shard` says (None: whole on every rank),
+        gathering a shard of another placement first."""
+        from catnerf_torch.parallel import sharding
+
+        if self.shard == shard:
+            return
+        if self.shard is not None:
+            self.state = sharding.unshard_state(self.state, self.cfg,
+                                                self.shard)
+        if shard is not None:
+            self.state = sharding.shard_state(self.state, self.cfg, shard)
+        self.shard = shard
+        self._reduction = (sharding.ShardedLoss(shard)
+                           if shard is not None else None)
 
     def run_fast(self, n_steps: int,
                  draws: Sequence[FastDraws] | None = None) -> StepMetrics:
@@ -275,13 +332,27 @@ class TrainingSession:
         return d
 
     # ------------------------------------------------------------------
+    def full_params(self):
+        """Every parameter, whole: the session's own, or on a sharded
+        session the category shards gathered over 'model' (a collective:
+        every rank calls it), kept until the state changes."""
+        if self.shard is None:
+            return self.state.params
+        key = (id(self.state), int(self.state.step))
+        if self._full_params is None or self._full_params[0] != key:
+            from catnerf_torch.parallel.sharding import gather_params
+
+            self._full_params = (key, gather_params(self.state.params,
+                                                    self.shard))
+        return self._full_params[1]
+
     def category_params(self, cls_id: int) -> dict:
         """One category's rows of the stacked parameters (PE, CodeNeRF,
         codes) for meshing and export: modules and tensors without the
-        category axis, views of the session's parameters outside their
-        autograd graph."""
+        category axis, views of the session's (whole, `full_params`)
+        parameters outside their autograd graph."""
         i = self.cls_ids.index(cls_id)
-        p = self.state.params
+        p = self.full_params()
 
         def row(layer):
             return Linear(layer.w.detach()[i], layer.b.detach()[i])

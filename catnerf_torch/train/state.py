@@ -11,6 +11,7 @@ train.py:40-64, src/trainer.py:38-60) and the JAX package's
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -97,3 +98,42 @@ def init_train_state(gen: torch.Generator, cfg: Config, n_objs: list[int],
     same weights on any device), then move them to `device`."""
     params = FieldParams.init(gen, cfg, n_objs, with_background).to(device)
     return make_train_state(cfg, params)
+
+
+def optimizer_param_names(params: FieldParams) -> list[str]:
+    """The parameters' names in make_optimizer's order (the model group,
+    then the codes group): the index of each in the optimizer's state
+    dict."""
+    names = [n for n, _ in params.named_parameters()]
+    return ([n for n in names if not n.startswith("codes.")]
+            + [n for n in names if n.startswith("codes.")])
+
+
+def state_dict(state: TrainState) -> dict:
+    """The whole train state as one dict: the parameters' state dict, the
+    AdamW state dict and the step count (what a checkpoint holds)."""
+    return {"params": state.params.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step)}
+
+
+def load_state(raw: dict, template: TrainState) -> TrainState:
+    """A new TrainState holding `raw` (a `state_dict`); `template` supplies
+    the modules, the optimizer's groups and the device, and is left
+    unchanged."""
+    params, optimizer = copy.deepcopy((template.params, template.optimizer))
+    params.load_state_dict(raw["params"])
+    osd = raw["optimizer"]
+    # the saved groups' flags would replace this optimizer's: keep the
+    # template's, so that a capturable (CUDA) state loads into a CPU
+    # optimizer and the reverse; load_state_dict then places each step
+    # count by the capturable flag
+    groups = []
+    for saved, own in zip(osd["param_groups"], optimizer.param_groups,
+                          strict=True):
+        groups.append({**saved, **{k: own[k] for k in
+                                   ("capturable", "foreach", "fused",
+                                    "differentiable") if k in own}})
+    optimizer.load_state_dict({**osd, "param_groups": groups})
+    return TrainState(params=params, optimizer=optimizer,
+                      step=int(raw["step"]))

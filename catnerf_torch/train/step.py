@@ -208,17 +208,31 @@ def background_forward(params: FieldParams, batch: BackgroundBatch,
 
 def loss_fn(params: FieldParams, cat_batch: CategoryBatch,
             bg_batch: BackgroundBatch | None, draws: StepDraws, cfg: Config,
-            obj_mask: torch.Tensor, reg_scaling: float = 5e-4):
+            obj_mask: torch.Tensor, reg_scaling: float = 5e-4,
+            reduction=None):
     """Total loss and metrics (ref: step.py:200-240); reg_scaling is the
-    reference constant (ref: train.py:165)."""
+    reference constant (ref: train.py:165).
+
+    reduction: on one rank of a sharded step (parallel/sharding.py
+    `ShardedLoss`), the seam to the other ranks: the whole batch's mask
+    counts for each mean (`cat_counts`, `bg_counts`), whether the code
+    regulariser enters this rank's objective (`with_reg`: on data-rank 0
+    only, so that the gradient sum over 'data' counts it once), and the
+    metrics of the whole batch (`metrics`). The total returned is then
+    this rank's share of the objective; the metrics are the whole
+    step's."""
     alpha, color, rays = category_forward(params, cat_batch, draws.cat, cfg)
     cat_loss = losses.step_batch_loss(
         alpha, color, rays.gt_depth, rays.gt_rgb, rays.obj_labels,
         rays.valid_depth_mask, rays.z_vals,
-        color_scaling=cfg.color_scaling, opacity_scaling=cfg.opacity_scaling)
+        color_scaling=cfg.color_scaling, opacity_scaling=cfg.opacity_scaling,
+        global_counts=None if reduction is None else reduction.cat_counts)
     reg_s, reg_t = losses.code_reg_loss(params.codes.shape,
                                         params.codes.texture, obj_mask)
-    total = cat_loss.total + reg_scaling * (reg_s + reg_t).sum()
+    if reduction is None or reduction.with_reg:
+        total = cat_loss.total + reg_scaling * (reg_s + reg_t).sum()
+    else:
+        total = cat_loss.total
     if bg_batch is not None and params.bg_fc is not None:
         bg_alpha, bg_color, bg_rays = background_forward(params, bg_batch,
                                                          draws.bg, cfg)
@@ -227,33 +241,55 @@ def loss_fn(params: FieldParams, cat_batch: CategoryBatch,
             bg_rays.gt_rgb[None], bg_rays.obj_labels[None],
             bg_rays.valid_depth_mask[None], bg_rays.z_vals[None],
             color_scaling=cfg.color_scaling,
-            opacity_scaling=cfg.opacity_scaling)
+            opacity_scaling=cfg.opacity_scaling,
+            global_counts=None if reduction is None else reduction.bg_counts)
         total = total + bg_loss.total
     else:
         z = torch.zeros(1, device=total.device)
         bg_loss = losses.LossBreakdown(z[0], z, z, z, z)
+    cat_terms = (cat_loss.depth, cat_loss.color, cat_loss.opacity)
+    bg_terms = (bg_loss.depth, bg_loss.color, bg_loss.opacity)
+    metric_total = total
+    if reduction is not None:
+        cat_terms, (reg_s, reg_t), bg_terms = reduction.metrics(
+            cat_terms, (reg_s, reg_t), bg_terms)
+
+        def l_batch(terms):
+            depth, col, opacity = terms
+            return (depth + col * cfg.color_scaling
+                    + opacity * cfg.opacity_scaling).sum()
+
+        # the unsharded total's expression, on the whole step's terms
+        metric_total = (l_batch(cat_terms)
+                        + reg_scaling * (reg_s + reg_t).sum())
+        if bg_batch is not None and params.bg_fc is not None:
+            metric_total = metric_total + l_batch(bg_terms)
     metrics = StepMetrics(
-        total=total,
-        cat_depth=cat_loss.depth, cat_color=cat_loss.color,
-        cat_opacity=cat_loss.opacity,
-        cat_psnr=losses.psnr_from_l1(cat_loss.psnr_color),
+        total=metric_total,
+        cat_depth=cat_terms[0], cat_color=cat_terms[1],
+        cat_opacity=cat_terms[2],
+        cat_psnr=losses.psnr_from_l1(cat_terms[1]),
         reg_shape=reg_s, reg_texture=reg_t,
-        bg_depth=bg_loss.depth[0], bg_color=bg_loss.color[0],
-        bg_opacity=bg_loss.opacity[0],
-        bg_psnr=losses.psnr_from_l1(bg_loss.psnr_color[0]),
+        bg_depth=bg_terms[0][0], bg_color=bg_terms[1][0],
+        bg_opacity=bg_terms[2][0],
+        bg_psnr=losses.psnr_from_l1(bg_terms[1][0]),
     )
     return total, metrics
 
 
 def update(state: TrainState, cat_batch: CategoryBatch,
            bg_batch: BackgroundBatch | None, draws: StepDraws, cfg: Config,
-           obj_mask: torch.Tensor) -> StepMetrics:
+           obj_mask: torch.Tensor, reduction=None) -> StepMetrics:
     """`train_step`'s work on the device, without the host's step count:
-    the body that a CUDA graph captures (train/graph.py)."""
+    the body that a CUDA graph captures (train/graph.py). With a
+    `reduction` (a sharded step's, see loss_fn) the gradients are summed
+    over the ranks that share each parameter before AdamW."""
     state.optimizer.zero_grad(set_to_none=True)
     total, metrics = loss_fn(state.params, cat_batch, bg_batch, draws, cfg,
-                             obj_mask)
+                             obj_mask, reduction=reduction)
     total.backward()
+    if reduction is not None:
+        reduction.gradients(state.params)
     state.optimizer.step()
     return StepMetrics(*(m.detach() for m in metrics))
 

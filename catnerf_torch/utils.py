@@ -45,14 +45,20 @@ def phase_timer(group: str, phase: str):
 def resolve_device(device: str | torch.device | None) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller names
     another. Asking for no device where there is no GPU raises; the port
-    never carries on silently on the CPU."""
+    never carries on silently on the CPU. Under torchrun (LOCAL_RANK set)
+    `cuda`, named or by default, is the process's own card,
+    cuda:LOCAL_RANK."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to run the plain "
                 "PyTorch path on the CPU")
         device = "cuda"
-    return torch.device(device)
+    device = torch.device(device)
+    if (device.type == "cuda" and device.index is None
+            and "LOCAL_RANK" in os.environ):
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    return device
 
 
 @contextlib.contextmanager

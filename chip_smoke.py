@@ -211,10 +211,30 @@ Phases, each printing one or more lines:
    pointed at (a)'s layout (its camera, a 4-pixel crop), reading the
    gate's refined-mask and registration caches (no registration), for
    CLI_ITERS steps with a checkpoint at the end, its stage seconds and
-   metrics file.
+   metrics file;
+17. the parallel layer (`catnerf_torch/parallel/`): (a) world size 1 on
+   NCCL in this process, a 1 x 1 mesh: `make_sharded_superstep` (the
+   session shards only a mesh of more than one process) as a CUDA graph
+   with its collectives captured, for the fused trainer and `Config()`,
+   PAR_STEPS steps bitwise equal to the unsharded run_fast from the same
+   state and draws (metrics, every parameter and AdamW tensor), kernels
+   1-4 once a step (fused), the all-reduces captured a step (NCCL
+   launches no kernel for an in-place all-reduce over one rank), the
+   graph's nodes beside run_fast's, and sharded and unsharded steps/s in
+   turns; (b) two ranks spawned on the one card over gloo (NCCL takes
+   one rank a device): the fused trainer at 1 x 2 and 2 x 1 on the bench
+   scene, PAR_EAGER eager steps from the same state and draws as an
+   unsharded eager session, held by tests/test_torch_parallel.py's rule
+   (the first step's metrics within PAR_METRIC_RTOL, the parameters after
+   it within rtol 5e-3 / atol 2e-4 and a mean |diff| under 2e-5), the
+   background bitwise on both ranks, kernels 1-4 once a step on each;
+   (c) the same ranks restore phase 10's checkpoint, mesh it at grid
+   E2E_GRID over both (every `.obj` file byte-identical to phase 10's)
+   and render one SERVE_VIEW scene composite sharded (pixel-identical to
+   the unsharded one).
 
-Each main path (5, 7, 8, 9, 10, 11, 13, 14, 15, 16) is driven with the launch
-counts set to 0 just before it and read just after. Then a
+Each main path (5, 7, 8, 9, 10, 11, 13, 14, 15, 16, 17) is driven with
+the launch counts set to 0 just before it and read just after. Then a
 `{"kernels": [...]}` line, the card line again, and as the last line
 `{"ok": true, "device": {...}}`. Exits non-zero, with no result, when
 there is no CUDA device, when the port cannot be imported, or when any
@@ -362,6 +382,14 @@ FIT_TIMED = 200
 FIT_CMP = 10
 FIT_CHECK_STEPS = 20
 INGEST_STEPS = 600
+# phase 17, the parallel layer: (a) steps held bitwise and steps of each
+# timed run; (b) eager steps of each layout, the first step's metrics
+# bound against the unsharded step (the CPU test's: the sums over rays
+# split between ranks)
+PAR_STEPS = 20
+PAR_TIMED = 50
+PAR_EAGER = 3
+PAR_METRIC_RTOL = 1e-6
 # torch.cuda.set_sync_debug_mode while run_fast runs: the steps must not
 # wait on the device, so that the host queues ahead of it
 SYNC_DEBUG = "error"
@@ -2976,6 +3004,315 @@ def scannet_phase() -> None:
         raise AssertionError(failure)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the parallel layer (catnerf_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _state_snapshot(state, metrics) -> dict:
+    torch.cuda.synchronize()
+    return {"metrics": {k: v.cpu() for k, v in metrics._asdict().items()},
+            "state": state_tensors(state)}
+
+
+def nccl_in_graph(step, n_replays: int = 2) -> tuple[int, int]:
+    """(NCCL activities, device activities) a replay of the captured
+    sharded step, under torch.profiler (acc_events: both replays)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(n_replays):
+            step()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return (sum("nccl" in n.lower() for n in names) // n_replays,
+            len(names) // n_replays)
+
+
+def parallel_one_rank(scene) -> None:
+    """Phase 17 (a): world size 1 on NCCL, a 1 x 1 mesh, in this process.
+    For the fused trainer and `Config()`, the sharded superstep
+    (`make_sharded_superstep`, called directly: the session shards only
+    a mesh of more than one process, as the JAX package's) as a CUDA graph
+    with its collectives inside, from the same state and draws as the
+    unsharded run_fast: PAR_STEPS steps bitwise equal (metrics, every
+    parameter, every AdamW tensor); kernels 1-4 once a step (fused); the
+    graph's nodes and its NCCL kernels a replay; then sharded and
+    unsharded steps/s in turns (PAR_TIMED steps a run)."""
+    from catnerf_torch.kernels import fused_field as ff
+    from catnerf_torch.parallel import mesh as pm, sharding
+    from catnerf_torch.train.graph import N_WARMUP
+    from catnerf_torch.train.loop import TrainingSession
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.time()
+    pm.init_distributed("cuda", init_method=f"tcp://127.0.0.1:"
+                        f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = pm.make_mesh(1, 1)
+        log(f"parallel: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}"
+            f", process group and 1 x 1 mesh in {time.time() - t0:.2f} s")
+        for what, cfg in (("fused", fused_config()),
+                          ("default (bf16)", default_config())):
+            ref = fast_session(scene, cfg, graph=True)
+            ff.reset_launch_counts()
+            want = _state_snapshot(ref.state, ref.run_fast(PAR_STEPS))
+            sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
+                                   cam=scene.cam)
+            shard = sharding.shard_plan(mesh, len(sess.cls_ids))
+            sess.state = sharding.shard_state(sess.state, cfg, shard)
+            sup = sharding.make_sharded_superstep(
+                cfg, sess.obj_mask, shard, sess.state, sess.categories,
+                sess.background, sess.n_per_cls, cfg.n_per_optim_bg,
+                N_INNER, graph=True, window=True)
+            ff.reset_launch_counts()
+            with pm.tally_collectives() as tally:
+                got = _state_snapshot(sess.state,
+                                      sup(sess.draw_gen, PAR_STEPS))
+            launches = dict(ff.LAUNCHES)
+            # the warm-up steps and the capture call the collectives; the
+            # replays issue what the capture recorded
+            per_step = len(tally) / (N_WARMUP + 1)
+            if not (all(torch.equal(got["metrics"][k], v)
+                        for k, v in want["metrics"].items())
+                    and tensors_equal(got["state"], want["state"])):
+                raise AssertionError(f"parallel: {what}: the 1 x 1 sharded "
+                                     f"superstep differs from run_fast")
+            kernels = FUSED_KERNELS if cfg.use_fused_kernels else ()
+            expect = {k: PAR_STEPS if k in kernels else 0 for k in launches}
+            if launches != expect:
+                raise AssertionError(f"parallel: {what}: launches "
+                                     f"{launches}, want {expect}")
+            step = sup.captured["generator"]
+            nccl, acts = nccl_in_graph(lambda: sup(sess.draw_gen, 1))
+            log(f"parallel: {what}: 1 x 1 on NCCL, {PAR_STEPS} steps of "
+                f"the sharded superstep as a CUDA graph bitwise equal to "
+                f"run_fast (metrics, {len(want['state'])} parameter and "
+                f"AdamW tensors); launches {json.dumps(launches)}; "
+                f"{per_step:g} NCCL all-reduces captured a step "
+                f"({sum(b for *_, b, _ in tally) / len(tally) * per_step:.0f}"
+                f" bytes); graph nodes {step.node_count()} (run_fast's "
+                f"{ref._superstep.captured['generator'].node_count()}); a "
+                f"replay: {nccl} NCCL kernels of {acts} device activities "
+                f"(NCCL launches none for an in-place all-reduce over one "
+                f"rank)")
+            if per_step != 4 or step.graph is None:
+                raise AssertionError(f"parallel: {what}: {per_step} "
+                                     f"collectives captured a step, want 4")
+            rates = {"unsharded": [], "sharded": []}
+            for kind in ("unsharded", "sharded", "sharded", "unsharded"):
+                run = ((lambda: ref.run_fast(PAR_TIMED)) if kind == "unsharded"
+                       else (lambda: sup(sess.draw_gen, PAR_TIMED)))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                float(run().total)
+                rates[kind].append(PAR_TIMED / (time.perf_counter() - t1))
+            log(f"parallel: {what}: steps/s in turns, {PAR_TIMED} steps a "
+                f"run: unsharded " + ", ".join(
+                    f"{r:.2f}" for r in rates["unsharded"]) + "; sharded 1 x "
+                "1 " + ", ".join(f"{r:.2f}" for r in rates["sharded"]))
+            del ref, sess, sup
+    finally:
+        pm.shutdown()
+
+
+def _rel(got, want) -> float:
+    return float(((got.double() - want.double()).abs()
+                  / want.double().abs().clamp_min(1e-12)).max())
+
+
+def _par_rank(rank: int, world: int, tmp: str, ckpt_path: str,
+              mesh_ref: str) -> None:
+    """Phase 17 (b) and (c) on one rank of two on the one card (gloo:
+    NCCL takes one rank a device); writes its report to
+    <tmp>/rank<rank>.json."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    from catnerf_torch.data.synthetic import make_scene
+    from catnerf_torch.experimental import e2e_quality as e2e
+    from catnerf_torch.kernels import fused_field as ff
+    from catnerf_torch.mesher import meshing
+    from catnerf_torch.parallel import mesh as pm, sharding
+    from catnerf_torch.render_views import (default_orbit_cam,
+                                            render_scene_view, scene_far)
+    from catnerf_torch.train import checkpoint as ckpt
+    from catnerf_torch.train.loop import TrainingSession
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ff.load_libraries()
+    t0 = time.time()
+    pm.init_distributed("cuda:0", backend="gloo",
+                        init_method=f"file://{tmp}/store", world_size=world,
+                        rank=rank)
+    report = {"ready_s": time.time() - t0}
+    try:
+        scene = make_scene(**SCENE)
+        cfg = fused_config()
+        # (b) the unsharded eager reference, then 1 x 2 and 2 x 1
+        t0 = time.time()
+        ref = fast_session(scene, cfg, graph=False)
+        first = _state_snapshot(ref.state, ref.run_fast(1))
+        del ref
+        report["ref_s"] = time.time() - t0
+        for shape in ((1, 2), (2, 1)):
+            t0 = time.time()
+            mesh = pm.make_mesh(*shape)
+            sess = TrainingSession(cfg, scene.inst_dict, scene.sample_dict,
+                                   cam=scene.cam)
+            sess.enable_fast_path(N_INNER, graph=False, device_mesh=mesh)
+            ff.reset_launch_counts()
+            m1 = sess.run_fast(1)
+            metrics = {k: v.cpu() for k, v in m1._asdict().items()}
+            whole = sharding.gather_state_dict(sess.state, sess.shard)
+            params = {k: v.cpu() for k, v in whole["params"].items()}
+            mN = sess.run_fast(PAR_EAGER - 1)
+            launches = dict(ff.LAUNCHES)
+            bg = {k: v.cpu() for k, v in sess.state.params.state_dict().items()
+                  if not sharding.is_stacked(k)}
+            everyone = pm.all_gather_objects(bg)
+            rec = {"s": time.time() - t0, "launches": launches,
+                   "finite": math.isfinite(float(mN.total)),
+                   "bg_equal": all(torch.equal(a[k], everyone[0][k])
+                                   for a in everyone for k in a)}
+            rec["metric_rel"] = max(_rel(metrics[k], first["metrics"][k])
+                                    for k in metrics)
+            diffs = []
+            for k, v in params.items():
+                w = first["state"][f"param/{k}"].double()
+                d = (v.double() - w).abs()
+                diffs.append((bool((d <= 2e-4 + 5e-3 * w.abs()).all()),
+                              float(d.max()), float(d.mean())))
+            rec["param_within"] = all(x[0] for x in diffs)
+            rec["param_max"] = max(x[1] for x in diffs)
+            rec["param_mean"] = max(x[2] for x in diffs)
+            report[f"{shape[0]}x{shape[1]}"] = rec
+            del sess
+        # (c) phase 10's checkpoint meshed and rendered, sharded
+        t0 = time.time()
+        escene, esess = e2e.make_session(grid_dim=E2E_GRID)
+        ckpt.restore_session_checkpoint(ckpt_path, esess)
+        mesh = pm.make_mesh()
+        report["restore_s"] = time.time() - t0
+        t0 = time.time()
+        out_dir = os.path.join(tmp, "mesh")
+        written = meshing.mesh_scene(esess, out_dir, esess.iteration,
+                                     device_mesh=mesh)
+        report["mesh_s"] = time.time() - t0
+        if rank == 0:
+            same = {}
+            for obj_id, path in written.items():
+                ref_path = os.path.join(mesh_ref, os.path.basename(path))
+                with open(path, "rb") as a, open(ref_path, "rb") as b:
+                    same[obj_id] = a.read() == b.read()
+            report["meshes"] = same
+            report["ref_files"] = len([f for f in os.listdir(mesh_ref)
+                                       if f.startswith(
+                                           f"iteration_{esess.iteration}_")])
+        w, h, bins = SERVE_VIEW
+        cam = default_orbit_cam(w, h)
+        T = np.asarray(escene.sample_dict[sorted(escene.sample_dict)[0]]
+                       ["T"], np.float32)
+        kw = dict(near=0.05, far=scene_far(esess), n_bins=bins)
+        render_scene_view(esess, T, cam, **kw)  # first-call costs
+        t0 = time.time()
+        many = render_scene_view(esess, T, cam, device_mesh=mesh, **kw)
+        report["render_sharded_s"] = time.time() - t0
+        t0 = time.time()
+        one = render_scene_view(esess, T, cam, **kw)
+        report["render_s"] = time.time() - t0
+        report["render_equal"] = [bool(np.array_equal(a, b))
+                                  for a, b in zip(one, many)]
+    finally:
+        pm.shutdown()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def parallel_phase(scene) -> None:
+    """Phase 17: (a) in this process (parallel_one_rank); (b) and (c) on
+    two ranks spawned on the one card over gloo (_par_rank): the fused
+    trainer at 1 x 2 and 2 x 1 from the same state and draws as an
+    unsharded eager session, its first step's metrics within
+    PAR_METRIC_RTOL relative and its parameters after it within the JAX
+    package's rule (rtol 5e-3, atol 2e-4, mean |diff| under 2e-5), PAR_EAGER
+    eager steps finite, kernels 1-4 once a step on each rank, the
+    background bitwise equal on every rank; phase 10's checkpoint meshed
+    at grid E2E_GRID with the mesh over both ranks, its .obj files
+    byte-identical to phase 10's, and one SERVE_VIEW scene composite
+    sharded, pixel-identical to the unsharded one."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from catnerf_torch.train.checkpoint import latest_checkpoint
+
+    t0 = time.time()
+    parallel_one_rank(scene)
+    t_a = time.time() - t0
+    ckpt_path = latest_checkpoint(os.path.join(ROOT, "chiprun_out",
+                                               "e2e_ckpt"))
+    mesh_ref = os.path.join(ROOT, "build", "e2e_mesh")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="parallel_", dir=os.path.join(ROOT,
+                                                                "build"))
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.time()
+    mp.spawn(_par_rank, args=(2, tmp, ckpt_path, mesh_ref), nprocs=2,
+             join=True)
+    t_bc = time.time() - t0
+    reports = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    expect = {k: PAR_EAGER for k in FUSED_KERNELS}
+    for shape in ("1x2", "2x1"):
+        for r, rep in enumerate(reports):
+            rec = rep[shape]
+            got = {k: rec["launches"][k] for k in FUSED_KERNELS}
+            log(f"parallel: {shape} over gloo, rank {r}: first step's "
+                f"metrics {rec['metric_rel']:.2e} relative from the "
+                f"unsharded eager step's, parameters after it max |diff| "
+                f"{rec['param_max']:.2e}, mean {rec['param_mean']:.2e} "
+                f"(within the bound: {rec['param_within']}); {PAR_EAGER} "
+                f"steps finite {rec['finite']}; background bitwise on both "
+                f"ranks {rec['bg_equal']}; launches {json.dumps(got)}; "
+                f"{rec['s']:.1f} s")
+            if not (rec["metric_rel"] <= PAR_METRIC_RTOL
+                    and rec["param_within"] and rec["param_mean"] < 2e-5
+                    and rec["finite"] and rec["bg_equal"] and got == expect):
+                raise AssertionError(f"parallel: {shape}, rank {r}: "
+                                     f"{json.dumps(rec)}")
+    rep = reports[0]
+    log(f"parallel: two ranks ready in {rep['ready_s']:.1f} s; phase 10's "
+        f"checkpoint restored in {rep['restore_s']:.1f} s; meshed over both "
+        f"ranks at grid {E2E_GRID} in {rep['mesh_s']:.1f} s: "
+        f"{sum(rep['meshes'].values())} of {len(rep['meshes'])} .obj files "
+        f"byte-identical to phase 10's ({rep['ref_files']} there); the "
+        f"{SERVE_VIEW[0]} x {SERVE_VIEW[1]} x {SERVE_VIEW[2]} scene "
+        f"composite sharded {rep['render_sharded_s']:.2f} s, unsharded "
+        f"{rep['render_s']:.2f} s, rgb/depth/alpha identical "
+        f"{[r['render_equal'] for r in reports]}")
+    if not (rep["meshes"] and all(rep["meshes"].values())
+            and len(rep["meshes"]) == rep["ref_files"]
+            and all(all(r["render_equal"]) for r in reports)):
+        raise AssertionError("parallel: the sharded meshes or render differ "
+                             "from the unsharded ones")
+    log(f"parallel: phase 17 by part (s): (a) {t_a:.1f}, (b)+(c) "
+        f"{t_bc:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3073,6 +3410,9 @@ def main() -> int:
     t0 = time.time()
     scannet_phase()
     log(f"scannet: phase 16 in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    parallel_phase(scene)
+    log(f"parallel: phase 17 in {time.time() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if not r["launches"] > 0:

@@ -652,6 +652,13 @@ def test_trace_writes_a_profiler_trace_of_the_first_run(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--train-sharded"], ["--mesh-sharded"]])
-def test_the_sharded_flags_raise_naming_their_item(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4g"):
-        main(["--synthetic", *flag, "--device", "cpu"])
+def test_the_sharded_flags_raise_naming_their_item(flag, tmp_path, capsys):
+    """The sharding flags raised until parallel/ existed (ROADMAP.md item
+    4g, done); in one process (no torchrun) each now runs unsharded and
+    says so, as train.py does with one device. Under torchrun:
+    tests/test_torch_parallel.py."""
+    assert main(["--synthetic", *flag, "--device", "cpu", "--logdir",
+                 str(tmp_path), "--max-iter", "1", "--log-iter", "2",
+                 "--save-iter", "2", "--mesh-it", "2"]) == 0
+    assert (f"{flag[0]}: single device visible, running unsharded"
+            in capsys.readouterr().err)

@@ -71,7 +71,9 @@ def test_importing_every_module_loads_no_jax():
     "catnerf_torch.experimental.fit_check", "catnerf_torch.train.packing",
     "catnerf_torch.metrics.eval_obj", "catnerf_torch.metrics.eval_scene",
     "catnerf_torch.data.jpeg", "catnerf_torch.data.transforms",
-    "catnerf_torch.data.scannet", "catnerf_torch.geometry.segmentation"])
+    "catnerf_torch.data.scannet", "catnerf_torch.geometry.segmentation",
+    "catnerf_torch.parallel.mesh", "catnerf_torch.parallel.sharding",
+    "catnerf_torch.parallel.grid_eval"])
 def test_packed_and_xla_path_modules_load_no_jax(module):
     """Each module of the packed kernels, the XLA-path fields, the kernel
     comparison, the geometry library, the mesher, the metrics, the
@@ -124,7 +126,10 @@ def test_source_walk_covers_the_new_modules():
             "catnerf_torch/experimental/fit_check.py",
             "catnerf_torch/train/packing.py",
             "catnerf_torch/metrics/eval_obj.py",
-            "catnerf_torch/metrics/eval_scene.py"} <= names
+            "catnerf_torch/metrics/eval_scene.py",
+            "catnerf_torch/parallel/mesh.py",
+            "catnerf_torch/parallel/sharding.py",
+            "catnerf_torch/parallel/grid_eval.py"} <= names
 
 
 @pytest.mark.parametrize("entry", ["catnerf_torch.metrics.eval_obj",
@@ -206,6 +211,18 @@ def test_source_imports_nothing_of_jax(path):
                     and isinstance(arg.value, str) and _forbidden(arg.value)):
                 bad.append(arg.value)
     assert bad == []
+
+
+def test_a_spawned_rank_loads_no_jax(tmp_path):
+    """A rank spawned as tests/test_torch_parallel.py spawns them, joined
+    over gloo, after importing every module of catnerf_torch.parallel,
+    has loaded neither jax nor the JAX package, nor OpenCV or PIL."""
+    from torch_parallel_ranks import launch
+
+    (loaded,) = launch("loaded_modules", 1, str(tmp_path))
+    assert "catnerf_torch.parallel.sharding" in loaded
+    assert "torch.distributed" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
 
 
 def test_session_without_device_raises_when_there_is_no_gpu(monkeypatch):

@@ -311,14 +311,21 @@ def test_render_session_orbits_writes_the_jax_packages_files(pair, tmp_path):
             assert diff.max() <= 1, (name + suffix, diff.max())
 
 
-def test_a_sharded_render_raises_and_names_its_item(pair):
+def test_a_sharded_render_raises_and_names_its_item(pair, capsys):
+    """Sharded renders raised until parallel/ existed (ROADMAP.md item 4g,
+    done; tests/test_torch_parallel.py renders sharded): a device_mesh
+    that is no DeviceMesh raises naming it, and `--scene --sharded` in one
+    process runs unsharded and says so (here it then stops: no
+    checkpoint)."""
     tsess, _ = pair
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         rv.render_scene_view(tsess, np.eye(4), CAM, near=0.1, far=1.0,
                              device_mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(SystemExit, match="no checkpoint"):
         rv.main(["--logdir", "unused", "--synthetic", "--scene",
                  "--sharded", "--device", "cpu"])
+    assert ("--sharded: single device visible, running unsharded"
+            in capsys.readouterr().err)
 
 
 def test_renders_take_inference_mode_in_any_thread(pair, monkeypatch):
