@@ -47,27 +47,29 @@ constexpr int P = r1_b + 3;  // 13,892
 constexpr int PP = P + kBSize;  // partial row: params then dB
 }  // namespace cn
 
-namespace oc {
-constexpr int H = 128;
-constexpr int in_w = 0;
-constexpr int m1_w = in_w + kE1 * H;
-constexpr int c_w = m1_w + H * H;
-constexpr int m2_w = c_w + (H + kE1) * H;
-constexpr int oa_w = m2_w + H * H;
-constexpr int cl_w = oa_w + H;
-constexpr int oc_w = cl_w + (H + kE2) * H;
-constexpr int in_b = oc_w + H * 3;
-constexpr int m1_b = in_b + H;
-constexpr int c_b = m1_b + H;
-constexpr int m2_b = c_b + H;
-constexpr int oa_b = m2_b + H;
-constexpr int cl_b = oa_b + 1;
-constexpr int oc_b = cl_b + H;
-constexpr int P = oc_b + 3;  // 94,340
-constexpr int PP = P + kBSize;
-}  // namespace oc
+// The OccupancyMap's at hidden width H (occupancy.cu instantiates 32, 64,
+// 128 and 256).
+template <int H>
+struct OcLayout {
+  static constexpr int in_w = 0;
+  static constexpr int m1_w = in_w + kE1 * H;
+  static constexpr int c_w = m1_w + H * H;
+  static constexpr int m2_w = c_w + (H + kE1) * H;
+  static constexpr int oa_w = m2_w + H * H;
+  static constexpr int cl_w = oa_w + H;
+  static constexpr int oc_w = cl_w + (H + kE2) * H;
+  static constexpr int in_b = oc_w + H * 3;
+  static constexpr int m1_b = in_b + H;
+  static constexpr int c_b = m1_b + H;
+  static constexpr int m2_b = c_b + H;
+  static constexpr int oa_b = m2_b + H;
+  static constexpr int cl_b = oa_b + 1;
+  static constexpr int oc_b = cl_b + H;
+  static constexpr int P = oc_b + 3;  // 94,340 at H = 128
+  static constexpr int PP = P + kBSize;
+};
 
-static_assert(cn::P == 13892 && oc::P == 94340, "layout");
+static_assert(cn::P == 13892 && OcLayout<128>::P == 94340, "layout");
 
 // ---------------------------------------------------------------------------
 // Per-thread building blocks

@@ -1,6 +1,8 @@
 // The OccupancyMap background, forward and backward, for Hopper (sm_90a),
 // float32 throughout, as chains of tiled GEMMs (gemm_f32.cuh) and row
-// kernels.
+// kernels, at hidden width H = 32, 64, 128 or 256 (the Python wrapper runs
+// any other width up to 256 through the next one, its extra units' weights
+// and biases zero).
 //
 // Replaces the Pallas TPU kernels of catnerf_tpu/experimental/fused_field.py
 //   oc_fwd <- _occ_fwd_kernel (:435, _make_occ_fused.fwd_call :568): the PE
@@ -9,15 +11,16 @@
 //             the forward, then the hand-derived backward: dpts [N,3], the
 //             basis gradient dB [21,3] and dW/db of the seven layers.
 //
-// What bounds them on an H100 is the operations: 93,696 multiply-adds a
-// row forward, 3 x that backward (forward recompute, input gradients,
-// weight gradients), ~9.4 GFLOP at 16,800 rows, against 377 KB of weights.
-// Nearly all of it is five products of [rows, 87..215] by [87..215, 128]
-// (forward), their five transposes and five weight-gradient products
-// (backward), so:
+// What bounds them on an H100 is the operations: at H = 128, 93,696
+// multiply-adds a row forward, 3 x that backward (forward recompute, input
+// gradients, weight gradients), ~9.4 GFLOP at 16,800 rows, against 377 KB
+// of weights. Nearly all of it is five products of [rows, 87..H+87] by
+// [87..H+87, H] (forward), their five transposes and five weight-gradient
+// products (backward), so:
 //   * the GEMM block at its 128 x 128 tile (256 threads, an 8 x 8 register
-//     tile each); leading dimensions are parameters, so the concatenated
-//     layer inputs [r1 | emb1] and [r3 | emb2] need no copies;
+//     tile each), or at H = 32 its 128 x 32 tile (128 threads); leading
+//     dimensions are parameters, so the concatenated layer inputs
+//     [r1 | emb1] and [r3 | emb2] need no copies;
 //   * NN bias + ReLU for the forward layers; NT with the mask epilogue
 //     (D [r > 0], the first after a rank-1 term u v^T) for the input
 //     gradients; TN over kChunks row chunks for the weight gradients;
@@ -27,29 +30,46 @@
 // Every sum runs in a fixed order and no atomics are used: the weight
 // gradients are per-chunk partials that reduce_tiles adds in order, so two
 // runs are bitwise equal. The activations and deltas live in a workspace
-// the caller allocates (rows rounded up to 4; kWsCols floats a row for the
-// backward, the first kFwdSlots buffers, kFwdWsCols floats, for the
-// forward).
+// the caller allocates (rows rounded up to 4; Occ<H>::kWsCols floats a row
+// for the backward, the first kFwdSlots buffers, Occ<H>::kFwdWsCols floats,
+// for the forward).
 //
 // oc_fwd and oc_bwd launch everything on the caller's stream, allocate
-// nothing and return the first non-zero cudaGetLastError(); oc_gemm
-// launches the GEMM block alone.
+// nothing and return the first non-zero cudaGetLastError() (or
+// cudaErrorInvalidValue for a width not instantiated); oc_gemm launches the
+// 128-wide GEMM block alone.
 
 #include "field_common.cuh"
 #include "gemm_f32.cuh"
 
 namespace {
 
-constexpr int kThreads = GemmShape<128>::kThreads;
 constexpr int kChunks = 32;  // row chunks of the weight gradients (partials)
+
+// The widths of one instantiation: its GEMM tile, its concatenated layer
+// inputs and its workspace.
+template <int H>
+struct Occ {
+  static_assert(H % 32 == 0 && H <= 256, "hidden width");
+  using L = OcLayout<H>;
+  static constexpr int BN = H == 32 ? 32 : 128;  // the GEMM tile's width
+  static constexpr int kThreads = GemmShape<BN>::kThreads;
+  static constexpr int kPer = H / 32;  // a head lane's columns
+  static constexpr int kC = H + kE1;   // [r1 | emb1], the cat layer's input
+  static constexpr int kCl = H + kE2;  // [r3 | emb2], the colour layer's
+  static constexpr int kWsCols =
+      kC + kCl + 3 * H + H + kCl + H + kC + H + kDirs + 3 + 1;
+  static constexpr int kFwdWsCols = kC + kCl + 3 * H;
+  // the narrow kernel's block: a thread a column, at least the 63 of dB
+  static constexpr int kNarrowThreads = H < 64 ? 64 : H;
+};
+static_assert(Occ<128>::kWsCols == 1563, "workspace");
+static_assert(Occ<128>::kFwdWsCols == 769, "forward workspace");
+constexpr int kFwdSlots = 5;  // xc, xcl, r0, r2, r4
 
 // ---------------------------------------------------------------------------
 // The backward's workspace and its row kernels
 // ---------------------------------------------------------------------------
-
-constexpr int H = oc::H;
-constexpr int kC = H + kE1;   // 215: [r1 | emb1], the cat layer's input
-constexpr int kCl = H + kE2;  // 170: [r3 | emb2], the colour layer's input
 
 // Every buffer [Np, cols] row-major, Np = N rounded up to 4 (so each
 // buffer starts 16-byte aligned).
@@ -69,18 +89,15 @@ struct Buffers {
   float* dalpha;  // [N]
 };
 
-constexpr int kWsCols = kC + kCl + 3 * H + H + kCl + H + kC + H + kDirs + 3 + 1;
-static_assert(kWsCols == 1563, "workspace");
-constexpr int kFwdSlots = 5;  // xc, xcl, r0, r2, r4
-constexpr int kFwdWsCols = kC + kCl + 3 * H;
-static_assert(kFwdWsCols == 769, "forward workspace");
-
 // The first `slots` buffers of the workspace; the others are null.
+template <int H>
 Buffers carve(float* ws, int Np, int slots = 13) {
+  using O = Occ<H>;
   Buffers w;
   float** ptrs[] = {&w.xc, &w.xcl, &w.r0, &w.r2, &w.r4, &w.d4, &w.dcl,
                     &w.d2, &w.dc, &w.d0, &w.proj, &w.da5, &w.dalpha};
-  const int cols[] = {kC, kCl, H, H, H, H, kCl, H, kC, H, kDirs, 3, 1};
+  const int cols[] = {O::kC, O::kCl, H, H, H, H, O::kCl, H, O::kC, H, kDirs,
+                      3, 1};
   size_t off = 0;
   for (int i = 0; i < 13; ++i) {
     *ptrs[i] = i < slots ? ws + off : nullptr;
@@ -89,47 +106,89 @@ Buffers carve(float* ws, int Np, int slots = 13) {
   return w;
 }
 
+// Columns lane * K .. lane * K + K - 1 of a row (float4 loads and stores
+// where K allows).
+template <int K>
+__device__ __forceinline__ void load_cols(const float* row, int lane,
+                                          float* x) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < K / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(row)[lane * (K / 4) +
+                                                            q];
+      x[4 * q] = v.x;
+      x[4 * q + 1] = v.y;
+      x[4 * q + 2] = v.z;
+      x[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q) x[q] = row[lane * K + q];
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void store_cols(float* row, int lane,
+                                           const float* x) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < K / 4; ++q)
+      reinterpret_cast<float4*>(row)[lane * (K / 4) + q] = make_float4(
+          x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q) row[lane * K + q] = x[q];
+  }
+}
+
 // One thread a row: the PE (embed) into the tails of xc and xcl, and proj
 // (when the workspace has it: the backward's).
+template <int H>
 __global__ void embed_rows(const float* __restrict__ pts,
                            const float* __restrict__ B, Buffers w, int N,
                            float inv_scale) {
+  using O = Occ<H>;
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= N) return;
   const size_t r = row;
   float p[3], t[3], proj[kDirs];
   load_row<3>(pts + r * 3, true, p);
-  embed(p, B, inv_scale, t, proj, w.xc + r * kC + H, w.xcl + r * kCl + H);
+  embed(p, B, inv_scale, t, proj, w.xc + r * O::kC + H,
+        w.xcl + r * O::kCl + H);
   if (w.proj != nullptr)
     for (int k = 0; k < kDirs; ++k) w.proj[r * kDirs + k] = proj[k];
 }
 
 // The forward's head, one warp a row: alpha = 10 (r3 w_oa + b_oa), r3 the
-// first H columns of xcl (lane l on columns l + 32q: the rows are 170
+// first H columns of xcl (lane l on columns l + 32q: the rows are H + 42
 // floats, not 16-byte aligned), and rgb = sigmoid(r4 W_oc + b_oc) (lane l
-// on columns 4l..4l+3); each sum a fixed butterfly, so every lane holds
-// the same bits, and lane 0 writes out [N, 4].
+// on columns kPer l .. kPer l + kPer - 1); each sum a fixed butterfly, so
+// every lane holds the same bits, and lane 0 writes out [N, 4].
+template <int H>
 __global__ void __launch_bounds__(256)
     fwd_head_rows(const float* __restrict__ prm, Buffers w,
                   float* __restrict__ out, int N) {
+  using O = Occ<H>;
+  using L = typename O::L;
+  constexpr int K = O::kPer;
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= N) return;  // the whole warp
   const size_t r = row;
-  const float* Woc = prm + oc::oc_w;  // [H, 3]
-  const float* x3 = w.xcl + r * kCl;
+  const float* Woc = prm + L::oc_w;  // [H, 3]
+  const float* x3 = w.xcl + r * O::kCl;
   float al = 0.f;
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-    al = fmaf(x3[lane + 32 * q], prm[oc::oa_w + lane + 32 * q], al);
-  const float4 x4 = reinterpret_cast<const float4*>(w.r4 + r * H)[lane];
-  const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+  for (int q = 0; q < K; ++q)
+    al = fmaf(x3[lane + 32 * q], prm[L::oa_w + lane + 32 * q], al);
+  float x[K];
+  load_cols<K>(w.r4 + r * H, lane, x);
   float a[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
+  for (int q = 0; q < K; ++q)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      a[j] = fmaf(x[q], Woc[(lane * 4 + q) * 3 + j], a[j]);
+      a[j] = fmaf(x[q], Woc[(lane * K + q) * 3 + j], a[j]);
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) {
     al += __shfl_xor_sync(0xffffffffu, al, off);
@@ -139,31 +198,35 @@ __global__ void __launch_bounds__(256)
   }
   if (lane == 0)
     reinterpret_cast<float4*>(out)[r] =
-        make_float4((al + prm[oc::oa_b]) * 10.f,
-                    sigmoidf(a[0] + prm[oc::oc_b]),
-                    sigmoidf(a[1] + prm[oc::oc_b + 1]),
-                    sigmoidf(a[2] + prm[oc::oc_b + 2]));
+        make_float4((al + prm[L::oa_b]) * 10.f,
+                    sigmoidf(a[0] + prm[L::oc_b]),
+                    sigmoidf(a[1] + prm[L::oc_b + 1]),
+                    sigmoidf(a[2] + prm[L::oc_b + 2]));
 }
 
-// One warp a row, lane l on columns 4l..4l+3: a5 = r4 W_oc + b (a fixed
-// butterfly, so every lane holds the same sum), da5 = dout[1:4] s(1 - s),
-// dalpha = 10 dout[0], delta4 = (da5 W_oc^T) [r4 > 0].
+// One warp a row, lane l on columns kPer l .. kPer l + kPer - 1: a5 = r4
+// W_oc + b (a fixed butterfly, so every lane holds the same sum), da5 =
+// dout[1:4] s(1 - s), dalpha = 10 dout[0], delta4 = (da5 W_oc^T) [r4 > 0].
+template <int H>
 __global__ void __launch_bounds__(256)
     head_rows(const float* __restrict__ prm, const float* __restrict__ dout,
               Buffers w, int N) {
+  using O = Occ<H>;
+  using L = typename O::L;
+  constexpr int K = O::kPer;
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= N) return;  // the whole warp
   const size_t r = row;
-  const float* Woc = prm + oc::oc_w;  // [H, 3]
-  const float4 x4 = reinterpret_cast<const float4*>(w.r4 + r * H)[lane];
-  const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+  const float* Woc = prm + L::oc_w;  // [H, 3]
+  float x[K];
+  load_cols<K>(w.r4 + r * H, lane, x);
   float a[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
+  for (int q = 0; q < K; ++q)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      a[j] = fmaf(x[q], Woc[(lane * 4 + q) * 3 + j], a[j]);
+      a[j] = fmaf(x[q], Woc[(lane * K + q) * 3 + j], a[j]);
 #pragma unroll
   for (int off = 16; off > 0; off /= 2)
 #pragma unroll
@@ -174,20 +237,19 @@ __global__ void __launch_bounds__(256)
   float da5[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    const float col = sigmoidf(a[j] + prm[oc::oc_b + j]);
+    const float col = sigmoidf(a[j] + prm[L::oc_b + j]);
     da5[j] = dd[1 + j] * col * (1.f - col);
   }
-  float d[4];
+  float d[K];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float* wr = Woc + (lane * 4 + q) * 3;
+  for (int q = 0; q < K; ++q) {
+    const float* wr = Woc + (lane * K + q) * 3;
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < 3; ++j) s = fmaf(da5[j], wr[j], s);
     d[q] = x[q] > 0.f ? s : 0.f;
   }
-  reinterpret_cast<float4*>(w.d4 + r * H)[lane] =
-      make_float4(d[0], d[1], d[2], d[3]);
+  store_cols<K>(w.d4 + r * H, lane, d);
   if (lane == 0) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) w.da5[r * 3 + j] = da5[j];
@@ -197,76 +259,116 @@ __global__ void __launch_bounds__(256)
 
 // One thread a row: embed_bwd from demb1 (dc tail) and demb2 (dcl tail);
 // dproj replaces proj, dpts = dt * inv_scale.
+template <int H>
 __global__ void embed_bwd_rows(const float* __restrict__ B, Buffers w,
                                float* __restrict__ dpts, int N,
                                float inv_scale) {
+  using O = Occ<H>;
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= N) return;
   const size_t r = row;
   float proj[kDirs], dproj[kDirs], dt[3];
   for (int k = 0; k < kDirs; ++k) proj[k] = w.proj[r * kDirs + k];
-  embed_bwd(w.dc + r * kC + H, w.dcl + r * kCl + H, proj, B, dproj, dt);
+  embed_bwd(w.dc + r * O::kC + H, w.dcl + r * O::kCl + H, proj, B, dproj,
+            dt);
   for (int k = 0; k < kDirs; ++k) w.proj[r * kDirs + k] = dproj[k];
 #pragma unroll
   for (int j = 0; j < 3; ++j) dpts[r * 3 + j] = dt[j] * inv_scale;
 }
 
 // The weight gradients of the five wide layers, grouped: blockIdx.x picks
-// (layer, row tile of dW) among 7, blockIdx.y the row chunk s; the block
-// writes X[r0:r1]^T D[r0:r1] into partial[s] at the layer's offset.
-__global__ void __launch_bounds__(kThreads, 2)
+// (layer, row tile of dW, column tile of dW) among wgrad_jobs<H>(),
+// blockIdx.y the row chunk s; the block writes X[r0:r1]^T D[r0:r1] into
+// partial[s] at the layer's offset. Layers in, m1, c, m2, cl; dW [m, H]
+// with m = 87, H, H + 87, H, H + 42.
+template <int H>
+__host__ __device__ constexpr int wgrad_rows(int layer) {
+  return layer == 0 ? kE1 : layer == 2 ? H + kE1 : layer == 4 ? H + kE2 : H;
+}
+
+template <int H>
+__host__ __device__ constexpr int wgrad_col_tiles() {
+  return (H + Occ<H>::BN - 1) / Occ<H>::BN;
+}
+
+template <int H>
+__host__ __device__ constexpr int wgrad_jobs() {
+  int n = 0;
+  for (int layer = 0; layer < 5; ++layer)
+    n += (wgrad_rows<H>(layer) + kBM - 1) / kBM * wgrad_col_tiles<H>();
+  return n;
+}
+static_assert(wgrad_jobs<128>() == 7, "wgrad jobs");
+
+template <int H>
+__global__ void __launch_bounds__(Occ<H>::kThreads, 2)
     wgrad_kernel(Buffers w, float* __restrict__ partial, int N, int rows) {
+  using O = Occ<H>;
+  using L = typename O::L;
+  constexpr int kCols = wgrad_col_tiles<H>();
   const int s = blockIdx.y;
   int r0, r1;
   chunk_rows(N, rows, s, r0, r1);
+  int job = blockIdx.x;
+  int layer = 0;
+  for (; layer < 4; ++layer) {
+    const int n = (wgrad_rows<H>(layer) + kBM - 1) / kBM * kCols;
+    if (job < n) break;
+    job -= n;
+  }
+  const int m0 = job / kCols * kBM;
+  const int n0 = job % kCols * O::BN;
   const float* x;
   const float* d;
-  int ldx, ldd, m, off, m0 = 0;
-  switch (blockIdx.x) {
-    case 0: x = w.xc + H; ldx = kC; m = kE1; d = w.d0; ldd = H;
-            off = oc::in_w; break;
-    case 1: x = w.r0; ldx = H; m = H; d = w.dc; ldd = kC;
-            off = oc::m1_w; break;
-    case 2:
-    case 3: x = w.xc; ldx = kC; m = kC; d = w.d2; ldd = H; off = oc::c_w;
-            m0 = (blockIdx.x - 2) * kBM; break;
-    case 4: x = w.r2; ldx = H; m = H; d = w.dcl; ldd = kCl;
-            off = oc::m2_w; break;
-    default: x = w.xcl; ldx = kCl; m = kCl; d = w.d4; ldd = H;
-             off = oc::cl_w; m0 = (blockIdx.x - 5) * kBM; break;
+  int ldx, ldd, off;
+  switch (layer) {
+    case 0: x = w.xc + H; ldx = O::kC; d = w.d0; ldd = H; off = L::in_w;
+            break;
+    case 1: x = w.r0; ldx = H; d = w.dc; ldd = O::kC; off = L::m1_w; break;
+    case 2: x = w.xc; ldx = O::kC; d = w.d2; ldd = H; off = L::c_w; break;
+    case 3: x = w.r2; ldx = H; d = w.dcl; ldd = O::kCl; off = L::m2_w;
+            break;
+    default: x = w.xcl; ldx = O::kCl; d = w.d4; ldd = H; off = L::cl_w;
+             break;
   }
   const Gemm g = make_gemm(x + static_cast<size_t>(r0) * ldx, ldx,
                            d + static_cast<size_t>(r0) * ldd, ldd,
-                           partial + static_cast<size_t>(s) * oc::PP + off,
-                           H, m, H, r1 - r0);
-  gemm_tile<H, kTN, kMask>(g, m0, 0);  // no mask: a plain store
+                           partial + static_cast<size_t>(s) * L::PP + off,
+                           H, wgrad_rows<H>(layer), H, r1 - r0);
+  gemm_tile<O::BN, kTN, kMask>(g, m0, n0);  // no mask: a plain store
 }
-constexpr int kWgradTiles = 7;
 
 // The narrow gradients of chunk s (blockIdx.y), one job a block
 // (blockIdx.x), thread c on column c, the chunk's rows in order:
 // jobs 0-4 the biases of in, m1, c, m2, cl (column sums of their deltas),
 // 5 the alpha layer (r3 dalpha, sum dalpha), 6 the colour head (r4 da5,
-// sum da5), 7 dB = dproj^T t.
-__global__ void __launch_bounds__(H)
+// sum da5), 7 dB = dproj^T t. The block has max(H, 64) threads: one
+// column each, of H (jobs 0-6) or of dB's 63 (job 7).
+template <int H>
+__global__ void __launch_bounds__(Occ<H>::kNarrowThreads)
     narrow_kernel(const float* __restrict__ pts, Buffers w,
                   float* __restrict__ partial, int N, int rows,
                   float inv_scale) {
+  using O = Occ<H>;
+  using L = typename O::L;
   const int job = blockIdx.x;
   const int s = blockIdx.y;
   const int c = threadIdx.x;
+  if constexpr (O::kNarrowThreads > H) {
+    if (job < 7 && c >= H) return;
+  }
   int r0, r1;
   chunk_rows(N, rows, s, r0, r1);
-  float* part = partial + static_cast<size_t>(s) * oc::PP;
+  float* part = partial + static_cast<size_t>(s) * L::PP;
   if (job < 5) {
     const float* d;
     int ld, off;
     switch (job) {
-      case 0: d = w.d0; ld = H; off = oc::in_b; break;
-      case 1: d = w.dc; ld = kC; off = oc::m1_b; break;
-      case 2: d = w.d2; ld = H; off = oc::c_b; break;
-      case 3: d = w.dcl; ld = kCl; off = oc::m2_b; break;
-      default: d = w.d4; ld = H; off = oc::cl_b; break;
+      case 0: d = w.d0; ld = H; off = L::in_b; break;
+      case 1: d = w.dc; ld = O::kC; off = L::m1_b; break;
+      case 2: d = w.d2; ld = H; off = L::c_b; break;
+      case 3: d = w.dcl; ld = O::kCl; off = L::m2_b; break;
+      default: d = w.d4; ld = H; off = L::cl_b; break;
     }
     float acc = 0.f;
     for (int r = r0; r < r1; ++r) acc += d[static_cast<size_t>(r) * ld + c];
@@ -275,11 +377,11 @@ __global__ void __launch_bounds__(H)
     float acc = 0.f, sum = 0.f;
     for (int r = r0; r < r1; ++r) {
       const float da = w.dalpha[r];
-      acc = fmaf(w.xcl[static_cast<size_t>(r) * kCl + c], da, acc);
+      acc = fmaf(w.xcl[static_cast<size_t>(r) * O::kCl + c], da, acc);
       sum += da;
     }
-    part[oc::oa_w + c] = acc;
-    if (c == 0) part[oc::oa_b] = sum;
+    part[L::oa_w + c] = acc;
+    if (c == 0) part[L::oa_b] = sum;
   } else if (job == 6) {
     float acc[3] = {0.f, 0.f, 0.f}, sum[3] = {0.f, 0.f, 0.f};
     for (int r = r0; r < r1; ++r) {
@@ -292,10 +394,10 @@ __global__ void __launch_bounds__(H)
       }
     }
 #pragma unroll
-    for (int j = 0; j < 3; ++j) part[oc::oc_w + c * 3 + j] = acc[j];
+    for (int j = 0; j < 3; ++j) part[L::oc_w + c * 3 + j] = acc[j];
     if (c == 0)
 #pragma unroll
-      for (int j = 0; j < 3; ++j) part[oc::oc_b + j] = sum[j];
+      for (int j = 0; j < 3; ++j) part[L::oc_b + j] = sum[j];
   } else if (c < kBSize) {
     const int k = c / 3;
     const int j = c % 3;
@@ -303,21 +405,23 @@ __global__ void __launch_bounds__(H)
     for (int r = r0; r < r1; ++r)
       acc = fmaf(w.proj[static_cast<size_t>(r) * kDirs + k],
                  pts[static_cast<size_t>(r) * 3 + j] * inv_scale, acc);
-    part[oc::P + c] = acc;
+    part[L::P + c] = acc;
   }
 }
 constexpr int kNarrowJobs = 8;
 
 // relu(X W + b): X [N, K] at stride ldx, W [K, H], C [N, H] at stride ldc
+template <int H>
 int forward_layer(const float* X, int ldx, int K, const float* W,
                   const float* b, float* C, int ldc, int N, cudaStream_t s) {
   Gemm g = make_gemm(X, ldx, W, H, C, ldc, N, H, K);
   g.bias = b;
-  return launch_gemm<H, kNN, kBiasRelu>(g, s);
+  return launch_gemm<Occ<H>::BN, kNN, kBiasRelu>(g, s);
 }
 
 // (D W^T + u v^T) [mask > 0] on the first H columns, W [n, H] ([in, out]),
 // the other n - H columns as they are: D [N, H] at ldd, C [N, n] at ldc
+template <int H>
 int input_grad(const float* D, int ldd, const float* W, int n, float* C,
                int ldc, const float* mask, int ldm, const float* u,
                const float* v, int N, cudaStream_t s) {
@@ -327,7 +431,7 @@ int input_grad(const float* D, int ldd, const float* W, int n, float* C,
   g.mask_cols = H;
   g.u = u;
   g.v = v;
-  return launch_gemm<H, kNT, kMask>(g, s);
+  return launch_gemm<Occ<H>::BN, kNT, kMask>(g, s);
 }
 
 #define OC_TRY(call)       \
@@ -337,36 +441,107 @@ int input_grad(const float* D, int ldd, const float* W, int n, float* C,
 
 // The PE and the five wide layers (_occ_chain :409) into the workspace's
 // first five buffers: xc = [r1 | emb1], xcl = [r3 | emb2], r0, r2, r4.
+template <int H>
 int forward_chain(const float* pts, const float* prm, const float* B,
                   const Buffers& w, int N, float inv_scale, cudaStream_t s) {
+  using O = Occ<H>;
+  using L = typename O::L;
   int e;
-  embed_rows<<<(N + 127) / 128, 128, 0, s>>>(pts, B, w, N, inv_scale);
+  embed_rows<H><<<(N + 127) / 128, 128, 0, s>>>(pts, B, w, N, inv_scale);
   OC_TRY(static_cast<int>(cudaGetLastError()));
-  OC_TRY(forward_layer(w.xc + H, kC, kE1, prm + oc::in_w, prm + oc::in_b,
-                       w.r0, H, N, s));
-  OC_TRY(forward_layer(w.r0, H, H, prm + oc::m1_w, prm + oc::m1_b, w.xc, kC,
-                       N, s));
-  OC_TRY(forward_layer(w.xc, kC, kC, prm + oc::c_w, prm + oc::c_b, w.r2, H,
-                       N, s));
-  OC_TRY(forward_layer(w.r2, H, H, prm + oc::m2_w, prm + oc::m2_b, w.xcl,
-                       kCl, N, s));
-  return forward_layer(w.xcl, kCl, kCl, prm + oc::cl_w, prm + oc::cl_b, w.r4,
-                       H, N, s);
+  OC_TRY(forward_layer<H>(w.xc + H, O::kC, kE1, prm + L::in_w,
+                          prm + L::in_b, w.r0, H, N, s));
+  OC_TRY(forward_layer<H>(w.r0, H, H, prm + L::m1_w, prm + L::m1_b, w.xc,
+                          O::kC, N, s));
+  OC_TRY(forward_layer<H>(w.xc, O::kC, O::kC, prm + L::c_w, prm + L::c_b,
+                          w.r2, H, N, s));
+  OC_TRY(forward_layer<H>(w.r2, H, H, prm + L::m2_w, prm + L::m2_b, w.xcl,
+                          O::kCl, N, s));
+  return forward_layer<H>(w.xcl, O::kCl, O::kCl, prm + L::cl_w,
+                          prm + L::cl_b, w.r4, H, N, s);
+}
+
+template <int H>
+int run_fwd(const float* pts, const float* params, const float* B,
+            float* out, float* workspace, int N, float inv_scale,
+            cudaStream_t s) {
+  const Buffers w = carve<H>(workspace, (N + 3) / 4 * 4, kFwdSlots);
+  int e;
+  OC_TRY(forward_chain<H>(pts, params, B, w, N, inv_scale, s));
+  fwd_head_rows<H><<<(N + 7) / 8, 256, 0, s>>>(params, w, out, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int H>
+int run_bwd(const float* pts, const float* params, const float* B,
+            const float* dout, float* dpts, float* partial, float* grads,
+            float* workspace, int N, float inv_scale, cudaStream_t s) {
+  using O = Occ<H>;
+  using L = typename O::L;
+  const float* prm = params;
+  const Buffers w = carve<H>(workspace, (N + 3) / 4 * 4);
+  const int rows = (N + kChunks - 1) / kChunks;
+  int e;
+  OC_TRY(forward_chain<H>(pts, prm, B, w, N, inv_scale, s));  // recompute
+  head_rows<H><<<(N + 7) / 8, 256, 0, s>>>(prm, dout, w, N);
+  OC_TRY(static_cast<int>(cudaGetLastError()));
+  // the input gradients, output to input; ReLU(a) > 0 exactly when a > 0,
+  // so the stored activation is the mask
+  OC_TRY(input_grad<H>(w.d4, H, prm + L::cl_w, O::kCl, w.dcl, O::kCl, w.xcl,
+                       O::kCl, w.dalpha, prm + L::oa_w, N,
+                       s));  // [delta3 | demb2]
+  OC_TRY(input_grad<H>(w.dcl, O::kCl, prm + L::m2_w, H, w.d2, H, w.r2, H,
+                       nullptr, nullptr, N, s));  // delta2
+  OC_TRY(input_grad<H>(w.d2, H, prm + L::c_w, O::kC, w.dc, O::kC, w.xc,
+                       O::kC, nullptr, nullptr, N, s));  // [delta1 | demb1]
+  OC_TRY(input_grad<H>(w.dc, O::kC, prm + L::m1_w, H, w.d0, H, w.r0, H,
+                       nullptr, nullptr, N, s));  // delta0
+  Gemm g = make_gemm(w.d0, H, prm + L::in_w, H, w.dc + H, O::kC, N, kE1, H);
+  OC_TRY((launch_gemm<O::BN, kNT, kAccumulate>(g, s)));  // demb1 += d0 W^T
+  embed_bwd_rows<H><<<(N + 127) / 128, 128, 0, s>>>(B, w, dpts, N,
+                                                    inv_scale);
+  OC_TRY(static_cast<int>(cudaGetLastError()));
+  // the parameter gradients: per-chunk partials, then reduce_tiles
+  wgrad_kernel<H><<<dim3(wgrad_jobs<H>(), kChunks), O::kThreads, 0, s>>>(
+      w, partial, N, rows);
+  OC_TRY(static_cast<int>(cudaGetLastError()));
+  narrow_kernel<H><<<dim3(kNarrowJobs, kChunks), O::kNarrowThreads, 0, s>>>(
+      pts, w, partial, N, rows, inv_scale);
+  OC_TRY(static_cast<int>(cudaGetLastError()));
+  return launch_reduce(partial, grads, 1, kChunks, L::PP, s);
+}
+
+template <int H>
+void width_layout(int* out) {
+  out[0] = Occ<H>::L::P;
+  out[1] = Occ<H>::L::PP;
+  out[2] = Occ<H>::kWsCols;
+  out[3] = Occ<H>::kFwdWsCols;
 }
 
 }  // namespace
 
 extern "C" {
 
-// [OccupancyMap P, partial row, row chunks, workspace floats a row of the
-// backward, of the forward]
+// [OccupancyMap P at hidden width 128, its partial row, row chunks]
 int occupancy_layout(int* out) {
-  out[0] = oc::P;
-  out[1] = oc::PP;
+  out[0] = OcLayout<128>::P;
+  out[1] = OcLayout<128>::PP;
   out[2] = kChunks;
-  out[3] = kWsCols;
-  out[4] = kFwdWsCols;
   return 0;
+}
+
+// [P, partial row, workspace floats a row of the backward, of the
+// forward] of the instantiation at hidden width `hidden` (32, 64, 128 or
+// 256; another width: cudaErrorInvalidValue)
+int occupancy_width_layout(int hidden, int* out) {
+  switch (hidden) {
+    case 32: width_layout<32>(out); return 0;
+    case 64: width_layout<64>(out); return 0;
+    case 128: width_layout<128>(out); return 0;
+    case 256: width_layout<256>(out); return 0;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The GEMM block alone (layout: 0 NN, 1 NT, 2 TN; epilogue: 0 bias + ReLU,
@@ -384,66 +559,57 @@ int oc_gemm(int layout, int epilogue, const float* A, int lda, const float* B,
   g.v = v;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (layout * 3 + epilogue) {
-    case 0: return launch_gemm<H, kNN, kBiasRelu>(g, s);
-    case 1: return launch_gemm<H, kNN, kMask>(g, s);
-    case 2: return launch_gemm<H, kNN, kAccumulate>(g, s);
-    case 3: return launch_gemm<H, kNT, kBiasRelu>(g, s);
-    case 4: return launch_gemm<H, kNT, kMask>(g, s);
-    case 5: return launch_gemm<H, kNT, kAccumulate>(g, s);
-    case 6: return launch_gemm<H, kTN, kBiasRelu>(g, s);
-    case 7: return launch_gemm<H, kTN, kMask>(g, s);
-    case 8: return launch_gemm<H, kTN, kAccumulate>(g, s);
+    case 0: return launch_gemm<128, kNN, kBiasRelu>(g, s);
+    case 1: return launch_gemm<128, kNN, kMask>(g, s);
+    case 2: return launch_gemm<128, kNN, kAccumulate>(g, s);
+    case 3: return launch_gemm<128, kNT, kBiasRelu>(g, s);
+    case 4: return launch_gemm<128, kNT, kMask>(g, s);
+    case 5: return launch_gemm<128, kNT, kAccumulate>(g, s);
+    case 6: return launch_gemm<128, kTN, kBiasRelu>(g, s);
+    case 7: return launch_gemm<128, kTN, kMask>(g, s);
+    case 8: return launch_gemm<128, kTN, kAccumulate>(g, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// pts [N,3], params [P], B [21,3] -> out [N,4]; workspace
-// [ceil4(N) * kFwdWsCols]
+// pts [N,3], params [P(hidden)], B [21,3] -> out [N,4]; workspace
+// [ceil4(N) * the width's forward workspace columns]
 int oc_fwd(const float* pts, const float* params, const float* B, float* out,
-           float* workspace, int N, float inv_scale, void* stream) {
+           float* workspace, int N, int hidden, float inv_scale,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Buffers w = carve(workspace, (N + 3) / 4 * 4, kFwdSlots);
-  int e;
-  OC_TRY(forward_chain(pts, params, B, w, N, inv_scale, s));
-  fwd_head_rows<<<(N + 7) / 8, 256, 0, s>>>(params, w, out, N);
-  return static_cast<int>(cudaGetLastError());
+  switch (hidden) {
+    case 32: return run_fwd<32>(pts, params, B, out, workspace, N,
+                                inv_scale, s);
+    case 64: return run_fwd<64>(pts, params, B, out, workspace, N,
+                                inv_scale, s);
+    case 128: return run_fwd<128>(pts, params, B, out, workspace, N,
+                                  inv_scale, s);
+    case 256: return run_fwd<256>(pts, params, B, out, workspace, N,
+                                  inv_scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// pts [N,3], params [P], B [21,3], dout [N,4] -> dpts [N,3], grads [P + 63]
-// (via partial [kChunks, P + 63]); workspace [ceil4(N) * kWsCols]
+// pts [N,3], params [P(hidden)], B [21,3], dout [N,4] -> dpts [N,3],
+// grads [P + 63] (via partial [kChunks, P + 63]); workspace [ceil4(N) *
+// the width's backward workspace columns]
 int oc_bwd(const float* pts, const float* params, const float* B,
            const float* dout, float* dpts, float* partial, float* grads,
-           float* workspace, int N, float inv_scale, void* stream) {
+           float* workspace, int N, int hidden, float inv_scale,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* prm = params;
-  const Buffers w = carve(workspace, (N + 3) / 4 * 4);
-  const int rows = (N + kChunks - 1) / kChunks;
-  int e;
-  OC_TRY(forward_chain(pts, prm, B, w, N, inv_scale, s));  // the recompute
-  head_rows<<<(N + 7) / 8, 256, 0, s>>>(prm, dout, w, N);
-  OC_TRY(static_cast<int>(cudaGetLastError()));
-  // the input gradients, output to input; ReLU(a) > 0 exactly when a > 0,
-  // so the stored activation is the mask
-  OC_TRY(input_grad(w.d4, H, prm + oc::cl_w, kCl, w.dcl, kCl, w.xcl, kCl,
-                    w.dalpha, prm + oc::oa_w, N, s));  // [delta3 | demb2]
-  OC_TRY(input_grad(w.dcl, kCl, prm + oc::m2_w, H, w.d2, H, w.r2, H, nullptr,
-                    nullptr, N, s));                    // delta2
-  OC_TRY(input_grad(w.d2, H, prm + oc::c_w, kC, w.dc, kC, w.xc, kC, nullptr,
-                    nullptr, N, s));                    // [delta1 | demb1]
-  OC_TRY(input_grad(w.dc, kC, prm + oc::m1_w, H, w.d0, H, w.r0, H, nullptr,
-                    nullptr, N, s));                    // delta0
-  Gemm g = make_gemm(w.d0, H, prm + oc::in_w, H, w.dc + H, kC, N, kE1, H);
-  OC_TRY((launch_gemm<H, kNT, kAccumulate>(g, s)));  // demb1 += delta0 W_in^T
-  embed_bwd_rows<<<(N + 127) / 128, 128, 0, s>>>(B, w, dpts, N, inv_scale);
-  OC_TRY(static_cast<int>(cudaGetLastError()));
-  // the parameter gradients: per-chunk partials, then reduce_tiles
-  wgrad_kernel<<<dim3(kWgradTiles, kChunks), kThreads, 0, s>>>(w, partial, N,
-                                                               rows);
-  OC_TRY(static_cast<int>(cudaGetLastError()));
-  narrow_kernel<<<dim3(kNarrowJobs, kChunks), H, 0, s>>>(pts, w, partial, N,
-                                                         rows, inv_scale);
-  OC_TRY(static_cast<int>(cudaGetLastError()));
-  return launch_reduce(partial, grads, 1, kChunks, oc::PP, s);
+  switch (hidden) {
+    case 32: return run_bwd<32>(pts, params, B, dout, dpts, partial, grads,
+                                workspace, N, inv_scale, s);
+    case 64: return run_bwd<64>(pts, params, B, dout, dpts, partial, grads,
+                                workspace, N, inv_scale, s);
+    case 128: return run_bwd<128>(pts, params, B, dout, dpts, partial, grads,
+                                  workspace, N, inv_scale, s);
+    case 256: return run_bwd<256>(pts, params, B, dout, dpts, partial, grads,
+                                  workspace, N, inv_scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -396,6 +396,11 @@ def adopt_instance(session, cls_id: int, inst_id: int,
     The adoption is recorded in session.adopted_instances;
     train/checkpoint.py::save_session_checkpoint persists the records as a
     sidecar so adopted instances survive a restart.
+
+    On a sharded session (enable_fast_path(device_mesh=...)) every rank
+    calls this with the same result, as every rank calls save_checkpoint:
+    each grows its shard of the tables, the rank holding the category
+    writes the codes, and the fast path is rebuilt on the same mesh.
     """
     from catnerf_torch.ops.sim3 import sim3_to_tensor_np
 
@@ -444,11 +449,6 @@ def _grow_codes(state) -> None:
 def _adopt_slot(session, rec: dict, shape_code, texture_code) -> None:
     from catnerf_torch.models.codes import obj_validity_mask
 
-    if getattr(session, "shard", None) is not None:
-        raise NotImplementedError(
-            "adopting an instance into a sharded session is not in the port "
-            "yet: the code tables would grow across the 'model' shards "
-            "(ROADMAP.md Queue 1, item 4h)")
     cls_id, inst_id = rec["cls"], rec["id"]
     cat = session.categories[session.cls_ids.index(cls_id)]
     if cat.n_obj <= 1:
@@ -465,14 +465,21 @@ def _adopt_slot(session, rec: dict, shape_code, texture_code) -> None:
     slot = cat.n_obj
     codes = session.state.params.codes
     max_obj = codes.shape.shape[1]
+    # on a sharded session (every rank calls this with the same record and
+    # codes) each rank grows its shard of the tables, and its moments, to
+    # the same max_obj, as gather_state_dict needs equal shapes; the rank
+    # that holds the category writes its row ci - c0
+    shard = getattr(session, "shard", None)
     if slot >= max_obj:
         _grow_codes(session.state)
         max_obj += 1
-    with torch.no_grad():
-        for table, code in ((codes.shape, shape_code),
-                            (codes.texture, texture_code)):
-            table[ci, slot] = torch.as_tensor(
-                np.asarray(code, np.float32), device=table.device)
+    row = ci - (0 if shard is None else shard.c0)
+    if 0 <= row < codes.shape.shape[0]:
+        with torch.no_grad():
+            for table, code in ((codes.shape, shape_code),
+                                (codes.texture, texture_code)):
+                table[row, slot] = torch.as_tensor(
+                    np.asarray(code, np.float32), device=table.device)
 
     cat.obj_ids.append(inst_id)
     cat.inst_id_to_index[inst_id] = slot
@@ -567,7 +574,7 @@ def ingest_new_instance(session, cls_id: int, rgb, depth, mask, T_wc, *,
                         inst_id: int | None = None, steps: int = 600,
                         n_rays: int = 360, lr: float = 5e-3,
                         accumulate: str = "direct",
-                        adopt: bool = True) -> dict:
+                        adopt=True) -> dict:
     """The full new-scan workflow from raw arrays: posed RGB-D observations
     of an unseen instance -> world point cloud -> sim(3) registration
     against the trained category's canonical union
@@ -578,7 +585,11 @@ def ingest_new_instance(session, cls_id: int, rgb, depth, mask, T_wc, *,
 
     Array layout contract: build_observation_frames. accumulate: 'direct'
     (clean depth, ref: src/utils.py:189-210) or 'tsdf' (noisy real-world
-    depth, ref: src/utils.py:212-247). Returns a JSON-ready summary dict.
+    depth, ref: src/utils.py:212-247). adopt: True adopts the fitted
+    instance (adopt_instance), False leaves the session as it was, and a
+    callable adopt(cls_id, inst_id, result) adopts in adopt_instance's
+    place (a sharded server's adoption on every rank). Returns a
+    JSON-ready summary dict.
     """
     from catnerf_torch.geometry.pointcloud import (accumulate_pointcloud,
                                                    accumulate_pointcloud_tsdf)
@@ -633,7 +644,9 @@ def ingest_new_instance(session, cls_id: int, rgb, depth, mask, T_wc, *,
     res = fit_instance(session, cls_id, frame_info, frames, session.cam,
                        T_est, inst_id, steps=steps, n_rays=n_rays, lr=lr,
                        optimize_pose=True)
-    if adopt:
+    if callable(adopt):
+        adopt(cls_id, inst_id, res)
+    elif adopt:
         adopt_instance(session, cls_id, inst_id, res)
     return {
         "id": inst_id,

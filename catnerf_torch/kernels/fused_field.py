@@ -45,7 +45,10 @@ designs:
   32-wide CodeNeRF layers, `cn_gemm`, with the category as a batch index,
   and 128 x 128 for the 128-wide background, `oc_gemm`) and row kernels,
   their activations in a workspace the wrapper allocates, their weight
-  gradients per-chunk partials.
+  gradients per-chunk partials. The background's are instantiated at
+  widths 32 (on the 128 x 32 tile), 64, 128 and 256 (`OC_WIDTHS`); any
+  other width up to 256 runs on the next one with its extra units zero
+  (`pad_width`).
 
 A last launch adds the partials in a fixed order, so that two runs are
 bitwise equal (no atomics).
@@ -69,6 +72,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 
 import torch
@@ -130,9 +134,20 @@ PACKED_BLOCK_ROWS = 64
 CN_LAYERS = (("e", 87, 32), ("s0", 32, 32), ("c", 119, 32), ("s1", 32, 32),
              ("en", 32, 32), ("sg", 32, 1), ("vd", 74, 32), ("t0", 32, 32),
              ("r0", 32, 16), ("r1", 16, 3))
-OC_LAYERS = (("in", 87, 128), ("m1", 128, 128), ("c", 215, 128),
-             ("m2", 128, 128), ("oa", 128, 1), ("cl", 170, 128),
-             ("oc", 128, 3))
+
+
+def oc_layers(hidden: int = 128):
+    """The OccupancyMap's layers at `hidden` width, in kernel order."""
+    h = hidden
+    return (("in", 87, h), ("m1", h, h), ("c", h + 87, h), ("m2", h, h),
+            ("oa", h, 1), ("cl", h + 42, h), ("oc", h, 3))
+
+
+OC_LAYERS = oc_layers(128)
+# the widths csrc/occupancy.cu is instantiated at; any other width up to
+# the last runs through the next one, zero-padded (oc_kernel_width)
+OC_WIDTHS = (32, 64, 128, 256)
+OC_MAX_HIDDEN = OC_WIDTHS[-1]
 
 
 def n_params(layers) -> int:
@@ -141,6 +156,15 @@ def n_params(layers) -> int:
 
 CN_P = n_params(CN_LAYERS)  # 13,892
 OC_P = n_params(OC_LAYERS)  # 94,340
+
+
+def oc_kernel_width(hidden: int) -> int:
+    """The instantiation of the background kernels a width runs on: the
+    smallest of OC_WIDTHS at least `hidden`; past the last, raises."""
+    if 1 <= hidden <= OC_MAX_HIDDEN:
+        return next(width for width in OC_WIDTHS if hidden <= width)
+    raise ValueError(f"the background kernels take hidden widths 1 to "
+                     f"{OC_MAX_HIDDEN}, not {hidden}")
 
 
 def _cn_modules(fc):
@@ -333,31 +357,48 @@ def codenerf_bwd_plain(flat, B, pts, zs, dout, inv_scale):
     return _grads_flat(dW, db, CN_LAYERS), dB, dpts, (dg0, dg1, dg2, dg4)
 
 
-def _occ_chain(emb1, emb2, W, b, hidden=128):
-    """ref: _occ_chain (fused_field.py:409)."""
-    r0 = torch.relu(emb1 @ W["in"] + b["in"])
-    r1 = torch.relu(r0 @ W["m1"] + b["m1"])
-    r2 = torch.relu(r1 @ W["c"][..., :hidden, :]
-                    + emb1 @ W["c"][..., hidden:, :] + b["c"])
-    r3 = torch.relu(r2 @ W["m2"] + b["m2"])
+def _occ_chain(emb1, emb2, W, b, hidden=128, relu=None):
+    """ref: _occ_chain (fused_field.py:409). `relu` as _codenerf_chain's."""
+    relu = torch.relu if relu is None else relu
+    r0 = relu(emb1 @ W["in"] + b["in"])
+    r1 = relu(r0 @ W["m1"] + b["m1"])
+    r2 = relu(r1 @ W["c"][..., :hidden, :]
+              + emb1 @ W["c"][..., hidden:, :] + b["c"])
+    r3 = relu(r2 @ W["m2"] + b["m2"])
     alpha = (r3 @ W["oa"] + b["oa"]) * 10.0
-    r4 = torch.relu(r3 @ W["cl"][..., :hidden, :]
-                    + emb2 @ W["cl"][..., hidden:, :] + b["cl"])
+    r4 = relu(r3 @ W["cl"][..., :hidden, :]
+              + emb2 @ W["cl"][..., hidden:, :] + b["cl"])
     color = torch.sigmoid(r4 @ W["oc"] + b["oc"])
     return alpha, color, dict(r0=r0, r1=r1, r2=r2, r3=r3, r4=r4, color=color)
 
 
-def occupancy_fwd_plain(flat, B, pts, inv_scale):
-    """flat [P], B [21, 3], pts [N, 3] -> out [N, 4] = [alpha x10 | rgb]."""
-    W, b = _unpack(flat, OC_LAYERS)
+def occupancy_relu_margin(flat, B, pts, inv_scale, hidden=128):
+    """[N]: each row's smallest |pre-activation| over the five ReLU layers
+    of the background chain, in float64 (codenerf_relu_margin's rule)."""
+    margins = []
+
+    def relu(a):
+        margins.append(a.abs().amin(-1))
+        return torch.relu(a)
+
+    W, b = _unpack(flat.double(), oc_layers(hidden))
+    _, _, emb1, emb2 = _embed(pts.double(), B.double(), inv_scale)
+    _occ_chain(emb1, emb2, W, b, hidden, relu=relu)
+    return torch.stack(margins).amin(0)
+
+
+def occupancy_fwd_plain(flat, B, pts, inv_scale, hidden=128):
+    """flat [P] (at `hidden` width), B [21, 3], pts [N, 3] -> out [N, 4] =
+    [alpha x10 | rgb]."""
+    W, b = _unpack(flat, oc_layers(hidden))
     _, _, emb1, emb2 = _embed(pts, B, inv_scale)
-    alpha, color, _ = _occ_chain(emb1, emb2, W, b)
+    alpha, color, _ = _occ_chain(emb1, emb2, W, b, hidden)
     return torch.cat([alpha, color], dim=-1)
 
 
 def occupancy_bwd_plain(flat, B, pts, dout, inv_scale, hidden=128):
     """ref: _occ_bwd_kernel :445. Returns (dflat [P], dB [21, 3], dpts)."""
-    W, b = _unpack(flat, OC_LAYERS)
+    W, b = _unpack(flat, oc_layers(hidden))
     t, proj, emb1, emb2 = _embed(pts, B, inv_scale)
     _, _, iv = _occ_chain(emb1, emb2, W, b, hidden)
     dalpha = dout[..., 0:1] * 10.0
@@ -391,7 +432,48 @@ def occupancy_bwd_plain(flat, B, pts, dout, inv_scale, hidden=128):
     acc("in", emb1, da0)
     demb1 = demb1 + mT(da0, W["in"])
     dpts, dB = _embed_bwd(demb1, demb2, t, proj, B, inv_scale)
-    return _grads_flat(dW, db, OC_LAYERS), dB, dpts
+    return _grads_flat(dW, db, oc_layers(hidden)), dB, dpts
+
+
+@functools.cache
+def _width_index(hidden: int, width: int, device: str) -> torch.Tensor:
+    """Where each entry of a width-`hidden` flat parameter buffer lies in
+    a width-`width` one (width >= hidden): a unit of the narrower field is
+    the same unit of the wider one, the concatenated inputs' embedding
+    rows follow the wider hidden part. Made once a device, before any
+    capture (the graph's warm-up steps call it first)."""
+    W, b = _unpack(torch.arange(n_params(oc_layers(width))),
+                   oc_layers(width))
+    parts = []
+    for k, _, fan_out in oc_layers(hidden):
+        w = W[k]
+        rows = (torch.cat([w[:hidden], w[width:]]) if k in ("c", "cl")
+                else w if k == "in" else w[:hidden])
+        parts.append(rows[:, :fan_out].reshape(-1))
+    parts += [b[k][..., :fan_out].reshape(-1)
+              for k, _, fan_out in oc_layers(hidden)]
+    return torch.cat(parts).to(device)
+
+
+def pad_width(flat: torch.Tensor, hidden: int, width: int) -> torch.Tensor:
+    """The flat parameters of a width-`hidden` OccupancyMap as those of a
+    width-`width` one whose extra units have zero weights and biases, in
+    and out. The wider field computes the same: an extra unit's
+    pre-activation is 0, so its ReLU output and its delta are 0, and each
+    sum gains exact zeros."""
+    if hidden == width:
+        return flat
+    out = flat.new_zeros(n_params(oc_layers(width)))
+    out[_width_index(hidden, width, str(flat.device))] = flat
+    return out
+
+
+def unpad_width(grads: torch.Tensor, hidden: int, width: int):
+    """pad_width's inverse on a flat gradient: the narrower field's
+    entries."""
+    if hidden == width:
+        return grads
+    return grads[_width_index(hidden, width, str(grads.device))]
 
 
 def codenerf_mlp_fwd_plain(flat, emb1, emb2, zs):
@@ -723,11 +805,13 @@ _SIGNATURES = {
         "packed_layout": [ctypes.POINTER(ctypes.c_int)],
     },
     "occupancy": {
-        "oc_fwd": [_P] * 5 + [_I, _F, _P],
-        "oc_bwd": [_P] * 8 + [_I, _F, _P],
+        # ...; N, hidden (an instantiated width); inv_scale; stream
+        "oc_fwd": [_P] * 5 + [_I, _I, _F, _P],
+        "oc_bwd": [_P] * 8 + [_I, _I, _F, _P],
         "oc_gemm": [_I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I,
                     _I, _P, _P, _P],
         "occupancy_layout": [ctypes.POINTER(ctypes.c_int)],
+        "occupancy_width_layout": [_I, ctypes.POINTER(ctypes.c_int)],
     },
     "codenerf_bwd": {
         "cn_bwd": [_P] * 16 + [_I, _I, _F, _P],
@@ -754,8 +838,7 @@ _LAYOUT_FNS = {
                         {"packed_p": CN_P, "packed_b2": B2_SIZE,
                          "packed_block_rows": PACKED_BLOCK_ROWS}),
     "occupancy": ("occupancy_layout",
-                  ("oc_p", "oc_pp", "oc_chunks", "oc_ws_cols",
-                   "oc_fwd_ws_cols"),
+                  ("oc_p", "oc_pp", "oc_chunks"),
                   {"oc_p": OC_P, "oc_pp": OC_P + B_SIZE}),
     "codenerf_bwd": ("codenerf_bwd_layout",
                      ("cn_bwd_p", "cn_bwd_pp", "cn_bwd_chunks",
@@ -893,52 +976,86 @@ def codenerf_bwd_cuda(flat, B, pts, zs, dout, inv_scale):
             tuple(dzs))
 
 
-def occupancy_fwd_cuda(flat, B, pts, inv_scale):
+_OC_WIDTH_LAYOUT: dict[int, tuple[int, int, int, int]] = {}
+
+
+def _oc_width_layout(width: int) -> tuple[int, int, int, int]:
+    """(P, partial row, backward and forward workspace floats a row) of
+    the background kernels' instantiation at `width`, read from the
+    library once and held to n_params."""
+    if width not in _OC_WIDTH_LAYOUT:
+        out = (ctypes.c_int * 4)()
+        _raise_on(_lib("occupancy").occupancy_width_layout(width, out),
+                  f"occupancy_width_layout({width})")
+        want = n_params(oc_layers(width))
+        if out[0] != want or out[1] != want + B_SIZE:
+            raise RuntimeError(f"occupancy.cu layout {list(out)} at width "
+                               f"{width} does not match the wrapper's "
+                               f"{want}")
+        _OC_WIDTH_LAYOUT[width] = tuple(out)
+    return _OC_WIDTH_LAYOUT[width]
+
+
+def _oc_args(flat, B, pts, hidden, more=None):
+    """Check the background kernels' arguments; return (the instantiated
+    width, its layout, the parameters at that width)."""
+    N = pts.shape[0]
+    width = oc_kernel_width(hidden)
+    _check(pts.device, {"pts": (pts, (N, 3)),
+                        "params": (flat, (n_params(oc_layers(hidden)),)),
+                        "B": (B, (N_DIRS, 3)), **(more or {})})
+    return width, _oc_width_layout(width), pad_width(flat, hidden, width)
+
+
+def occupancy_fwd_cuda(flat, B, pts, inv_scale, hidden=128):
     """csrc/occupancy.cu: the PE and the five wide layers as tiled GEMMs,
-    then a head kernel; the activations in a workspace of `oc_fwd_ws_cols`
-    floats a row (rows rounded up to 4)."""
+    then a head kernel; the activations in a workspace of the width's
+    forward columns a row (rows rounded up to 4). A width that is not
+    instantiated runs on the next one, zero-padded (pad_width)."""
     lib = _lib("occupancy")
     N = pts.shape[0]
-    _check(pts.device, {"pts": (pts, (N, 3)), "params": (flat, (OC_P,)),
-                        "B": (B, (N_DIRS, 3))})
+    width, (_, _, _, fwd_cols), prm = _oc_args(flat, B, pts, hidden)
     dev = pts.device
     out = torch.empty(N, 4, device=dev, dtype=torch.float32)
     if N == 0:
         return out
-    workspace = torch.empty(-(-N // 4) * 4 * _LAYOUT["oc_fwd_ws_cols"],
-                            device=dev, dtype=torch.float32)
-    err = lib.oc_fwd(_ptr(pts), _ptr(flat), _ptr(B), _ptr(out),
-                     _ptr(workspace), N, inv_scale, _stream(dev))
+    workspace = torch.empty(-(-N // 4) * 4 * fwd_cols, device=dev,
+                            dtype=torch.float32)
+    err = lib.oc_fwd(_ptr(pts), _ptr(prm), _ptr(B), _ptr(out),
+                     _ptr(workspace), N, width, inv_scale, _stream(dev))
     _raise_on(err, "oc_fwd")
     LAUNCHES["occupancy_fwd"] += 1
     return out
 
 
-def occupancy_bwd_cuda(flat, B, pts, dout, inv_scale):
+def occupancy_bwd_cuda(flat, B, pts, dout, inv_scale, hidden=128):
     """csrc/occupancy.cu: the recompute and the backward as a chain of
     tiled GEMMs and row kernels, its activations and deltas in a workspace
-    of `oc_ws_cols` floats a row (rows rounded up to 4), the weight
-    gradients as `oc_chunks` per-chunk partials reduced in order."""
+    of the width's backward columns a row (rows rounded up to 4), the
+    weight gradients as `oc_chunks` per-chunk partials reduced in order.
+    A width that is not instantiated runs on the next one, zero-padded;
+    the padding's gradients are sliced off."""
     lib = _lib("occupancy")
     N = pts.shape[0]
-    _check(pts.device, {"pts": (pts, (N, 3)), "params": (flat, (OC_P,)),
-                        "B": (B, (N_DIRS, 3)), "dout": (dout, (N, 4))})
+    width, (P, PP, ws_cols, _), prm = _oc_args(
+        flat, B, pts, hidden, {"dout": (dout, (N, 4))})
     dev = pts.device
     dpts = torch.empty_like(pts)
-    grads = torch.empty(OC_P + B_SIZE, device=dev, dtype=torch.float32)
+    grads = torch.empty(PP, device=dev, dtype=torch.float32)
     if N == 0:
         grads.zero_()
     else:
-        partial = torch.empty(_LAYOUT["oc_chunks"], OC_P + B_SIZE,
-                              device=dev, dtype=torch.float32)
-        workspace = torch.empty(-(-N // 4) * 4 * _LAYOUT["oc_ws_cols"],
-                                device=dev, dtype=torch.float32)
-        err = lib.oc_bwd(_ptr(pts), _ptr(flat), _ptr(B), _ptr(dout),
+        partial = torch.empty(_LAYOUT["oc_chunks"], PP, device=dev,
+                              dtype=torch.float32)
+        workspace = torch.empty(-(-N // 4) * 4 * ws_cols, device=dev,
+                                dtype=torch.float32)
+        err = lib.oc_bwd(_ptr(pts), _ptr(prm), _ptr(B), _ptr(dout),
                          _ptr(dpts), _ptr(partial), _ptr(grads),
-                         _ptr(workspace), N, inv_scale, _stream(dev))
+                         _ptr(workspace), N, width, inv_scale, _stream(dev))
         _raise_on(err, "oc_bwd")
         LAUNCHES["occupancy_bwd"] += 1
-    return grads[:OC_P], grads[OC_P:].reshape(N_DIRS, 3), dpts
+    return (unpad_width(grads[:P], hidden, width),
+            grads[P:].reshape(N_DIRS, 3), dpts)
 
 
 GEMM_LAYOUTS = ("nn", "nt", "tn")
@@ -1348,16 +1465,16 @@ def codenerf_bwd(flat, B, pts, zs, dout, inv_scale):
     return codenerf_bwd_plain(flat, B, pts, zs, dout, inv_scale)
 
 
-def occupancy_fwd(flat, B, pts, inv_scale):
+def occupancy_fwd(flat, B, pts, inv_scale, hidden=128):
     if _on_cuda(pts):
-        return occupancy_fwd_cuda(flat, B, pts, inv_scale)
-    return occupancy_fwd_plain(flat, B, pts, inv_scale)
+        return occupancy_fwd_cuda(flat, B, pts, inv_scale, hidden)
+    return occupancy_fwd_plain(flat, B, pts, inv_scale, hidden)
 
 
-def occupancy_bwd(flat, B, pts, dout, inv_scale):
+def occupancy_bwd(flat, B, pts, dout, inv_scale, hidden=128):
     if _on_cuda(pts):
-        return occupancy_bwd_cuda(flat, B, pts, dout, inv_scale)
-    return occupancy_bwd_plain(flat, B, pts, dout, inv_scale)
+        return occupancy_bwd_cuda(flat, B, pts, dout, inv_scale, hidden)
+    return occupancy_bwd_plain(flat, B, pts, dout, inv_scale, hidden)
 
 
 def oc_gemm(layout, epilogue, a, b, c, bias=None, mask=None, u=None,
@@ -1463,17 +1580,17 @@ class _CodeNeRFFused(torch.autograd.Function):
 
 class _OccupancyFused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, flat, B, pts, inv_scale):
-        ctx.inv_scale = inv_scale
+    def forward(ctx, flat, B, pts, inv_scale, hidden):
+        ctx.inv_scale, ctx.hidden = inv_scale, hidden
         ctx.save_for_backward(flat, B, pts)
-        return occupancy_fwd(flat, B, pts, inv_scale)
+        return occupancy_fwd(flat, B, pts, inv_scale, hidden)
 
     @staticmethod
     def backward(ctx, dout):
         flat, B, pts = ctx.saved_tensors
         dflat, dB, dpts = occupancy_bwd(flat, B, pts, dout.contiguous(),
-                                        ctx.inv_scale)
-        return dflat, dB, dpts, None
+                                        ctx.inv_scale, ctx.hidden)
+        return dflat, dB, dpts, None, None
 
 
 def codenerf_fused_apply(fc, pe, pts, zs0, zc, zs1, zt0, *, scale: float):
@@ -1495,10 +1612,12 @@ def codenerf_fused_apply(fc, pe, pts, zs0, zc, zs1, zt0, *, scale: float):
 
 def occupancy_fused_apply(fc, pe, pts, *, scale: float):
     """Fused background forward (ref: occupancy_fused_apply :631):
-    pts [N, 3] -> (alpha [N], rgb [N, 3]); hidden=128, one block."""
+    pts [N, 3] -> (alpha [N], rgb [N, 3]); one hidden block of any width
+    1 to OC_MAX_HIDDEN, read from the weights as the JAX function does."""
     flat = pack(_oc_modules(fc))
     out = _OccupancyFused.apply(flat, pe.B.contiguous(), pts.contiguous(),
-                                1.0 / float(scale))
+                                1.0 / float(scale),
+                                int(fc.in_layer.w.shape[-1]))
     return out[..., 0], out[..., 1:4]
 
 

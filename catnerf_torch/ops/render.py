@@ -36,6 +36,19 @@ def render(termination: torch.Tensor, vals: torch.Tensor,
     return torch.sum(termination * vals, dim=dim)
 
 
+def render_loss(rendered: torch.Tensor, gt: torch.Tensor, loss: str = "L1",
+                normalise: bool = False) -> torch.Tensor:
+    """Elementwise render loss (ref: src/render_rays.py:52-64)."""
+    residual = rendered - gt
+    if loss == "L2":
+        loss_mat = residual**2
+    elif loss == "L1":
+        loss_mat = torch.abs(residual)
+    else:
+        raise NotImplementedError(f"loss type {loss} not implemented")
+    return loss_mat / gt if normalise else loss_mat
+
+
 def reduce_batch_loss(loss_mat: torch.Tensor, var: torch.Tensor | None,
                       mask: torch.Tensor, counts=None) -> torch.Tensor:
     """Masked, optionally 1/sqrt(var)-weighted (L1) mean over the ray axis
@@ -60,3 +73,20 @@ def reduce_batch_loss(loss_mat: torch.Tensor, var: torch.Tensor | None,
         mask_num = mask_num.to(loss_mat.dtype)
     per_model = torch.sum(loss_mat * mask_f, dim=-1) / (mask_num + 1e-10)
     return torch.where(any_empty, torch.zeros_like(per_model), per_model)
+
+
+def make_3d_grid(occ_range=(-1.0, 1.0), dim: int = 256,
+                 transform: torch.Tensor | None = None,
+                 scale: torch.Tensor | None = None,
+                 device=None) -> torch.Tensor:
+    """Regular [dim, dim, dim, 3] grid over `occ_range`^3, optionally
+    scaled per axis and rigidly transformed (ref:
+    src/render_rays.py:97-121)."""
+    t = torch.linspace(occ_range[0], occ_range[1], dim, device=device)
+    grid = torch.stack(torch.meshgrid(t, t, t, indexing="ij"), dim=-1)
+    if scale is not None:
+        grid = grid * scale
+    if transform is not None:
+        grid = (torch.einsum("ij,xyzj->xyzi", transform[:3, :3], grid)
+                + transform[:3, 3])
+    return grid

@@ -63,6 +63,24 @@ def _sorted_normal_from_u(u: torch.Tensor, depth: torch.Tensor, sigma: float,
     return depth[..., None] + bins
 
 
+def stratified_bins(u: torch.Tensor, min_depth: torch.Tensor,
+                    max_depth: torch.Tensor) -> torch.Tensor:
+    """Stratified depth samples per ray (ref: src/scene_cateogries.py:51-81;
+    the JAX package's `stratified_bins`, whose uniforms u [n_rays, n_bins]
+    are an argument here): one sample inside each of n_bins equal
+    sub-intervals of [min_depth, max_depth] ([n_rays] each)."""
+    return _stratified_from_u(u, min_depth, max_depth)
+
+
+def normal_bins_sampling(u: torch.Tensor, depth: torch.Tensor,
+                         delta: float) -> torch.Tensor:
+    """Sorted samples of N(0, (delta/3)^2) clipped to +-delta around the
+    surface depth [n_rays] (ref: src/scene_cateogries.py:84-96; the JAX
+    package's `normal_bins_sampling`), from uniforms u [n_rays, n_bins + 1]
+    (sort-free: the order statistics are made directly)."""
+    return _sorted_normal_from_u(u, depth, delta / 3.0, delta)
+
+
 class RaySamples(NamedTuple):
     gt_rgb: torch.Tensor            # [..., n_rays, 3]
     gt_depth: torch.Tensor          # [..., n_rays]

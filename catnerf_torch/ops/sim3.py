@@ -1,10 +1,12 @@
-"""sim(3) pose conversion (numpy), the part of the JAX package's
-`ops/sim3.py` that the scene build, the checkpoints, the mesher and the
-registration need (ref: src/utils.py:361-491)."""
+"""sim(3) pose conversion: the JAX package's `ops/sim3.py`, in numpy
+(what the scene build, the checkpoints, the mesher and the registration
+need, ref: src/utils.py:361-491) and in batched torch (its jax.numpy
+functions, :104-170)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def rotation_to_quat_np(R: np.ndarray) -> np.ndarray:
@@ -86,3 +88,58 @@ def tensor_to_se3_np(t: np.ndarray) -> np.ndarray:
 def transform_pointcloud_np(points: np.ndarray, T: np.ndarray) -> np.ndarray:
     """Apply homogeneous transform to (N, 3) points (ref: src/utils.py:361-366)."""
     return points @ T[:3, :3].T + T[:3, 3]
+
+
+# ---------------------------------------------------------------------------
+# torch, batched over leading dims
+# ---------------------------------------------------------------------------
+
+def _homogeneous(top: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 4] -> [..., 4, 4] with the row [0, 0, 0, 1] below."""
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
+                          device=top.device).expand(*top.shape[:-2], 1, 4)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def quat_to_rotation(q: torch.Tensor) -> torch.Tensor:
+    """Batched quaternion [..., 4] (wxyz) -> rotation [..., 3, 3]."""
+    qr, qi, qj, qk = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    two_s = 2.0 / torch.sum(q * q, dim=-1)
+    rows = ((1 - two_s * (qj**2 + qk**2), two_s * (qi * qj - qk * qr),
+             two_s * (qi * qk + qj * qr)),
+            (two_s * (qi * qj + qk * qr), 1 - two_s * (qi**2 + qk**2),
+             two_s * (qj * qk - qi * qr)),
+            (two_s * (qi * qk - qj * qr), two_s * (qj * qk + qi * qr),
+             1 - two_s * (qi**2 + qj**2)))
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def tensor_to_sim3(t: torch.Tensor) -> torch.Tensor:
+    """Batched [..., 8] sim(3) tensor [s, qw..qz, t] -> [..., 4, 4]."""
+    R = quat_to_rotation(t[..., 1:5]) * t[..., 0, None, None]
+    return _homogeneous(torch.cat([R, t[..., 5:8, None]], dim=-1))
+
+
+def invert_se3(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of a batched rigid transform [..., 4, 4]."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    ti = -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3])
+    return _homogeneous(torch.cat([Rt, ti[..., None]], dim=-1))
+
+
+def origin_dirs_world(T_WC: torch.Tensor, dirs_C: torch.Tensor):
+    """Camera-frame ray dirs -> world frame (ref:
+    src/scene_cateogries.py:37-47). T_WC [N, 4, 4], dirs_C [N, 3] ->
+    (origins [N, 3], dirs [N, 3])."""
+    dirs_W = torch.einsum("nij,nj->ni", T_WC[:, :3, :3], dirs_C)
+    return T_WC[:, :3, 3], dirs_W
+
+
+def origin_dirs_object(T_CO: torch.Tensor, dirs_C: torch.Tensor):
+    """Camera-frame ray dirs -> the canonical object frame through
+    inv(T_CO) (ref: src/scene_cateogries.py:24-35): T_CO carries a sim(3)
+    scale, so the general inverse, whose 1/s normalises the object
+    frame."""
+    T_OC = torch.linalg.inv(T_CO)
+    dirs_O = torch.einsum("nij,nj->ni", T_OC[:, :3, :3], dirs_C)
+    return T_OC[:, :3, 3], dirs_O

@@ -20,6 +20,7 @@ tally their bytes when asked (`tally_collectives`).
 from __future__ import annotations
 
 import contextlib
+import datetime
 import os
 import pickle
 import sys
@@ -219,8 +220,16 @@ def all_gather_objects(obj) -> list:
     return out
 
 
-def broadcast_object(obj, src: int = 0):
-    """Rank `src`'s picklable `obj` on every rank, over the CPU group."""
+def broadcast_object(obj, src: int = 0, group=None):
+    """Rank `src`'s picklable `obj` on every rank, over `group` (a gloo
+    group: by default the CPU group)."""
     box = [obj]
-    dist.broadcast_object_list(box, src=src, group=cpu_group())
+    dist.broadcast_object_list(box, src=src,
+                               group=cpu_group() if group is None else group)
     return box[0]
+
+
+def new_cpu_group(timeout: datetime.timedelta):
+    """A new gloo group over every rank whose collectives wait up to
+    `timeout` (every rank calls this, in the same order)."""
+    return dist.new_group(backend="gloo", timeout=timeout)

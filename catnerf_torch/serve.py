@@ -49,13 +49,23 @@ POST /ingest?cls=<cls_id>[&id=N][&steps=600][&rays=360][&accumulate=direct|tsdf]
 
 CLI: python -m catnerf_torch.serve --logdir <dir> [--synthetic | --config
 <json>] [--port 8765] [--device cpu]
+
+Sharded (the JAX package's --sharded): torchrun --nproc-per-node N -m
+catnerf_torch.serve --sharded ... Every rank restores the whole session.
+Rank 0 serves HTTP; the others follow (`follow`): each /scene and each
+uncached /mesh runs over every rank (`render_scene_view` and `mesh_object`
+with the ('data', 'model') mesh, identical pixels and bytes), and so does
+the adoption step of /ingest (rank 0 registers, fits and saves alone).
+/object, /edit and /health stay on rank 0.
 """
 
 from __future__ import annotations
 
+import datetime
 import io
 import json
 import os
+import sys
 import threading
 from http.server import (BaseHTTPRequestHandler, HTTPServer,
                          ThreadingHTTPServer)
@@ -64,6 +74,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from catnerf_torch.data import png
+from catnerf_torch.parallel import mesh as pmesh
 from catnerf_torch.render_views import (
     add_scene_args,
     default_orbit_cam,
@@ -85,14 +96,27 @@ def _png(img: np.ndarray) -> bytes:
     return png.imencode(bgr)
 
 
+#: how long a follower waits for the next request: an idle server must
+#: not die at the process group's default timeout (30 minutes)
+IDLE_TIMEOUT = datetime.timedelta(days=365)
+#: the calls a follower makes when rank 0 broadcasts them, and the stop
+_FOLLOWED = ("_scene", "_mesh", "_adopt")
+_STOP = "stop"
+
+
 class SceneServer:
     """Render dispatch for one trained session. Device work (renders,
     mesh extraction, ingest) serializes on self.lock — one device, one
     session — while metadata reads (/health) stay lock-free, so a long
     ingest never blocks a liveness probe. The handler takes the lock;
-    calling methods directly (tests, warmup) needs none."""
+    calling methods directly (tests, warmup) needs none.
 
-    def __init__(self, session, ckpt_dir: str | None = None):
+    device_mesh: a DeviceMesh of more than one process (every rank builds
+    its SceneServer with it, on the whole session) makes a sharded server:
+    rank 0 serves (serve_sharded), the others `follow`."""
+
+    def __init__(self, session, ckpt_dir: str | None = None,
+                 device_mesh=None):
         self.session = session
         self.cfg = session.cfg
         # when set, /ingest persists the adopted session as a NEW
@@ -104,6 +128,37 @@ class SceneServer:
         self._mesh_cache: dict = {}
         # serializes device work across handler threads (see class doc)
         self.lock = threading.RLock()
+        self.device_mesh = (device_mesh if device_mesh is not None
+                            and device_mesh.size() > 1 else None)
+        self._stopped = False
+        # the group rank 0 broadcasts each call on (made here, where every
+        # rank builds its server). Hazard, an idle server: a follower waits
+        # on it for the next request, so its timeout outlives any pause
+        self._group = (pmesh.new_cpu_group(IDLE_TIMEOUT)
+                       if self.device_mesh is not None else None)
+
+    def _on_every_rank(self, op: str, *args):
+        """self.<op>(*args), and on a sharded server the same call on
+        every follower, which rank 0 broadcasts first. Hazards, handled
+        by the callers: broadcast under the lock (the handler holds
+        self.lock, so the followers see the calls in rank 0's order), and
+        validate before broadcasting (an exception on one rank inside a
+        collective hangs the others: a request that would raise is
+        rejected before this)."""
+        if self.device_mesh is not None:
+            if self._stopped:
+                raise RuntimeError("the server is stopping")
+            pmesh.broadcast_object((op, args), group=self._group)
+        return getattr(self, op)(*args)
+
+    def stop(self) -> None:
+        """Rank 0 of a sharded server: broadcast the stop, after the
+        request in flight (under the lock); every follower then returns.
+        A later request that would broadcast raises."""
+        with self.lock:
+            if self.device_mesh is not None and not self._stopped:
+                pmesh.broadcast_object((_STOP, ()), group=self._group)
+            self._stopped = True
 
     @property
     def _objects(self):
@@ -202,6 +257,8 @@ class SceneServer:
                    if k not in payload]
         if missing:
             raise ValueError(f".npz payload missing arrays: {missing}")
+        # a sharded server registers and fits on rank 0 alone (the session
+        # is whole there), then adopts on every rank
         out = fit_mod.ingest_new_instance(
             self.session, int(q["cls"]),
             payload["rgb"], payload["depth"], payload["mask"],
@@ -209,7 +266,9 @@ class SceneServer:
             inst_id=int(q["id"]) if "id" in q else None,
             steps=int(q.get("steps", 600)),
             n_rays=int(q.get("rays", 360)),
-            accumulate=q.get("accumulate", "direct"))
+            accumulate=q.get("accumulate", "direct"),
+            adopt=(True if self.device_mesh is None else
+                   lambda *fitted: self._on_every_rank("_adopt", *fitted)))
         # persist the adoption (save=0 opts out): a NEW checkpoint
         # iteration + adopted-sidecar, so a restarted server (which
         # restores via restore_session_checkpoint) still has the instance
@@ -223,6 +282,11 @@ class SceneServer:
                 self.ckpt_dir, self.session, it)
         return out
 
+    def _adopt(self, cls_id: int, inst_id: int, result) -> None:
+        from catnerf_torch import fit as fit_mod
+
+        fit_mod.adopt_instance(self.session, cls_id, inst_id, result)
+
     def mesh_obj(self, obj_id: int) -> bytes:
         """GET /mesh — scene-frame colored .obj of one object (0 =
         background), extracted live from the field (mesher/meshing.py::
@@ -235,14 +299,10 @@ class SceneServer:
         ver = (int(self.session.state.step),
                len(getattr(self.session, "adopted_instances", [])))
         key = (obj_id, ver)
+        # a cache hit runs on rank 0 alone: it broadcasts nothing
         data = self._mesh_cache.get(key)
         if data is None:
-            from catnerf_torch.mesher.meshing import mesh_object
-
-            mesh = mesh_object(self.session, obj_id)
-            if mesh is None:
-                raise ValueError(f"object {obj_id} produced no surface")
-            data = mesh.obj_bytes()
+            data = self._on_every_rank("_mesh", obj_id)
             # bound host memory by BYTES, not entries: a background mesh
             # at 5 mm voxels serializes to hundreds of MB. An entry larger
             # than the whole budget is returned but never cached (caching
@@ -256,24 +316,37 @@ class SceneServer:
                 self._mesh_cache[key] = data
         return data
 
+    def _mesh(self, obj_id: int) -> bytes | None:
+        """The .obj bytes of one object, meshed over every rank of a
+        sharded server (the followers serialize nothing)."""
+        from catnerf_torch.mesher.meshing import mesh_object
+
+        mesh = mesh_object(self.session, obj_id,
+                           device_mesh=self.device_mesh)
+        if mesh is None:
+            raise ValueError(f"object {obj_id} produced no surface")
+        return mesh.obj_bytes() if pmesh.is_main() else None
+
     def render_scene_frame(self, frame: int, width: int, height: int,
                            n_bins: int) -> np.ndarray:
+        if frame not in self.session.sample_dict:  # before any broadcast
+            raise KeyError(f"unknown frame {frame}")
         T = np.asarray(self.session.sample_dict[frame]["T"], np.float32)
-        img, _, _ = render_scene_view(self.session, T,
-                                      default_orbit_cam(width, height),
-                                      near=0.05, far=scene_far(self.session),
-                                      n_bins=n_bins)
-        return img
+        return self._on_every_rank("_scene", T, width, height, n_bins)
 
     def render_scene_orbit(self, az_deg: float, el_deg: float, radius: float,
                            center, width: int, height: int,
                            n_bins: int) -> np.ndarray:
         T = look_at(orbit_eye(np.deg2rad(az_deg), np.deg2rad(el_deg),
                               radius, center), center)
+        return self._on_every_rank("_scene", T, width, height, n_bins)
+
+    def _scene(self, T, width: int, height: int, n_bins: int) -> np.ndarray:
         img, _, _ = render_scene_view(self.session, T,
                                       default_orbit_cam(width, height),
                                       near=0.05, far=scene_far(self.session),
-                                      n_bins=n_bins)
+                                      n_bins=n_bins,
+                                      device_mesh=self.device_mesh)
         return img
 
 
@@ -556,11 +629,47 @@ def serve(session, port: int = 8765, host: str = "127.0.0.1",
     return httpd
 
 
-#: what sharded serving waits for
-SHARDED_SERVING = (
-    "serve --sharded is not in the port yet: rank 0 would serve HTTP while "
-    "the other ranks follow each request's tile loop (ROADMAP.md Queue 1, "
-    "item 4h)")
+def follow(scene_server: SceneServer) -> int:
+    """Every rank but 0 of a sharded server: make each call rank 0
+    broadcasts (`SceneServer._on_every_rank`) until its stop, then return
+    0. A call that raises here raised on rank 0 too, which answers the
+    request with it; the loop goes on."""
+    while True:
+        op, args = pmesh.broadcast_object(None, group=scene_server._group)
+        if op == _STOP:
+            return 0
+        if op not in _FOLLOWED:
+            raise RuntimeError(f"follow: unknown call {op!r}")
+        try:
+            getattr(scene_server, op)(*args)
+        except Exception as e:  # noqa: BLE001 (rank 0 reports it)
+            print(f"follow: {op} raised {e!r}", file=sys.stderr, flush=True)
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def serve_sharded(scene_server: SceneServer, httpd: HTTPServer) -> int:
+    """Rank 0 of a sharded server: serve until `httpd.shutdown()` (from
+    another thread), a KeyboardInterrupt or SIGTERM, then, hazard
+    shutdown, broadcast the stop so that every follower returns, and
+    close the socket. Returns 0."""
+    import signal
+
+    main_thread = threading.current_thread() is threading.main_thread()
+    if main_thread:
+        previous = signal.signal(signal.SIGTERM, _interrupt)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if main_thread:
+            signal.signal(signal.SIGTERM, previous)
+        scene_server.stop()
+        httpd.server_close()
+    return 0
 
 
 def main(argv=None) -> int:
@@ -576,35 +685,47 @@ def main(argv=None) -> int:
                         help="render the default-size views once before "
                              "accepting requests")
     parser.add_argument("--sharded", action="store_true",
-                        help="shard scene-composite tiles over every "
-                             "process (not in the port yet: raises, "
-                             "ROADMAP.md item 4h)")
+                        help="shard /scene composites and /mesh over every "
+                             "process (torchrun --nproc-per-node N; "
+                             "identical pixels and bytes)")
     args = parser.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(SHARDED_SERVING)
 
-    session = restore_session(args)
-    scene_server = SceneServer(session,
-                               ckpt_dir=os.path.join(args.logdir, "ckpt"))
-    if args.warmup:
-        import time
-
-        t0 = time.time()
-        warmup(scene_server)
-        print(f"warmup done in {time.time() - t0:.1f}s", flush=True)
-    httpd = serve(session, port=args.port, host=args.host,
-                  scene_server=scene_server)
-    print(f"serving {len(session.cls_ids)} categories on {session.device} "
-          f"at http://{args.host}:{httpd.server_address[1]} (endpoints: "
-          f"/health /object /scene /edit /mesh /ingest)",
-          flush=True)
+    device_mesh = (pmesh.cli_mesh(args.device, "--sharded")
+                   if args.sharded else None)
     try:
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        session = restore_session(args)
+        scene_server = SceneServer(session,
+                                   ckpt_dir=os.path.join(args.logdir, "ckpt"),
+                                   device_mesh=device_mesh)
+        if device_mesh is not None and not pmesh.is_main():
+            return follow(scene_server)
+        if args.warmup:
+            import time
+
+            t0 = time.time()
+            warmup(scene_server)
+            print(f"warmup done in {time.time() - t0:.1f}s", flush=True)
+        httpd = serve(session, port=args.port, host=args.host,
+                      scene_server=scene_server)
+        if device_mesh is not None:
+            print(f"scene renders sharded over {device_mesh.size()} "
+                  f"processes", flush=True)
+        print(f"serving {len(session.cls_ids)} categories on "
+              f"{session.device} at "
+              f"http://{args.host}:{httpd.server_address[1]} (endpoints: "
+              f"/health /object /scene /edit /mesh /ingest)", flush=True)
+        if device_mesh is not None:
+            return serve_sharded(scene_server, httpd)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.server_close()
+        return 0
     finally:
-        httpd.server_close()
-    return 0
+        if device_mesh is not None:
+            pmesh.shutdown()
 
 
 if __name__ == "__main__":

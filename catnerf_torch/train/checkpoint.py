@@ -105,11 +105,11 @@ def save_session_checkpoint(ckpt_dir: str, session, iteration: int) -> str:
     package's records: cls, id, extent, obj_tensor). Without the sidecar a
     restart loses adoptees entirely: the fresh session's code tables have
     neither their (possibly grown) shape nor their sim(3)/extent
-    metadata."""
-    shard = getattr(session, "shard", None)
-    path = save_checkpoint(ckpt_dir, session.state, iteration, shard=shard)
-    if shard is not None or not pmesh.is_main():
-        # a sharded session adopts nothing (fit.adopt_instance raises)
+    metadata. A sharded session (every rank calls this) writes the same
+    sidecar, from rank 0."""
+    path = save_checkpoint(ckpt_dir, session.state, iteration,
+                           shard=getattr(session, "shard", None))
+    if not pmesh.is_main():
         return path
     adopted = getattr(session, "adopted_instances", [])
     sidecar = f"{path}.adopted.json"

@@ -335,10 +335,13 @@ class TrainingSession:
     def full_params(self):
         """Every parameter, whole: the session's own, or on a sharded
         session the category shards gathered over 'model' (a collective:
-        every rank calls it), kept until the state changes."""
+        every rank calls it), kept until the state changes: a new state,
+        a step, or an adoption, which writes the code tables in place (the
+        scene render's staging cache keys on it too)."""
         if self.shard is None:
             return self.state.params
-        key = (id(self.state), int(self.state.step))
+        key = (id(self.state), int(self.state.step),
+               len(self.adopted_instances))
         if self._full_params is None or self._full_params[0] != key:
             from catnerf_torch.parallel.sharding import gather_params
 

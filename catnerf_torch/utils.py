@@ -1,6 +1,9 @@
 """Small shared utilities: the named phase-timing registry (a copy of
 `phase_add`/`phase_timer` from the JAX package's utils.py, ref:
-src/scene_cateogries.py:10-22), device resolution and `device_trace`."""
+src/scene_cateogries.py:10-22), device resolution, `device_trace`, and
+the reference's misc helpers (`performance_measure`, `to8b`,
+`load_matrix_from_txt`, `importance_sampling_coords`, ref:
+src/utils.py:322-327, 493-526)."""
 
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ import os
 import threading
 import time
 
+import numpy as np
 import torch
 
 _PHASE_TIMINGS: dict[str, dict[str, float]] = {}
@@ -31,6 +35,16 @@ def phase_reset(group: str) -> None:
     """Forget the seconds recorded so far in `group`."""
     with _PHASE_LOCK:
         _PHASE_TIMINGS.pop(group, None)
+
+
+def reset_phase_timings(group: str | None = None) -> None:
+    """The JAX package's name: phase_reset(group), or every group when
+    `group` is None."""
+    if group is not None:
+        phase_reset(group)
+        return
+    with _PHASE_LOCK:
+        _PHASE_TIMINGS.clear()
 
 
 @contextlib.contextmanager
@@ -83,3 +97,44 @@ def device_trace(log_dir: str, device: str | torch.device = "cpu"):
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+@contextlib.contextmanager
+def performance_measure(name: str):
+    """Wall-clock timing of the block, printed in ms (ref:
+    src/scene_cateogries.py:10-22); `device_trace` profiles the card."""
+    t0 = time.perf_counter_ns()
+    try:
+        yield
+    finally:
+        dt_ms = (time.perf_counter_ns() - t0) / 1e6
+        print(f"{name} execution time: {dt_ms:.2f} ms")
+
+
+def to8b(x: np.ndarray) -> np.ndarray:
+    """(ref: src/utils.py:493)."""
+    return (255 * np.clip(x, 0, 1)).astype(np.uint8)
+
+
+def load_matrix_from_txt(path: str, shape=(4, 4)) -> np.ndarray:
+    """(ref: src/utils.py:322-327)."""
+    return np.loadtxt(path).reshape(shape)
+
+
+def importance_sampling_coords(weights: torch.Tensor, n_samples: int,
+                               u: torch.Tensor | None = None):
+    """Inverse-CDF importance sampling over per-bin weights [..., n_bins]
+    (ref: src/utils.py:495-526). u [..., n_samples]: the uniforms (the
+    JAX package draws them from its key); None takes the deterministic
+    linspace(0, 1). Returns (bin indices [..., n_samples], u, cdf)."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, -1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    if u is None:
+        u = torch.linspace(0.0, 1.0, n_samples, dtype=cdf.dtype,
+                           device=cdf.device).expand(*cdf.shape[:-1],
+                                                     n_samples)
+    # u >= cdf counts the bins whose cumulative mass is below u: the
+    # searchsorted side='right' the JAX package computes by broadcast
+    inds = torch.sum(u[..., :, None] >= cdf[..., None, :], dim=-1)
+    return torch.clamp(inds, 0, cdf.shape[-1] - 1), u, cdf

@@ -138,6 +138,44 @@ def test_cuda_occupancy_kernel_matches_plain(cuda_device, N):
         assert torch.equal(x, z)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [77, 16801])
+@pytest.mark.parametrize("hidden", [32, 64, 100, 256])
+def test_cuda_occupancy_kernel_at_any_width(cuda_device, hidden, N):
+    """Kernels 3 and 4 at a background width other than 128 (100 runs
+    zero-padded onto 128): the forward within FWD_TOL of the plain
+    version, each gradient within grad_bound of the float64 plain version
+    (rows near a ReLU kink given dout = 0), two runs bitwise equal, one
+    launch each."""
+    gen = torch.Generator().manual_seed(hidden + N)
+    flat = tff.pack(tff._oc_modules(OccupancyMap.init(
+        gen, hidden_size=hidden))).detach()
+    B = UniDirsEmbed.init().B.detach()
+    pts = torch.randn(N, 3, generator=gen) * 2.0
+    dout = torch.randn(N, 4, generator=gen)
+    dout = dout * (tff.occupancy_relu_margin(flat, B, pts, 0.2, hidden)
+                   >= 1e-5)[:, None]
+    args = [x.to(cuda_device) for x in (flat, B, pts)]
+    dd = dout.to(cuda_device)
+    before = dict(tff.LAUNCHES)
+    out = tff.occupancy_fwd(*args, 0.2, hidden)
+    _close(out, tff.occupancy_fwd_plain(*args, 0.2, hidden), FWD_TOL)
+    got = tff.occupancy_bwd(*args, dd, 0.2, hidden)
+    assert tff.LAUNCHES["occupancy_fwd"] == before["occupancy_fwd"] + 1
+    assert tff.LAUNCHES["occupancy_bwd"] == before["occupancy_bwd"] + 1
+    plain = tff.occupancy_bwd_plain(*args, dd, 0.2, hidden)
+    exact = tff.occupancy_bwd_plain(*(x.double() for x in args),
+                                    dd.double(), 0.2, hidden)
+    again = tff.occupancy_bwd_cuda(*args, dd, 0.2, hidden)
+    for i, (x, y, e, z) in enumerate(zip(got, plain, exact, again)):
+        lim = tff.grad_bound(e, y, GRAD_TOL,
+                             tff.oc_layers(hidden) if i == 0 else None)
+        err = (x.double() - e).abs()
+        assert bool((err <= lim).all()), (
+            f"output {i}: {float((err / lim).max()):.2f} x its bound")
+        assert torch.equal(x, z)
+
+
 def _copy_view(v):
     """A copy of a column view inside a buffer as wide as its own."""
     ld = v.stride(-2)

@@ -154,6 +154,112 @@ def test_occupancy_input_grads_match_jax(oc_case):
     _close(tpts.grad, g[2], GRAD_TOL)
 
 
+#: widths of the background other than the shipped 128: the instantiated
+#: 32, 64 and 256, and 100, which the kernels run zero-padded to 128
+WIDTHS = (32, 64, 100, 256)
+RELU_TIE = 1e-5
+
+
+@pytest.fixture(scope="module", params=WIDTHS, ids=lambda h: f"hidden{h}")
+def oc_width_case(request):
+    """The background at another width, N=77 points, one cotangent: the
+    JAX kernel's forward and vjp in interpret mode, and the port's inputs,
+    every point with a ReLU pre-activation within RELU_TIE of zero shifted
+    first (ROADMAP.md's rule for a float32 backward)."""
+    hidden = request.param
+    rng = np.random.default_rng(10 + hidden)
+    fc = occupancy.init_params(jax.random.PRNGKey(hidden), hidden_size=hidden)
+    B = (embedding.ICOSAHEDRON_DIRS
+         + 0.05 * rng.normal(size=(21, 3))).astype(np.float32)
+    pts = (rng.normal(size=(77, 3)) * 2.0).astype(np.float32)
+    dout = rng.normal(size=(77, 4)).astype(np.float32)
+    tfc = OccupancyMap(convert.layers_from_jax(jax.tree.map(np.asarray, fc)))
+    flat = tff.pack(tff._oc_modules(tfc)).detach()
+    for _ in range(8):
+        tied = tff.occupancy_relu_margin(flat, torch.tensor(B),
+                                         torch.tensor(pts), 0.2,
+                                         hidden) < RELU_TIE
+        if not tied.any():
+            break
+        pts[tied.numpy()] += 1e-3
+    else:
+        raise AssertionError("ReLU ties left after 8 shifts")
+
+    def field(fc, B, pts):
+        a, c = jff.occupancy_fused_apply(fc, {"B": B}, pts, scale=5.0,
+                                         interpret=True)
+        return jnp.concatenate([a[:, None], c], -1)
+
+    out, vjp = jax.vjp(field, fc, jnp.asarray(B), jnp.asarray(pts))
+    gfc, gB, gpts = vjp(jnp.asarray(dout))
+    gmod = OccupancyMap(convert.layers_from_jax(jax.tree.map(np.asarray,
+                                                             gfc)))
+    return dict(hidden=hidden, out=np.asarray(out),
+                grads=(tff.pack(tff._oc_modules(gmod)).detach(),
+                       torch.tensor(np.asarray(gB)),
+                       torch.tensor(np.asarray(gpts))),
+                args=(flat, torch.tensor(B), torch.tensor(pts)),
+                dout=torch.tensor(dout))
+
+
+def test_occupancy_forward_matches_jax_at_any_width(oc_width_case):
+    """The port's background at the width read from its weights (plain
+    version on the CPU): within 1e-5 of the output's scale."""
+    c = oc_width_case
+    assert c["args"][0].shape == (tff.n_params(tff.oc_layers(c["hidden"])),)
+    out = tff.occupancy_fwd(*c["args"], 0.2, c["hidden"])
+    assert out.shape == (77, 4)
+    scale = float(np.abs(c["out"]).max())
+    assert float(np.abs(out.numpy() - c["out"]).max()) <= FWD_TOL * scale
+
+
+def test_occupancy_backward_matches_jax_at_any_width(oc_width_case):
+    """The JAX kernel's gradients and the port's plain ones, each within
+    fused_field.grad_bound of the port's plain backward in float64 (each
+    layer's weights and biases a block of the flat gradient)."""
+    c = oc_width_case
+    h = c["hidden"]
+    got = tff.occupancy_bwd(*c["args"], c["dout"], 0.2, h)
+    exact = tff.occupancy_bwd_plain(*(x.double() for x in c["args"]),
+                                    c["dout"].double(), 0.2, h)
+    for i, (theirs, mine, e) in enumerate(zip(c["grads"], got, exact)):
+        lim = tff.grad_bound(e, mine, GRAD_TOL,
+                             tff.oc_layers(h) if i == 0 else None)
+        for x in (theirs, mine):
+            assert x.shape == e.shape
+            assert bool(((x.double() - e).abs() <= lim).all()), (i, float(
+                ((x.double() - e).abs() / lim).max()))
+
+
+@pytest.mark.parametrize("hidden,width", [(1, 32), (32, 32), (33, 64),
+                                          (100, 128), (128, 128),
+                                          (129, 256), (256, 256)])
+def test_each_width_runs_on_the_next_instantiation(hidden, width):
+    """A width runs on the smallest instantiated width at least as wide,
+    its extra units zero: padding and slicing back are exact inverses,
+    and the padded field's plain forward is the narrower one's."""
+    assert tff.oc_kernel_width(hidden) == width
+    gen = torch.Generator().manual_seed(hidden)
+    flat = tff.pack(tff._oc_modules(OccupancyMap.init(
+        gen, hidden_size=hidden))).detach()
+    padded = tff.pad_width(flat, hidden, width)
+    assert padded.shape == (tff.n_params(tff.oc_layers(width)),)
+    assert torch.equal(tff.unpad_width(padded, hidden, width), flat)
+    assert int(padded.count_nonzero()) == int(flat.count_nonzero())
+    B, pts = torch.randn(21, 3, generator=gen), torch.randn(40, 3,
+                                                            generator=gen)
+    torch.testing.assert_close(
+        tff.occupancy_fwd_plain(padded, B, pts, 0.2, width),
+        tff.occupancy_fwd_plain(flat, B, pts, 0.2, hidden),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hidden", [0, 257])
+def test_a_width_past_the_instantiations_raises(hidden):
+    with pytest.raises(ValueError, match="hidden widths 1 to 256"):
+        tff.oc_kernel_width(hidden)
+
+
 def test_plain_path_on_cpu_launches_no_kernel(cn_case):
     """CPU tensors take the plain version; no kernel launch is counted."""
     before = dict(tff.LAUNCHES)

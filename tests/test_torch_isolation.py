@@ -253,7 +253,7 @@ def test_the_fit_cli_without_device_raises_when_there_is_no_gpu(
 
 @pytest.mark.parametrize("change,match", [
     (dict(bf16_activations=True), "bf16_activations"),
-    (dict(hidden_feature_size_bg=64), "hidden_feature_size_bg=128"),
+    (dict(hidden_feature_size_bg=257), "up to 256"),
 ])
 def test_unsupported_configuration_raises(change, match):
     cfg = Config()

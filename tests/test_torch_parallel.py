@@ -7,9 +7,9 @@ The ranks are spawned processes (tests/torch_parallel_ranks.py), joined by
 a FileStore under tmp_path, one thread each, importing no jax; the JAX
 side runs here. Spawns: world 4 (the 2 x 2 and 4 x 1 steps, the superstep,
 the session and its checkpoint), world 2 (the 2 x 1 and 1 x 2 steps, grid
-evaluation, meshes, a scene render, the checkpoint restored sharded),
-world 1 (the 1 x 1 step and superstep, bitwise), and two ranks under
-`torch.distributed.run` for the CLI.
+evaluation, meshes, a scene render, the checkpoint restored sharded,
+adoption into sharded sessions), world 1 (the 1 x 1 step and superstep,
+bitwise), and two ranks under `torch.distributed.run` for the CLI.
 
 Bounds:
 - against the JAX package's unjitted step (tests/test_torch_step.py's
@@ -23,7 +23,9 @@ Bounds:
 - bitwise: the 1 x 1 sharded step and superstep against the unsharded
   ones, `sample_batch`'s two gather modes against JAX's on the same
   indices, grid evaluation, `.obj` files and scene renders against the
-  unsharded port, checkpoints across layouts.
+  unsharded port, checkpoints across layouts, adoption into and restores
+  of adopted checkpoints into 1 x 2 and 2 x 1 sessions against the
+  unsharded port's (held to the JAX package's by tests/test_torch_fit.py).
 """
 
 from __future__ import annotations
@@ -44,18 +46,23 @@ import torch
 from catnerf_tpu.config import Config as JConfig
 from catnerf_tpu.data import device_buffer as jdb
 from catnerf_tpu.data.synthetic import make_scene as jmake_scene
+from catnerf_tpu import fit as jfit
 from catnerf_tpu.experimental import fused_field as jff
 from catnerf_tpu.train import step as jstep
 from catnerf_tpu.train.loop import TrainingSession as JSession
+from catnerf_torch import convert
 from catnerf_torch.config import Config
 from catnerf_torch.data import device_buffer as tdb
 from catnerf_torch.data.synthetic import make_scene
 from catnerf_torch.train import checkpoint as ckpt
 from catnerf_torch.train.loop import TrainingSession
+from catnerf_torch.train.state import make_train_state, state_dict
+from test_torch_render_views import _soften
 from test_torch_superstep import BF16_RTOL
 from test_torch_step import (METRIC_RTOL, SCENE, _configure, _jbatch,
                              _sessions, _untie_relus, jax_draws)
-from torch_parallel_ranks import SCENE5, launch, small_config
+from torch_parallel_ranks import (SCENE5, _adopt, fused_config, launch,
+                                  render_frame0, session, small_config)
 
 torch.set_num_threads(1)
 
@@ -102,27 +109,102 @@ def jax_metrics():
     return jax.tree.map(np.asarray, jm)
 
 
+@functools.cache
+def adoption_inputs():
+    """The adoption checks' records, codes and weights: rec (its codes
+    `codes`) into the first category, rec2 (`codes2`) into the second,
+    each at the pose and extent of the category's first instance, so that
+    the adoptee shows in frame 0; the JAX initial weights with each
+    occupancy head softened (tests/test_torch_render_views.py `_soften`),
+    so that objects show in a composite at all; and the JAX session
+    holding them."""
+    jsess, _ = _sessions(0)
+    _soften(jsess, -0.3)
+    tsess = session(fused_config())
+    rng = np.random.default_rng(20)
+    recs, codes = [], []
+    for i, inst_id in ((0, 90), (1, 91)):
+        cat = tsess.categories[i]
+        first = cat.obj_ids[0]
+        recs.append({"cls": tsess.cls_ids[i], "id": inst_id,
+                     "extent": np.asarray(cat.extent_dict[first]).tolist(),
+                     "obj_tensor": np.asarray(
+                         cat.object_tensor_dict[first]).tolist()})
+        codes.append(tuple(rng.normal(0, 0.3, 32).astype(np.float32)
+                           for _ in range(2)))
+    return {"rec": recs[0], "codes": codes[0], "rec2": recs[1],
+            "codes2": codes[1],
+            "params": jax.tree.map(np.asarray, jsess.state.params)}, jsess
+
+
+def adopted_checkpoint(ckpt_dir: str) -> str:
+    """The port's unsharded session on the JAX initial weights, one step
+    (the AdamW moments non-zero), rec adopted, saved with its sidecar."""
+    payload, _ = step_inputs()
+    inputs, _ = adoption_inputs()
+    cfg = fused_config()
+    sess = session(cfg)
+    sess.state = make_train_state(cfg,
+                                  convert.params_from_jax(payload["params0"]))
+    sess.step_once()
+    sess.release_prefetch()
+    _adopt(sess, inputs["rec"], inputs["codes"])
+    return ckpt.save_session_checkpoint(ckpt_dir, sess, sess.iteration)
+
+
+@functools.cache
+def jax_adopted_step():
+    """rec adopted into the JAX session on the softened weights, then the
+    JAX package's unjitted step on the step inputs (as jax_metrics): its
+    metrics, the parameters after it (the port's names) and obj_mask."""
+    payload, _ = step_inputs()
+    inputs, jsess = adoption_inputs()
+    jfit._adopt_slot(jsess, inputs["rec"], *inputs["codes"])
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("codenerf_fused_apply", "occupancy_fused_apply"):
+            mp.setattr(jff, name, jax.jit(getattr(jff, name),
+                                          static_argnames=("scale",
+                                                           "interpret")))
+        train_step = jstep.make_train_step(jsess.cfg, jsess.obj_mask,
+                                           jit=False)
+        state, jm = train_step(jsess.state,
+                               _jbatch(jstep.CategoryBatch, payload["cat"]),
+                               _jbatch(jstep.BackgroundBatch, payload["bg"]),
+                               jsess.base_key)
+    params = convert.params_from_jax(jax.tree.map(np.asarray, state.params))
+    return (jax.tree.map(np.asarray, jm), params.state_dict(),
+            np.asarray(jsess.obj_mask))
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every spawn, in order: world 4, then world 2 (which restores world
-    4's checkpoint), then world 1; {world: {check: [each rank's]}}. The
-    JAX step runs here meanwhile."""
+    4's checkpoint and an adopted one), then world 1; {world: {check:
+    [each rank's]}}. The JAX steps run here meanwhile."""
     payload, _ = step_inputs()
+    inputs, _ = adoption_inputs()
     out = {}
 
     def spawns():
         for world in (4, 2, 1):
             arg = payload
+            tmp = str(tmp_path_factory.mktemp(f"w{world}"))
             if world == 2:
+                adopt = {**inputs, "ckpt": adopted_checkpoint(
+                    os.path.join(tmp, "adopted"))}
+                adopt.update({k: payload[k]
+                              for k in ("cat", "bg", "u_cat", "u_bg")})
                 arg = {"step": payload,
-                       "path": out[4]["session"][0]["path"]}
-            ranks = launch(f"world{world}", world,
-                           str(tmp_path_factory.mktemp(f"w{world}")), arg)
+                       "path": out[4]["session"][0]["path"],
+                       "adopt": adopt}
+                out["adopted_ckpt"] = adopt["ckpt"]
+            ranks = launch(f"world{world}", world, tmp, arg)
             out[world] = {k: [r[k] for r in ranks] for k in ranks[0]}
 
     with ThreadPoolExecutor(1) as pool:
         done = pool.submit(spawns)
         jax_metrics()
+        jax_adopted_step()
         done.result()
     return out
 
@@ -399,7 +481,154 @@ def _scene5():
 
 
 # ---------------------------------------------------------------------------
-# The CLI under torch.distributed.run, and what still raises
+# Adoption into a sharded session
+# ---------------------------------------------------------------------------
+
+ADOPT_MESHES = [(2, 1), (1, 2)]
+
+
+def _adoption(runs, shape, rank=0):
+    return runs[2]["adoption"][rank][shape]
+
+
+def _unsharded(params=None, ckpt_path=None):
+    """The port's unsharded session of the adoption checks: on `params`
+    (JAX numpy leaves), or restored from `ckpt_path`."""
+    cfg = fused_config()
+    sess = session(cfg)
+    if params is not None:
+        sess.state = make_train_state(cfg, convert.params_from_jax(params))
+    if ckpt_path is not None:
+        ckpt.restore_session_checkpoint(ckpt_path, sess)
+    return sess
+
+
+@functools.cache
+def unsharded_adoption():
+    """rec adopted into the unsharded session on the softened weights:
+    its state, obj_mask, records and the frame-0 render after it (one
+    before it first, as the ranks render)."""
+    inputs, _ = adoption_inputs()
+    sess = _unsharded(params=inputs["params"])
+    render_frame0(sess)
+    _adopt(sess, inputs["rec"], inputs["codes"])
+    return (state_dict(sess.state), sess.obj_mask, sess.adopted_instances,
+            render_frame0(sess))
+
+
+@functools.cache
+def unsharded_restore(path: str, then_adopt: bool = False):
+    sess = _unsharded(ckpt_path=path)
+    if then_adopt:
+        inputs, _ = adoption_inputs()
+        _adopt(sess, inputs["rec2"], inputs["codes2"])
+    return state_dict(sess.state), sess
+
+
+@pytest.mark.parametrize("shape", ADOPT_MESHES, ids=str)
+def test_sharded_adoption_gathers_to_the_unsharded_one(runs, shape):
+    """Every parameter and AdamW tensor, the obj_mask and the records, on
+    both ranks: bitwise the unsharded session's after the same adoption."""
+    want, mask, records, _ = unsharded_adoption()
+    for rank in (0, 1):
+        got = _adoption(runs, shape, rank)
+        _state_equal(want, got["adopted"])
+        assert got["adopted"]["params"]["codes.shape"].shape[1] == 3
+        assert torch.equal(got["obj_mask"], mask)
+        assert got["records"] == records
+
+
+@pytest.mark.parametrize("shape", ADOPT_MESHES, ids=str)
+def test_a_sharded_render_after_a_sharded_adoption_sees_the_adoptee(
+        runs, shape):
+    """The composite after the adoption is the unsharded session's after
+    the same adoption, and not the one before it: the gathered parameters
+    (`full_params`) are cached by the adopted count too."""
+    after = unsharded_adoption()[3]
+    for rank in (0, 1):
+        before, got = _adoption(runs, shape, rank)["render"]
+        assert all(np.array_equal(a, b) for a, b in zip(got, after))
+        assert not np.array_equal(got[0], before[0])
+
+
+@pytest.mark.parametrize("shape", ADOPT_MESHES, ids=str)
+def test_the_first_sharded_step_after_adoption_matches_jax(runs, shape):
+    """The step after adoption against the JAX package's step on the
+    adopted state: the metrics within METRIC_RTOL, the parameters by the
+    JAX package's rule (rtol 5e-3, atol 2e-4, mean |diff| under 2e-5).
+
+    The code tables on their valid slots only: the JAX package's
+    `jnp.linalg.norm` has a NaN gradient at a zero code, which its mask
+    multiplies by 0, so the zero slot the growth pads onto the other
+    category comes out NaN there after one step; torch's `vector_norm`
+    takes 0 at zero, and the port's padded slot stays 0 (ROADMAP.md
+    Queue 3)."""
+    jm, params, mask = jax_adopted_step()
+    got = _adoption(runs, shape)
+    np.testing.assert_array_equal(got["obj_mask"].numpy(), mask)
+    for field in jstep.StepMetrics._fields:
+        np.testing.assert_allclose(_np(got["metrics"][field]),
+                                   np.asarray(getattr(jm, field)),
+                                   rtol=METRIC_RTOL, atol=1e-7,
+                                   err_msg=field)
+    valid = mask.astype(bool)
+    assert not valid.all()
+    for k, want in params.items():
+        a, b = _np(want), _np(got["stepped"][k])
+        if k.startswith("codes."):
+            assert np.isnan(a[~valid]).all() and (b[~valid] == 0).all(), k
+            a, b = a[valid], b[valid]
+        np.testing.assert_allclose(b, a, rtol=5e-3, atol=2e-4, err_msg=k)
+        assert np.mean(np.abs(a - b)) < 2e-5, (k, np.mean(np.abs(a - b)))
+
+
+@pytest.mark.parametrize("shape", ADOPT_MESHES, ids=str)
+def test_an_adopted_checkpoint_restores_sharded_and_adopts_again(runs,
+                                                                 shape):
+    """An adopted checkpoint restored into a session sharded before the
+    restore, then a second instance adopted on top: each gathered bitwise
+    the unsharded session's after the same restore and adoption."""
+    path = runs["adopted_ckpt"]
+    restored, _ = unsharded_restore(path)
+    again, sess = unsharded_restore(path, then_adopt=True)
+    for rank in (0, 1):
+        got = _adoption(runs, shape, rank)
+        assert got["restored_rows"] == 2 // shape[1]
+        _state_equal(restored, got["restored"])
+        _state_equal(again, got["restored_adopted"])
+        assert got["restored_records"] == sess.adopted_instances
+
+
+@pytest.mark.parametrize("which", ["saved", "resumed"])
+def test_a_sharded_save_writes_the_sidecar(runs, which):
+    """A 1 x 2 session that carries adoptees and is saved writes the
+    `.adopted.json` sidecar as the unsharded session does: `saved` adopted
+    into the sharded session, `resumed` restored unsharded and then
+    sharded (the training CLI's --resume --train-sharded). A fresh
+    unsharded session restores either with the adoptees' records, their
+    metadata and every tensor bitwise."""
+    got = _adoption(runs, (1, 2))
+    path = got[which]
+    assert all(_adoption(runs, (1, 2), r)[which] == path for r in (0, 1))
+    with open(f"{path}.adopted.json") as f:
+        records = json.load(f)
+    want, sess = unsharded_restore(runs["adopted_ckpt"],
+                                   then_adopt=which == "saved")
+    assert records == sess.adopted_instances
+    fresh = _unsharded(ckpt_path=path)
+    assert fresh.adopted_instances == records
+    _state_equal(want, state_dict(fresh.state))
+    for rec in records:
+        cat = fresh.categories[fresh.cls_ids.index(rec["cls"])]
+        np.testing.assert_array_equal(cat.extent_dict[rec["id"]],
+                                      rec["extent"])
+        np.testing.assert_array_equal(cat.object_tensor_dict[rec["id"]],
+                                      rec["obj_tensor"])
+        assert cat.inst_id_to_index[rec["id"]] == 2
+
+
+# ---------------------------------------------------------------------------
+# The CLI under torch.distributed.run
 # ---------------------------------------------------------------------------
 
 def _cli(tmp_path, nproc, *args) -> subprocess.CompletedProcess:
@@ -442,17 +671,3 @@ def test_cli_trains_saves_resumes_and_meshes_sharded(tmp_path):
     single = {p.name: p.read_bytes()
               for p in (tmp_path / "scene_mesh").glob("*.obj")}
     assert single == sharded
-
-
-def test_serve_sharded_and_sharded_adoption_raise_naming_item_4h():
-    from catnerf_torch import fit, serve
-
-    with pytest.raises(NotImplementedError, match="item 4h"):
-        serve.main(["--logdir", "unused", "--synthetic", "--sharded",
-                    "--device", "cpu"])
-
-    class Sharded:
-        shard = object()
-
-    with pytest.raises(NotImplementedError, match="item 4h"):
-        fit._adopt_slot(Sharded(), {"cls": 1, "id": 9}, None, None)

@@ -334,12 +334,6 @@ def test_bad_requests_are_structured_errors(servers):
     assert code == 404 and "/nope" in body["error"]
 
 
-def test_sharded_serving_raises_and_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 4h"):
-        tserve.main(["--logdir", "unused", "--synthetic", "--sharded",
-                     "--device", "cpu"])
-
-
 def test_serve_cli_end_to_end(tmp_path):
     """`python -m catnerf_torch.serve --device cpu --port 0` on a
     checkpoint of the --synthetic scene's session: it prints its port,

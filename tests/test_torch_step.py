@@ -2,7 +2,9 @@
 package's, on a 2-category x 2-instance 48x36 scene (latent_dim 32), in
 two configurations: the fused-kernel step (use_fused_kernels=True,
 bf16_activations=False) and the strict-parity step
-(`Config.apply_strict_parity()`: the XLA-path field modules).
+(`Config.apply_strict_parity()`: the XLA-path field modules). The fused
+step also runs once with a background 64 wide (the port's background
+kernels take any width to 256; the JAX kernel reads it from its weights).
 
 Both start from the same weights (the JAX init, converted), read
 byte-equal batches, and the port is handed JAX's sampling uniforms, drawn
@@ -41,9 +43,11 @@ torch.set_num_threads(1)
 SCENE = dict(n_frames=2, width=48, height=36, n_categories=2,
              insts_per_cat=2, seed=0)
 SEEDS = (0, 2, 4)
-# (seed, strict): the one-step checks run the fused step on every seed and
-# the strict-parity step on two
-ONE_STEP_CASES = [(s, False) for s in SEEDS] + [(0, True), (2, True)]
+# (seed, strict, background width): the one-step checks run the fused step
+# on every seed, and on seed 0 with a background 64 wide, and the
+# strict-parity step on two
+ONE_STEP_CASES = ([(s, False, 128) for s in SEEDS] + [(0, False, 64)]
+                  + [(0, True, 128), (2, True, 128)])
 METRIC_RTOL = 1e-5
 GRAD_TOL = 2e-4
 # A ReLU whose pre-activation lies this close to zero (absolute; they are
@@ -53,7 +57,9 @@ GRAD_TOL = 2e-4
 RELU_TIE = 1e-5
 
 
-def _configure(cfg, seed=SEEDS[0], strict=False):
+def _configure(cfg, seed=SEEDS[0], strict=False, hidden_bg=None):
+    if hidden_bg is not None:
+        cfg.hidden_feature_size_bg = hidden_bg
     if strict:
         cfg.apply_strict_parity()
     else:
@@ -67,12 +73,12 @@ def _configure(cfg, seed=SEEDS[0], strict=False):
     return cfg
 
 
-def _sessions(seed, strict=False):
+def _sessions(seed, strict=False, hidden_bg=None):
     js = jmake_scene(**SCENE)
-    jsess = JSession(_configure(JConfig(), seed, strict), js.inst_dict,
-                     js.sample_dict, cam=js.cam)
+    jsess = JSession(_configure(JConfig(), seed, strict, hidden_bg),
+                     js.inst_dict, js.sample_dict, cam=js.cam)
     ts = make_scene(**SCENE)
-    cfg = _configure(Config(), seed, strict)
+    cfg = _configure(Config(), seed, strict, hidden_bg)
     tsess = TrainingSession(cfg, ts.inst_dict, ts.sample_dict, cam=ts.cam,
                             device="cpu")
     tsess.state = make_train_state(
@@ -168,7 +174,8 @@ def _jbatch(cls, arrays):
 
 
 @pytest.fixture(scope="module", params=ONE_STEP_CASES,
-                ids=lambda c: f"{'strict-' if c[1] else ''}seed{c[0]}")
+                ids=lambda c: (f"{'strict-' if c[1] else ''}seed{c[0]}"
+                               + (f"-bg{c[2]}" if c[2] != 128 else "")))
 def one_step(request, eager_jax):
     """One step of each side from the same weights, on the seed's batch
     with its ReLU ties shifted away, the port replaying JAX's draws."""
@@ -233,7 +240,8 @@ def test_adamw_update_matches_optax(one_step):
     updates, _ = tx.update(grads, tx.init(params0), params0)
     want = optax.apply_updates(params0, updates)
 
-    tcfg = _configure(Config(), cfg.seed, strict=not cfg.use_fused_kernels)
+    tcfg = _configure(Config(), cfg.seed, strict=not cfg.use_fused_kernels,
+                      hidden_bg=cfg.hidden_feature_size_bg)
     state = make_train_state(tcfg, convert.params_from_jax(params0))
     gtree = convert.params_from_jax(jax.tree.map(np.asarray, grads))
     for p, g in zip(state.params.parameters(), gtree.parameters()):
@@ -242,6 +250,30 @@ def test_adamw_update_matches_optax(one_step):
     got = convert.params_to_numpy(state.params)
     jax.tree.map(lambda a, b: np.testing.assert_allclose(
         b, np.asarray(a), rtol=1e-6, atol=1e-6), want, got)
+
+
+def test_a_fused_background_runs_at_its_width(monkeypatch):
+    """A fused session with a background 64 wide steps through the fused
+    background function at width 64 (its plain version on the CPU, so no
+    kernel launch is counted); a width past the kernels' 256 raises."""
+    from catnerf_torch.kernels import fused_field
+
+    _, tsess = _sessions(0, hidden_bg=64)
+    calls, real = [], fused_field.occupancy_fwd
+
+    def spy(*args):
+        calls.append(args[-1])
+        return real(*args)
+
+    monkeypatch.setattr(fused_field, "occupancy_fwd", spy)
+    before = dict(fused_field.LAUNCHES)
+    assert np.isfinite(float(tsess.step_once().total))
+    tsess.release_prefetch()
+    assert calls == [64] and fused_field.LAUNCHES == before
+    cfg = _configure(Config(), hidden_bg=fused_field.OC_MAX_HIDDEN + 1)
+    with pytest.raises(NotImplementedError, match="up to 256"):
+        TrainingSession(cfg, *(lambda s: (s.inst_dict, s.sample_dict))(
+            make_scene(**SCENE)), device="cpu")
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -366,6 +366,198 @@ def evaluation(tmp, p):
     return out
 
 
+def ingest_scene():
+    """tests/test_torch_serve.py's ingest scene: 3 frames of 64 x 48, one
+    category of three spheres, the last held out of training; latent 16,
+    background 32 wide, grid 32 (a /mesh in seconds on one core). Returns
+    (cfg, scene, the training inst_dict, cls_id, the held-out id, its
+    observations as an .npz body)."""
+    import io
+
+    from catnerf_torch.config import Config
+    from catnerf_torch.data.synthetic import make_scene
+
+    cfg = Config()
+    cfg.net_hyperparams.latent_dim = 16
+    cfg.hidden_feature_size_bg = 32
+    cfg.grid_dim = 32
+    scene = make_scene(n_frames=3, width=64, height=48, n_categories=1,
+                       insts_per_cat=3, seed=11)
+    cls_id = [c for c in scene.inst_dict if c != 0][0]
+    held = sorted(scene.inst_dict[cls_id])[-1]
+    train = copy.deepcopy(scene.inst_dict)
+    del train[cls_id][held]
+    frames = sorted(scene.sample_dict)
+    buf = io.BytesIO()
+    np.savez(buf,
+             rgb=np.stack([scene.sample_dict[f]["image"] for f in frames]),
+             depth=np.stack([scene.sample_dict[f]["depth"] for f in frames]),
+             mask=np.stack([scene.sample_dict[f]["obj_mask"] == held
+                            for f in frames]).astype(np.int8),
+             T_wc=np.stack([scene.sample_dict[f]["T"] for f in frames]))
+    return cfg, scene, train, cls_id, held, buf.getvalue()
+
+
+def ingest_session():
+    """A CPU session of ingest_scene's training instances."""
+    from catnerf_torch.train.loop import TrainingSession
+
+    cfg, scene, train, *_ = ingest_scene()
+    return TrainingSession(cfg, train, scene.sample_dict, cam=scene.cam,
+                           device="cpu")
+
+
+#: 48 x 36, added to serve._SIZES while a test's server runs
+SMALL = (48, 36)
+
+
+def serving(tmp, p):
+    """A sharded server over this world's ranks on the checkpoint under
+    p["ckpt_dir"]: rank 0 serves HTTP on a free port while a client
+    thread sends p["requests"] ((name, path, body or None), in order),
+    then shuts the server down; the other ranks follow. Every rank
+    returns its loop's exit value and its session's code tables, obj_mask
+    and adoption records; rank 0 also each answer's (status, bytes)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from catnerf_torch import serve
+    from catnerf_torch.parallel import mesh as pm
+    from catnerf_torch.train import checkpoint as ckpt
+
+    serve._SIZES = (SMALL,) + serve._SIZES
+    sess = ingest_session()
+    ckpt.restore_session_checkpoint(ckpt.latest_checkpoint(p["ckpt_dir"]),
+                                    sess)
+    server = serve.SceneServer(sess, ckpt_dir=p["ckpt_dir"],
+                               device_mesh=pm.make_mesh())
+    out = {}
+    if not pm.is_main():
+        out["exit"] = serve.follow(server)
+    else:
+        httpd = serve.serve(sess, port=0, scene_server=server)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        answers = {}
+
+        def client():
+            try:
+                for name, path, body in p["requests"]:
+                    req = urllib.request.Request(base + path, data=body)
+                    try:
+                        with urllib.request.urlopen(req, timeout=600) as r:
+                            answers[name] = (r.status, r.read())
+                    except urllib.error.HTTPError as e:
+                        answers[name] = (e.code, e.read())
+            finally:
+                httpd.shutdown()
+
+        thread = threading.Thread(target=client)
+        thread.start()
+        out["exit"] = serve.serve_sharded(server, httpd)
+        thread.join()
+        out["answers"] = answers
+    codes = sess.state.params.codes
+    out.update(shape=codes.shape.detach().clone(),
+               texture=codes.texture.detach().clone(),
+               obj_mask=sess.obj_mask.clone(),
+               adopted=sess.adopted_instances)
+    return out
+
+
+#: the scene render of the adoption checks: 40 x 30 x 8 from frame 0
+RENDER_CAM = (40, 30, 35.0, 35.0, 20.0, 15.0)
+RENDER_KW = dict(near=0.05, far=6.0, n_bins=8, chunk=512)
+
+
+def render_frame0(sess, device_mesh=None):
+    from catnerf_torch.data.camera import CameraInfo
+    from catnerf_torch.render_views import render_scene_view
+
+    T = np.asarray(sess.sample_dict[sorted(sess.sample_dict)[0]]["T"],
+                   np.float32)
+    return render_scene_view(sess, T, CameraInfo(*RENDER_CAM),
+                             device_mesh=device_mesh, **RENDER_KW)
+
+
+def _adopt(sess, rec, codes):
+    from catnerf_torch import fit
+
+    fit._adopt_slot(sess, rec, *codes)
+
+
+def _gathered(sess) -> dict:
+    from catnerf_torch.parallel import sharding
+
+    return copy.deepcopy(sharding.gather_state_dict(sess.state, sess.shard))
+
+
+def adoption(tmp, p):
+    """Adoption into a session sharded on each mesh of this world, from
+    one record and its codes (p["rec"], p["codes"]; the same on every
+    rank): (a) into the fused configuration's session on p["params"]
+    sharded before, the gathered state after it, the obj_mask, a sharded
+    scene render before and after it, then one sharded step on the given
+    batch and draws (its metrics, the gathered parameters after it);
+    (b) the adopted checkpoint p["ckpt"] restored into a session sharded
+    before the restore, gathered, then p["rec2"] adopted on top, gathered;
+    at 1 x 2 that session saved sharded (rank 0 writes, with the sidecar);
+    (c) at 1 x 2, p["ckpt"] restored unsharded, then sharded and saved
+    (the training CLI's --resume --train-sharded)."""
+    from catnerf_torch import convert
+    from catnerf_torch.parallel import mesh as pm
+    from catnerf_torch.train import checkpoint as ckpt
+    from catnerf_torch.train import step as step_mod
+    from catnerf_torch.train.state import make_train_state
+
+    cfg = fused_config()
+    cat = step_mod.CategoryBatch(**{k: torch.tensor(v)
+                                    for k, v in p["cat"].items()})
+    bg = step_mod.BackgroundBatch(**{k: torch.tensor(v)
+                                     for k, v in p["bg"].items()})
+    draws = step_mod.StepDraws(torch.tensor(p["u_cat"]),
+                               torch.tensor(p["u_bg"]))
+    out = {}
+    for nd, nm in ((2, 1), (1, 2)):
+        mesh = pm.make_mesh(nd, nm)
+        rec = {}
+        sess = session(cfg)
+        sess.state = make_train_state(cfg,
+                                      convert.params_from_jax(p["params"]))
+        sess.enable_fast_path(2, graph=False, device_mesh=mesh)
+        before = render_frame0(sess, mesh)
+        _adopt(sess, p["rec"], p["codes"])
+        rec["adopted"] = _gathered(sess)
+        rec["obj_mask"] = sess.obj_mask.clone()
+        rec["records"] = list(sess.adopted_instances)
+        rec["render"] = (before, render_frame0(sess, mesh))
+        sh = sess.shard
+        m = step_mod.update(sess.state, sh.cat_batch(cat), sh.bg_batch(bg),
+                            sh.draws(draws), cfg, sess.obj_mask[sh.c0:sh.c1],
+                            reduction=sess._reduction)
+        rec["metrics"] = _metrics(m)
+        rec["stepped"] = _gathered(sess)["params"]
+
+        s2 = session(cfg)
+        s2.enable_fast_path(2, graph=False, device_mesh=mesh)
+        ckpt.restore_session_checkpoint(p["ckpt"], s2)
+        rec["restored"] = _gathered(s2)
+        rec["restored_rows"] = s2.state.params.codes.shape.shape[0]
+        _adopt(s2, p["rec2"], p["codes2"])
+        rec["restored_adopted"] = _gathered(s2)
+        rec["restored_records"] = list(s2.adopted_instances)
+        if (nd, nm) == (1, 2):
+            rec["saved"] = ckpt.save_session_checkpoint(
+                os.path.join(tmp, "sharded_adopted"), s2, s2.iteration)
+            s3 = session(cfg)
+            ckpt.restore_session_checkpoint(p["ckpt"], s3)
+            s3.enable_fast_path(2, graph=False, device_mesh=mesh)
+            rec["resumed"] = ckpt.save_session_checkpoint(
+                os.path.join(tmp, "sharded_resumed"), s3, s3.iteration)
+        out[(nd, nm)] = rec
+    return out
+
+
 def loaded_modules(tmp, payload):
     """The modules a rank has loaded after importing every module of
     catnerf_torch.parallel and joining the group."""
@@ -386,7 +578,8 @@ def world4(tmp, payload):
 def world2(tmp, payload):
     return {"mesh_errors": mesh_errors(tmp, None),
             "steps": steps(tmp, payload["step"]),
-            "evaluation": evaluation(tmp, payload)}
+            "evaluation": evaluation(tmp, payload),
+            "adoption": adoption(tmp, payload["adopt"])}
 
 
 def world1(tmp, payload):
