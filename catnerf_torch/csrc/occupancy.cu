@@ -1,8 +1,12 @@
 // The OccupancyMap background, forward and backward, for Hopper (sm_90a),
 // float32 throughout, as chains of tiled GEMMs (gemm_f32.cuh) and row
-// kernels, at hidden width H = 32, 64, 128 or 256 (the Python wrapper runs
-// any other width up to 256 through the next one, its extra units' weights
-// and biases zero).
+// kernels, instantiated at hidden width H = 32, 64, 128 or 256 (the
+// Python wrapper runs any other width up to 256 through the next one, its
+// extra units' weights and biases zero). A width past 256 (a multiple of
+// 32, padded so by the wrapper) runs on Occ<0>: the same kernels with the
+// width a run-time value, whose row kernels loop over a lane's columns and
+// whose column kernel loops each thread over the columns of a
+// 1,024-thread block. No width an instantiation takes reaches those loops.
 //
 // Replaces the Pallas TPU kernels of catnerf_tpu/experimental/fused_field.py
 //   oc_fwd <- _occ_fwd_kernel (:435, _make_occ_fused.fwd_call :568): the PE
@@ -30,14 +34,14 @@
 // Every sum runs in a fixed order and no atomics are used: the weight
 // gradients are per-chunk partials that reduce_tiles adds in order, so two
 // runs are bitwise equal. The activations and deltas live in a workspace
-// the caller allocates (rows rounded up to 4; Occ<H>::kWsCols floats a row
-// for the backward, the first kFwdSlots buffers, Occ<H>::kFwdWsCols floats,
+// the caller allocates (rows rounded up to 4; Dims::ws_cols floats a row
+// for the backward, the first kFwdSlots buffers, Dims::fwd_ws_cols floats,
 // for the forward).
 //
 // oc_fwd and oc_bwd launch everything on the caller's stream, allocate
 // nothing and return the first non-zero cudaGetLastError() (or
-// cudaErrorInvalidValue for a width not instantiated); oc_gemm launches the
-// 128-wide GEMM block alone.
+// cudaErrorInvalidValue for a width neither instantiated nor past 256 and a
+// multiple of 32); oc_gemm launches the 128-wide GEMM block alone.
 
 #include "field_common.cuh"
 #include "gemm_f32.cuh"
@@ -46,25 +50,76 @@ namespace {
 
 constexpr int kChunks = 32;  // row chunks of the weight gradients (partials)
 
-// The widths of one instantiation: its GEMM tile, its concatenated layer
-// inputs and its workspace.
+constexpr int kMaxInst = 256;  // the widest instantiation
+
+// The widths of a chain at hidden width H: its concatenated layer inputs,
+// the offsets of OcLayout<H> (the flat parameters) and its workspace.
+struct Dims {
+  int H;
+  int kPer;  // a head lane's columns
+  int kC;    // [r1 | emb1], the cat layer's input
+  int kCl;   // [r3 | emb2], the colour layer's
+  int in_w, m1_w, c_w, m2_w, oa_w, cl_w, oc_w;
+  int in_b, m1_b, c_b, m2_b, oa_b, cl_b, oc_b;
+  int P, PP;
+  int ws_cols, fwd_ws_cols;
+};
+
+__host__ __device__ constexpr Dims make_dims(int H) {
+  Dims d{};
+  d.H = H;
+  d.kPer = H / 32;
+  d.kC = H + kE1;
+  d.kCl = H + kE2;
+  d.in_w = 0;
+  d.m1_w = d.in_w + kE1 * H;
+  d.c_w = d.m1_w + H * H;
+  d.m2_w = d.c_w + (H + kE1) * H;
+  d.oa_w = d.m2_w + H * H;
+  d.cl_w = d.oa_w + H;
+  d.oc_w = d.cl_w + (H + kE2) * H;
+  d.in_b = d.oc_w + H * 3;
+  d.m1_b = d.in_b + H;
+  d.c_b = d.m1_b + H;
+  d.m2_b = d.c_b + H;
+  d.oa_b = d.m2_b + H;
+  d.cl_b = d.oa_b + 1;
+  d.oc_b = d.cl_b + H;
+  d.P = d.oc_b + 3;
+  d.PP = d.P + kBSize;
+  d.ws_cols = d.kC + d.kCl + 3 * H + H + d.kCl + H + d.kC + H + kDirs + 3 + 1;
+  d.fwd_ws_cols = d.kC + d.kCl + 3 * H;
+  return d;
+}
+static_assert(make_dims(128).P == OcLayout<128>::P &&
+                  make_dims(256).PP == OcLayout<256>::PP &&
+                  make_dims(512).oc_b == OcLayout<512>::oc_b,
+              "layout");
+static_assert(make_dims(128).ws_cols == 1563, "workspace");
+static_assert(make_dims(128).fwd_ws_cols == 769, "forward workspace");
+
+// An instantiation's widths, every one a constant (H > 0), or the run-time
+// width's (H = 0).
+template <int H>
+__host__ __device__ __forceinline__ Dims dims_of(const Dims& rt) {
+  if constexpr (H > 0) {
+    constexpr Dims d = make_dims(H);
+    return d;
+  } else {
+    return rt;
+  }
+}
+
+// The launch shapes of an instantiation (H = 0: any width past kMaxInst).
 template <int H>
 struct Occ {
-  static_assert(H % 32 == 0 && H <= 256, "hidden width");
-  using L = OcLayout<H>;
+  static_assert(H % 32 == 0 && H <= kMaxInst, "hidden width");
   static constexpr int BN = H == 32 ? 32 : 128;  // the GEMM tile's width
   static constexpr int kThreads = GemmShape<BN>::kThreads;
-  static constexpr int kPer = H / 32;  // a head lane's columns
-  static constexpr int kC = H + kE1;   // [r1 | emb1], the cat layer's input
-  static constexpr int kCl = H + kE2;  // [r3 | emb2], the colour layer's
-  static constexpr int kWsCols =
-      kC + kCl + 3 * H + H + kCl + H + kC + H + kDirs + 3 + 1;
-  static constexpr int kFwdWsCols = kC + kCl + 3 * H;
-  // the narrow kernel's block: a thread a column, at least the 63 of dB
-  static constexpr int kNarrowThreads = H < 64 ? 64 : H;
+  // the narrow kernel's block: a thread a column, at least the 63 of dB;
+  // past the instantiations 1,024 threads, each looping over its columns
+  static constexpr int kNarrowThreads = H == 0 ? 1024 : H < 64 ? 64 : H;
 };
-static_assert(Occ<128>::kWsCols == 1563, "workspace");
-static_assert(Occ<128>::kFwdWsCols == 769, "forward workspace");
 constexpr int kFwdSlots = 5;  // xc, xcl, r0, r2, r4
 
 // ---------------------------------------------------------------------------
@@ -90,13 +145,12 @@ struct Buffers {
 };
 
 // The first `slots` buffers of the workspace; the others are null.
-template <int H>
-Buffers carve(float* ws, int Np, int slots = 13) {
-  using O = Occ<H>;
+Buffers carve(const Dims& d, float* ws, int Np, int slots = 13) {
+  const int H = d.H;
   Buffers w;
   float** ptrs[] = {&w.xc, &w.xcl, &w.r0, &w.r2, &w.r4, &w.d4, &w.dcl,
                     &w.d2, &w.dc, &w.d0, &w.proj, &w.da5, &w.dalpha};
-  const int cols[] = {O::kC, O::kCl, H, H, H, H, O::kCl, H, O::kC, H, kDirs,
+  const int cols[] = {d.kC, d.kCl, H, H, H, H, d.kCl, H, d.kC, H, kDirs,
                       3, 1};
   size_t off = 0;
   for (int i = 0; i < 13; ++i) {
@@ -146,15 +200,15 @@ __device__ __forceinline__ void store_cols(float* row, int lane,
 template <int H>
 __global__ void embed_rows(const float* __restrict__ pts,
                            const float* __restrict__ B, Buffers w, int N,
-                           float inv_scale) {
-  using O = Occ<H>;
+                           float inv_scale, Dims rt) {
+  const Dims d = dims_of<H>(rt);
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= N) return;
   const size_t r = row;
   float p[3], t[3], proj[kDirs];
   load_row<3>(pts + r * 3, true, p);
-  embed(p, B, inv_scale, t, proj, w.xc + r * O::kC + H,
-        w.xcl + r * O::kCl + H);
+  embed(p, B, inv_scale, t, proj, w.xc + r * d.kC + d.H,
+        w.xcl + r * d.kCl + d.H);
   if (w.proj != nullptr)
     for (int k = 0; k < kDirs; ++k) w.proj[r * kDirs + k] = proj[k];
 }
@@ -163,32 +217,41 @@ __global__ void embed_rows(const float* __restrict__ pts,
 // first H columns of xcl (lane l on columns l + 32q: the rows are H + 42
 // floats, not 16-byte aligned), and rgb = sigmoid(r4 W_oc + b_oc) (lane l
 // on columns kPer l .. kPer l + kPer - 1); each sum a fixed butterfly, so
-// every lane holds the same bits, and lane 0 writes out [N, 4].
+// every lane holds the same bits, and lane 0 writes out [N, 4]. Past the
+// instantiations (H = 0) a lane reads its columns one at a time, in the
+// same order.
 template <int H>
 __global__ void __launch_bounds__(256)
     fwd_head_rows(const float* __restrict__ prm, Buffers w,
-                  float* __restrict__ out, int N) {
-  using O = Occ<H>;
-  using L = typename O::L;
-  constexpr int K = O::kPer;
+                  float* __restrict__ out, int N, Dims rt) {
+  const Dims d = dims_of<H>(rt);
+  const int K = d.kPer;
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= N) return;  // the whole warp
   const size_t r = row;
-  const float* Woc = prm + L::oc_w;  // [H, 3]
-  const float* x3 = w.xcl + r * O::kCl;
+  const float* Woc = prm + d.oc_w;  // [H, 3]
+  const float* x3 = w.xcl + r * d.kCl;
   float al = 0.f;
 #pragma unroll
   for (int q = 0; q < K; ++q)
-    al = fmaf(x3[lane + 32 * q], prm[L::oa_w + lane + 32 * q], al);
-  float x[K];
-  load_cols<K>(w.r4 + r * H, lane, x);
+    al = fmaf(x3[lane + 32 * q], prm[d.oa_w + lane + 32 * q], al);
   float a[3] = {0.f, 0.f, 0.f};
+  if constexpr (H > 0) {
+    float x[H / 32];
+    load_cols<H / 32>(w.r4 + r * H, lane, x);
 #pragma unroll
-  for (int q = 0; q < K; ++q)
+    for (int q = 0; q < K; ++q)
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
-      a[j] = fmaf(x[q], Woc[(lane * K + q) * 3 + j], a[j]);
+      for (int j = 0; j < 3; ++j)
+        a[j] = fmaf(x[q], Woc[(lane * K + q) * 3 + j], a[j]);
+  } else {
+    const float* x = w.r4 + r * d.H + lane * K;
+    for (int q = 0; q < K; ++q)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        a[j] = fmaf(x[q], Woc[(lane * K + q) * 3 + j], a[j]);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) {
     al += __shfl_xor_sync(0xffffffffu, al, off);
@@ -198,35 +261,37 @@ __global__ void __launch_bounds__(256)
   }
   if (lane == 0)
     reinterpret_cast<float4*>(out)[r] =
-        make_float4((al + prm[L::oa_b]) * 10.f,
-                    sigmoidf(a[0] + prm[L::oc_b]),
-                    sigmoidf(a[1] + prm[L::oc_b + 1]),
-                    sigmoidf(a[2] + prm[L::oc_b + 2]));
+        make_float4((al + prm[d.oa_b]) * 10.f,
+                    sigmoidf(a[0] + prm[d.oc_b]),
+                    sigmoidf(a[1] + prm[d.oc_b + 1]),
+                    sigmoidf(a[2] + prm[d.oc_b + 2]));
 }
 
 // One warp a row, lane l on columns kPer l .. kPer l + kPer - 1: a5 = r4
 // W_oc + b (a fixed butterfly, so every lane holds the same sum), da5 =
 // dout[1:4] s(1 - s), dalpha = 10 dout[0], delta4 = (da5 W_oc^T) [r4 > 0].
+// Past the instantiations (H = 0) a lane reads its columns one at a time,
+// twice, in the same order.
 template <int H>
 __global__ void __launch_bounds__(256)
     head_rows(const float* __restrict__ prm, const float* __restrict__ dout,
-              Buffers w, int N) {
-  using O = Occ<H>;
-  using L = typename O::L;
-  constexpr int K = O::kPer;
+              Buffers w, int N, Dims rt) {
+  const Dims d = dims_of<H>(rt);
+  const int K = d.kPer;
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= N) return;  // the whole warp
   const size_t r = row;
-  const float* Woc = prm + L::oc_w;  // [H, 3]
-  float x[K];
-  load_cols<K>(w.r4 + r * H, lane, x);
+  const float* Woc = prm + d.oc_w;  // [H, 3]
+  float x[H > 0 ? H / 32 : 1];
+  const float* xr = w.r4 + r * d.H + lane * K;
+  if constexpr (H > 0) load_cols<H / 32>(w.r4 + r * H, lane, x);
   float a[3] = {0.f, 0.f, 0.f};
 #pragma unroll
   for (int q = 0; q < K; ++q)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      a[j] = fmaf(x[q], Woc[(lane * K + q) * 3 + j], a[j]);
+      a[j] = fmaf(H > 0 ? x[q] : xr[q], Woc[(lane * K + q) * 3 + j], a[j]);
 #pragma unroll
   for (int off = 16; off > 0; off /= 2)
 #pragma unroll
@@ -237,19 +302,23 @@ __global__ void __launch_bounds__(256)
   float da5[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    const float col = sigmoidf(a[j] + prm[L::oc_b + j]);
+    const float col = sigmoidf(a[j] + prm[d.oc_b + j]);
     da5[j] = dd[1 + j] * col * (1.f - col);
   }
-  float d[K];
+  float dl[H > 0 ? H / 32 : 1];
+  float* d4 = w.d4 + r * d.H + lane * K;
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const float* wr = Woc + (lane * K + q) * 3;
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < 3; ++j) s = fmaf(da5[j], wr[j], s);
-    d[q] = x[q] > 0.f ? s : 0.f;
+    if constexpr (H > 0)
+      dl[q] = x[q] > 0.f ? s : 0.f;
+    else
+      d4[q] = xr[q] > 0.f ? s : 0.f;
   }
-  store_cols<K>(w.d4 + r * H, lane, d);
+  if constexpr (H > 0) store_cols<H / 32>(w.d4 + r * H, lane, dl);
   if (lane == 0) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) w.da5[r * 3 + j] = da5[j];
@@ -262,14 +331,14 @@ __global__ void __launch_bounds__(256)
 template <int H>
 __global__ void embed_bwd_rows(const float* __restrict__ B, Buffers w,
                                float* __restrict__ dpts, int N,
-                               float inv_scale) {
-  using O = Occ<H>;
+                               float inv_scale, Dims rt) {
+  const Dims d = dims_of<H>(rt);
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= N) return;
   const size_t r = row;
   float proj[kDirs], dproj[kDirs], dt[3];
   for (int k = 0; k < kDirs; ++k) proj[k] = w.proj[r * kDirs + k];
-  embed_bwd(w.dc + r * O::kC + H, w.dcl + r * O::kCl + H, proj, B, dproj,
+  embed_bwd(w.dc + r * d.kC + d.H, w.dcl + r * d.kCl + d.H, proj, B, dproj,
             dt);
   for (int k = 0; k < kDirs; ++k) w.proj[r * kDirs + k] = dproj[k];
 #pragma unroll
@@ -281,60 +350,61 @@ __global__ void embed_bwd_rows(const float* __restrict__ B, Buffers w,
 // blockIdx.y the row chunk s; the block writes X[r0:r1]^T D[r0:r1] into
 // partial[s] at the layer's offset. Layers in, m1, c, m2, cl; dW [m, H]
 // with m = 87, H, H + 87, H, H + 42.
-template <int H>
-__host__ __device__ constexpr int wgrad_rows(int layer) {
+__host__ __device__ constexpr int wgrad_rows(int H, int layer) {
   return layer == 0 ? kE1 : layer == 2 ? H + kE1 : layer == 4 ? H + kE2 : H;
 }
 
-template <int H>
-__host__ __device__ constexpr int wgrad_col_tiles() {
-  return (H + Occ<H>::BN - 1) / Occ<H>::BN;
+template <int BN>
+__host__ __device__ constexpr int wgrad_col_tiles(int H) {
+  return (H + BN - 1) / BN;
 }
 
-template <int H>
-__host__ __device__ constexpr int wgrad_jobs() {
+template <int BN>
+__host__ __device__ constexpr int wgrad_jobs(int H) {
   int n = 0;
   for (int layer = 0; layer < 5; ++layer)
-    n += (wgrad_rows<H>(layer) + kBM - 1) / kBM * wgrad_col_tiles<H>();
+    n += (wgrad_rows(H, layer) + kBM - 1) / kBM * wgrad_col_tiles<BN>(H);
   return n;
 }
-static_assert(wgrad_jobs<128>() == 7, "wgrad jobs");
+static_assert(wgrad_jobs<128>(128) == 7, "wgrad jobs");
 
 template <int H>
 __global__ void __launch_bounds__(Occ<H>::kThreads, 2)
-    wgrad_kernel(Buffers w, float* __restrict__ partial, int N, int rows) {
+    wgrad_kernel(Buffers w, float* __restrict__ partial, int N, int rows,
+                 Dims rt) {
   using O = Occ<H>;
-  using L = typename O::L;
-  constexpr int kCols = wgrad_col_tiles<H>();
+  const Dims d = dims_of<H>(rt);
+  const int kCols = wgrad_col_tiles<O::BN>(d.H);
   const int s = blockIdx.y;
   int r0, r1;
   chunk_rows(N, rows, s, r0, r1);
   int job = blockIdx.x;
   int layer = 0;
   for (; layer < 4; ++layer) {
-    const int n = (wgrad_rows<H>(layer) + kBM - 1) / kBM * kCols;
+    const int n = (wgrad_rows(d.H, layer) + kBM - 1) / kBM * kCols;
     if (job < n) break;
     job -= n;
   }
   const int m0 = job / kCols * kBM;
   const int n0 = job % kCols * O::BN;
+  const int h = d.H;
   const float* x;
-  const float* d;
+  const float* dl;
   int ldx, ldd, off;
   switch (layer) {
-    case 0: x = w.xc + H; ldx = O::kC; d = w.d0; ldd = H; off = L::in_w;
+    case 0: x = w.xc + h; ldx = d.kC; dl = w.d0; ldd = h; off = d.in_w;
             break;
-    case 1: x = w.r0; ldx = H; d = w.dc; ldd = O::kC; off = L::m1_w; break;
-    case 2: x = w.xc; ldx = O::kC; d = w.d2; ldd = H; off = L::c_w; break;
-    case 3: x = w.r2; ldx = H; d = w.dcl; ldd = O::kCl; off = L::m2_w;
+    case 1: x = w.r0; ldx = h; dl = w.dc; ldd = d.kC; off = d.m1_w; break;
+    case 2: x = w.xc; ldx = d.kC; dl = w.d2; ldd = h; off = d.c_w; break;
+    case 3: x = w.r2; ldx = h; dl = w.dcl; ldd = d.kCl; off = d.m2_w;
             break;
-    default: x = w.xcl; ldx = O::kCl; d = w.d4; ldd = H; off = L::cl_w;
+    default: x = w.xcl; ldx = d.kCl; dl = w.d4; ldd = h; off = d.cl_w;
              break;
   }
   const Gemm g = make_gemm(x + static_cast<size_t>(r0) * ldx, ldx,
-                           d + static_cast<size_t>(r0) * ldd, ldd,
-                           partial + static_cast<size_t>(s) * L::PP + off,
-                           H, wgrad_rows<H>(layer), H, r1 - r0);
+                           dl + static_cast<size_t>(r0) * ldd, ldd,
+                           partial + static_cast<size_t>(s) * d.PP + off,
+                           h, wgrad_rows(h, layer), h, r1 - r0);
   gemm_tile<O::BN, kTN, kMask>(g, m0, n0);  // no mask: a plain store
 }
 
@@ -342,50 +412,40 @@ __global__ void __launch_bounds__(Occ<H>::kThreads, 2)
 // (blockIdx.x), thread c on column c, the chunk's rows in order:
 // jobs 0-4 the biases of in, m1, c, m2, cl (column sums of their deltas),
 // 5 the alpha layer (r3 dalpha, sum dalpha), 6 the colour head (r4 da5,
-// sum da5), 7 dB = dproj^T t. The block has max(H, 64) threads: one
-// column each, of H (jobs 0-6) or of dB's 63 (job 7).
-template <int H>
-__global__ void __launch_bounds__(Occ<H>::kNarrowThreads)
-    narrow_kernel(const float* __restrict__ pts, Buffers w,
-                  float* __restrict__ partial, int N, int rows,
-                  float inv_scale) {
-  using O = Occ<H>;
-  using L = typename O::L;
-  const int job = blockIdx.x;
-  const int s = blockIdx.y;
-  const int c = threadIdx.x;
-  if constexpr (O::kNarrowThreads > H) {
-    if (job < 7 && c >= H) return;
-  }
-  int r0, r1;
-  chunk_rows(N, rows, s, r0, r1);
-  float* part = partial + static_cast<size_t>(s) * L::PP;
+// sum da5), 7 dB = dproj^T t. An instantiation's block has max(H, 64)
+// threads: one column each, of H (jobs 0-6) or of dB's 63 (job 7); past
+// the instantiations (H = 0) each of 1,024 threads loops over columns c,
+// c + 1,024, ...
+__device__ __forceinline__ void narrow_column(
+    const Dims& d, int job, int c, const float* __restrict__ pts,
+    const Buffers& w, float* __restrict__ part, int r0, int r1,
+    float inv_scale) {
   if (job < 5) {
-    const float* d;
+    const float* dl;
     int ld, off;
     switch (job) {
-      case 0: d = w.d0; ld = H; off = L::in_b; break;
-      case 1: d = w.dc; ld = O::kC; off = L::m1_b; break;
-      case 2: d = w.d2; ld = H; off = L::c_b; break;
-      case 3: d = w.dcl; ld = O::kCl; off = L::m2_b; break;
-      default: d = w.d4; ld = H; off = L::cl_b; break;
+      case 0: dl = w.d0; ld = d.H; off = d.in_b; break;
+      case 1: dl = w.dc; ld = d.kC; off = d.m1_b; break;
+      case 2: dl = w.d2; ld = d.H; off = d.c_b; break;
+      case 3: dl = w.dcl; ld = d.kCl; off = d.m2_b; break;
+      default: dl = w.d4; ld = d.H; off = d.cl_b; break;
     }
     float acc = 0.f;
-    for (int r = r0; r < r1; ++r) acc += d[static_cast<size_t>(r) * ld + c];
+    for (int r = r0; r < r1; ++r) acc += dl[static_cast<size_t>(r) * ld + c];
     part[off + c] = acc;
   } else if (job == 5) {
     float acc = 0.f, sum = 0.f;
     for (int r = r0; r < r1; ++r) {
       const float da = w.dalpha[r];
-      acc = fmaf(w.xcl[static_cast<size_t>(r) * O::kCl + c], da, acc);
+      acc = fmaf(w.xcl[static_cast<size_t>(r) * d.kCl + c], da, acc);
       sum += da;
     }
-    part[L::oa_w + c] = acc;
-    if (c == 0) part[L::oa_b] = sum;
+    part[d.oa_w + c] = acc;
+    if (c == 0) part[d.oa_b] = sum;
   } else if (job == 6) {
     float acc[3] = {0.f, 0.f, 0.f}, sum[3] = {0.f, 0.f, 0.f};
     for (int r = r0; r < r1; ++r) {
-      const float x = w.r4[static_cast<size_t>(r) * H + c];
+      const float x = w.r4[static_cast<size_t>(r) * d.H + c];
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         const float da = w.da5[static_cast<size_t>(r) * 3 + j];
@@ -394,10 +454,10 @@ __global__ void __launch_bounds__(Occ<H>::kNarrowThreads)
       }
     }
 #pragma unroll
-    for (int j = 0; j < 3; ++j) part[L::oc_w + c * 3 + j] = acc[j];
+    for (int j = 0; j < 3; ++j) part[d.oc_w + c * 3 + j] = acc[j];
     if (c == 0)
 #pragma unroll
-      for (int j = 0; j < 3; ++j) part[L::oc_b + j] = sum[j];
+      for (int j = 0; j < 3; ++j) part[d.oc_b + j] = sum[j];
   } else if (c < kBSize) {
     const int k = c / 3;
     const int j = c % 3;
@@ -405,16 +465,42 @@ __global__ void __launch_bounds__(Occ<H>::kNarrowThreads)
     for (int r = r0; r < r1; ++r)
       acc = fmaf(w.proj[static_cast<size_t>(r) * kDirs + k],
                  pts[static_cast<size_t>(r) * 3 + j] * inv_scale, acc);
-    part[L::P + c] = acc;
+    part[d.P + c] = acc;
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(Occ<H>::kNarrowThreads)
+    narrow_kernel(const float* __restrict__ pts, Buffers w,
+                  float* __restrict__ partial, int N, int rows,
+                  float inv_scale, Dims rt) {
+  using O = Occ<H>;
+  const Dims d = dims_of<H>(rt);
+  const int job = blockIdx.x;
+  const int s = blockIdx.y;
+  const int c = threadIdx.x;
+  if constexpr (H > 0 && O::kNarrowThreads > H) {
+    if (job < 7 && c >= H) return;
+  }
+  int r0, r1;
+  chunk_rows(N, rows, s, r0, r1);
+  float* part = partial + static_cast<size_t>(s) * d.PP;
+  if constexpr (H > 0) {
+    narrow_column(d, job, c, pts, w, part, r0, r1, inv_scale);
+  } else {
+    const int cols = job < 7 ? d.H : kBSize;
+    for (int col = c; col < cols; col += O::kNarrowThreads)
+      narrow_column(d, job, col, pts, w, part, r0, r1, inv_scale);
   }
 }
 constexpr int kNarrowJobs = 8;
 
 // relu(X W + b): X [N, K] at stride ldx, W [K, H], C [N, H] at stride ldc
 template <int H>
-int forward_layer(const float* X, int ldx, int K, const float* W,
-                  const float* b, float* C, int ldc, int N, cudaStream_t s) {
-  Gemm g = make_gemm(X, ldx, W, H, C, ldc, N, H, K);
+int forward_layer(const Dims& d, const float* X, int ldx, int K,
+                  const float* W, const float* b, float* C, int ldc, int N,
+                  cudaStream_t s) {
+  Gemm g = make_gemm(X, ldx, W, d.H, C, ldc, N, d.H, K);
   g.bias = b;
   return launch_gemm<Occ<H>::BN, kNN, kBiasRelu>(g, s);
 }
@@ -422,13 +508,13 @@ int forward_layer(const float* X, int ldx, int K, const float* W,
 // (D W^T + u v^T) [mask > 0] on the first H columns, W [n, H] ([in, out]),
 // the other n - H columns as they are: D [N, H] at ldd, C [N, n] at ldc
 template <int H>
-int input_grad(const float* D, int ldd, const float* W, int n, float* C,
-               int ldc, const float* mask, int ldm, const float* u,
+int input_grad(const Dims& d, const float* D, int ldd, const float* W, int n,
+               float* C, int ldc, const float* mask, int ldm, const float* u,
                const float* v, int N, cudaStream_t s) {
-  Gemm g = make_gemm(D, ldd, W, H, C, ldc, N, n, H);
+  Gemm g = make_gemm(D, ldd, W, d.H, C, ldc, N, n, d.H);
   g.mask = mask;
   g.ldm = ldm;
-  g.mask_cols = H;
+  g.mask_cols = d.H;
   g.u = u;
   g.v = v;
   return launch_gemm<Occ<H>::BN, kNT, kMask>(g, s);
@@ -442,81 +528,83 @@ int input_grad(const float* D, int ldd, const float* W, int n, float* C,
 // The PE and the five wide layers (_occ_chain :409) into the workspace's
 // first five buffers: xc = [r1 | emb1], xcl = [r3 | emb2], r0, r2, r4.
 template <int H>
-int forward_chain(const float* pts, const float* prm, const float* B,
-                  const Buffers& w, int N, float inv_scale, cudaStream_t s) {
-  using O = Occ<H>;
-  using L = typename O::L;
+int forward_chain(const Dims& d, const float* pts, const float* prm,
+                  const float* B, const Buffers& w, int N, float inv_scale,
+                  cudaStream_t s) {
+  const int h = d.H;
   int e;
-  embed_rows<H><<<(N + 127) / 128, 128, 0, s>>>(pts, B, w, N, inv_scale);
+  embed_rows<H><<<(N + 127) / 128, 128, 0, s>>>(pts, B, w, N, inv_scale, d);
   OC_TRY(static_cast<int>(cudaGetLastError()));
-  OC_TRY(forward_layer<H>(w.xc + H, O::kC, kE1, prm + L::in_w,
-                          prm + L::in_b, w.r0, H, N, s));
-  OC_TRY(forward_layer<H>(w.r0, H, H, prm + L::m1_w, prm + L::m1_b, w.xc,
-                          O::kC, N, s));
-  OC_TRY(forward_layer<H>(w.xc, O::kC, O::kC, prm + L::c_w, prm + L::c_b,
-                          w.r2, H, N, s));
-  OC_TRY(forward_layer<H>(w.r2, H, H, prm + L::m2_w, prm + L::m2_b, w.xcl,
-                          O::kCl, N, s));
-  return forward_layer<H>(w.xcl, O::kCl, O::kCl, prm + L::cl_w,
-                          prm + L::cl_b, w.r4, H, N, s);
+  OC_TRY(forward_layer<H>(d, w.xc + h, d.kC, kE1, prm + d.in_w,
+                          prm + d.in_b, w.r0, h, N, s));
+  OC_TRY(forward_layer<H>(d, w.r0, h, h, prm + d.m1_w, prm + d.m1_b, w.xc,
+                          d.kC, N, s));
+  OC_TRY(forward_layer<H>(d, w.xc, d.kC, d.kC, prm + d.c_w, prm + d.c_b,
+                          w.r2, h, N, s));
+  OC_TRY(forward_layer<H>(d, w.r2, h, h, prm + d.m2_w, prm + d.m2_b, w.xcl,
+                          d.kCl, N, s));
+  return forward_layer<H>(d, w.xcl, d.kCl, d.kCl, prm + d.cl_w,
+                          prm + d.cl_b, w.r4, h, N, s);
 }
 
 template <int H>
-int run_fwd(const float* pts, const float* params, const float* B,
-            float* out, float* workspace, int N, float inv_scale,
-            cudaStream_t s) {
-  const Buffers w = carve<H>(workspace, (N + 3) / 4 * 4, kFwdSlots);
+int run_fwd(const Dims& d, const float* pts, const float* params,
+            const float* B, float* out, float* workspace, int N,
+            float inv_scale, cudaStream_t s) {
+  const Buffers w = carve(d, workspace, (N + 3) / 4 * 4, kFwdSlots);
   int e;
-  OC_TRY(forward_chain<H>(pts, params, B, w, N, inv_scale, s));
-  fwd_head_rows<H><<<(N + 7) / 8, 256, 0, s>>>(params, w, out, N);
+  OC_TRY(forward_chain<H>(d, pts, params, B, w, N, inv_scale, s));
+  fwd_head_rows<H><<<(N + 7) / 8, 256, 0, s>>>(params, w, out, N, d);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int H>
-int run_bwd(const float* pts, const float* params, const float* B,
-            const float* dout, float* dpts, float* partial, float* grads,
-            float* workspace, int N, float inv_scale, cudaStream_t s) {
+int run_bwd(const Dims& d, const float* pts, const float* params,
+            const float* B, const float* dout, float* dpts, float* partial,
+            float* grads, float* workspace, int N, float inv_scale,
+            cudaStream_t s) {
   using O = Occ<H>;
-  using L = typename O::L;
+  const int h = d.H;
   const float* prm = params;
-  const Buffers w = carve<H>(workspace, (N + 3) / 4 * 4);
+  const Buffers w = carve(d, workspace, (N + 3) / 4 * 4);
   const int rows = (N + kChunks - 1) / kChunks;
   int e;
-  OC_TRY(forward_chain<H>(pts, prm, B, w, N, inv_scale, s));  // recompute
-  head_rows<H><<<(N + 7) / 8, 256, 0, s>>>(prm, dout, w, N);
+  OC_TRY(forward_chain<H>(d, pts, prm, B, w, N, inv_scale, s));  // recompute
+  head_rows<H><<<(N + 7) / 8, 256, 0, s>>>(prm, dout, w, N, d);
   OC_TRY(static_cast<int>(cudaGetLastError()));
   // the input gradients, output to input; ReLU(a) > 0 exactly when a > 0,
   // so the stored activation is the mask
-  OC_TRY(input_grad<H>(w.d4, H, prm + L::cl_w, O::kCl, w.dcl, O::kCl, w.xcl,
-                       O::kCl, w.dalpha, prm + L::oa_w, N,
+  OC_TRY(input_grad<H>(d, w.d4, h, prm + d.cl_w, d.kCl, w.dcl, d.kCl, w.xcl,
+                       d.kCl, w.dalpha, prm + d.oa_w, N,
                        s));  // [delta3 | demb2]
-  OC_TRY(input_grad<H>(w.dcl, O::kCl, prm + L::m2_w, H, w.d2, H, w.r2, H,
+  OC_TRY(input_grad<H>(d, w.dcl, d.kCl, prm + d.m2_w, h, w.d2, h, w.r2, h,
                        nullptr, nullptr, N, s));  // delta2
-  OC_TRY(input_grad<H>(w.d2, H, prm + L::c_w, O::kC, w.dc, O::kC, w.xc,
-                       O::kC, nullptr, nullptr, N, s));  // [delta1 | demb1]
-  OC_TRY(input_grad<H>(w.dc, O::kC, prm + L::m1_w, H, w.d0, H, w.r0, H,
+  OC_TRY(input_grad<H>(d, w.d2, h, prm + d.c_w, d.kC, w.dc, d.kC, w.xc,
+                       d.kC, nullptr, nullptr, N, s));  // [delta1 | demb1]
+  OC_TRY(input_grad<H>(d, w.dc, d.kC, prm + d.m1_w, h, w.d0, h, w.r0, h,
                        nullptr, nullptr, N, s));  // delta0
-  Gemm g = make_gemm(w.d0, H, prm + L::in_w, H, w.dc + H, O::kC, N, kE1, H);
+  Gemm g = make_gemm(w.d0, h, prm + d.in_w, h, w.dc + h, d.kC, N, kE1, h);
   OC_TRY((launch_gemm<O::BN, kNT, kAccumulate>(g, s)));  // demb1 += d0 W^T
   embed_bwd_rows<H><<<(N + 127) / 128, 128, 0, s>>>(B, w, dpts, N,
-                                                    inv_scale);
+                                                    inv_scale, d);
   OC_TRY(static_cast<int>(cudaGetLastError()));
   // the parameter gradients: per-chunk partials, then reduce_tiles
-  wgrad_kernel<H><<<dim3(wgrad_jobs<H>(), kChunks), O::kThreads, 0, s>>>(
-      w, partial, N, rows);
+  wgrad_kernel<H><<<dim3(wgrad_jobs<O::BN>(h), kChunks), O::kThreads, 0,
+                    s>>>(w, partial, N, rows, d);
   OC_TRY(static_cast<int>(cudaGetLastError()));
   narrow_kernel<H><<<dim3(kNarrowJobs, kChunks), O::kNarrowThreads, 0, s>>>(
-      pts, w, partial, N, rows, inv_scale);
+      pts, w, partial, N, rows, inv_scale, d);
   OC_TRY(static_cast<int>(cudaGetLastError()));
-  return launch_reduce(partial, grads, 1, kChunks, L::PP, s);
+  return launch_reduce(partial, grads, 1, kChunks, d.PP, s);
 }
 
-template <int H>
-void width_layout(int* out) {
-  out[0] = Occ<H>::L::P;
-  out[1] = Occ<H>::L::PP;
-  out[2] = Occ<H>::kWsCols;
-  out[3] = Occ<H>::kFwdWsCols;
+// The instantiation a width runs on (its H; 0 past kMaxInst), or -1.
+int instantiation(int hidden) {
+  switch (hidden) {
+    case 32: case 64: case 128: case 256: return hidden;
+    default:
+      return hidden > kMaxInst && hidden % 32 == 0 ? 0 : -1;
+  }
 }
 
 }  // namespace
@@ -532,16 +620,17 @@ int occupancy_layout(int* out) {
 }
 
 // [P, partial row, workspace floats a row of the backward, of the
-// forward] of the instantiation at hidden width `hidden` (32, 64, 128 or
-// 256; another width: cudaErrorInvalidValue)
+// forward] at hidden width `hidden` (32, 64, 128, 256, or a multiple of 32
+// past 256; another width: cudaErrorInvalidValue)
 int occupancy_width_layout(int hidden, int* out) {
-  switch (hidden) {
-    case 32: width_layout<32>(out); return 0;
-    case 64: width_layout<64>(out); return 0;
-    case 128: width_layout<128>(out); return 0;
-    case 256: width_layout<256>(out); return 0;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (instantiation(hidden) < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dims d = make_dims(hidden);
+  out[0] = d.P;
+  out[1] = d.PP;
+  out[2] = d.ws_cols;
+  out[3] = d.fwd_ws_cols;
+  return 0;
 }
 
 // The GEMM block alone (layout: 0 NN, 1 NT, 2 TN; epilogue: 0 bias + ReLU,
@@ -578,15 +667,12 @@ int oc_fwd(const float* pts, const float* params, const float* B, float* out,
            float* workspace, int N, int hidden, float inv_scale,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hidden) {
-    case 32: return run_fwd<32>(pts, params, B, out, workspace, N,
-                                inv_scale, s);
-    case 64: return run_fwd<64>(pts, params, B, out, workspace, N,
-                                inv_scale, s);
-    case 128: return run_fwd<128>(pts, params, B, out, workspace, N,
-                                  inv_scale, s);
-    case 256: return run_fwd<256>(pts, params, B, out, workspace, N,
-                                  inv_scale, s);
+  const Dims d = make_dims(hidden);
+  switch (instantiation(hidden)) {
+#define OC_FWD(h) \
+  case h: return run_fwd<h>(d, pts, params, B, out, workspace, N, inv_scale, s);
+    OC_FWD(32) OC_FWD(64) OC_FWD(128) OC_FWD(256) OC_FWD(0)
+#undef OC_FWD
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -599,15 +685,13 @@ int oc_bwd(const float* pts, const float* params, const float* B,
            float* workspace, int N, int hidden, float inv_scale,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hidden) {
-    case 32: return run_bwd<32>(pts, params, B, dout, dpts, partial, grads,
-                                workspace, N, inv_scale, s);
-    case 64: return run_bwd<64>(pts, params, B, dout, dpts, partial, grads,
-                                workspace, N, inv_scale, s);
-    case 128: return run_bwd<128>(pts, params, B, dout, dpts, partial, grads,
-                                  workspace, N, inv_scale, s);
-    case 256: return run_bwd<256>(pts, params, B, dout, dpts, partial, grads,
-                                  workspace, N, inv_scale, s);
+  const Dims d = make_dims(hidden);
+  switch (instantiation(hidden)) {
+#define OC_BWD(h)                                                         \
+  case h: return run_bwd<h>(d, pts, params, B, dout, dpts, partial, grads, \
+                            workspace, N, inv_scale, s);
+    OC_BWD(32) OC_BWD(64) OC_BWD(128) OC_BWD(256) OC_BWD(0)
+#undef OC_BWD
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -36,11 +36,13 @@ _BG_COLS = 11   # same minus obj_idx
 
 class DeviceRayStore(NamedTuple):
     """packed [n_cls, max_len + pad, 12] float32 rows (state/obj_idx are
-    small ints, exact in f32); lengths [n_cls] valid rows; bg_packed
-    [n_bg + pad, 11] (optional) and its scalar length."""
+    small ints, exact in f32); lengths [n_cls] valid rows; max_length the
+    largest of lengths, known on the host (the draws' precision);
+    bg_packed [n_bg + pad, 11] (optional) and its scalar length."""
 
     packed: torch.Tensor
     lengths: torch.Tensor
+    max_length: int
     bg_packed: torch.Tensor | None = None
     bg_length: int | None = None
 
@@ -85,6 +87,7 @@ def build_device_store(categories: list[CategoryScene],
         packed=torch.from_numpy(packed).to(device),
         lengths=torch.tensor([c.buffer.n for c in categories],
                              device=device),
+        max_length=max(c.buffer.n for c in categories),
         bg_packed=(torch.from_numpy(bg_rows).to(device)
                    if bg_rows is not None else None),
         bg_length=bg_n)
@@ -104,16 +107,30 @@ def check_window_pad(store: DeviceRayStore, n_per_cls: int,
                              f"bg_window_pad >= {n_bg} (has {bpad})")
 
 
+# A float32 uniform has 24 random bits: scaled by a length past 2^24 it
+# reaches only some rows (at 80M, 10% odd offsets). Past it the draws take
+# float64 uniforms (53 bits), uniform over the integers as
+# jax.random.randint is; below it they stay the float32 stream.
+F32_ROWS = 1 << 24
+
+
+def _uniform(shape, length: int, gen: torch.Generator, dev):
+    dtype = torch.float64 if length > F32_ROWS else torch.float32
+    return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+
+
 def window_offsets(lengths: torch.Tensor, bg_length: int | None,
-                   gen: torch.Generator):
+                   gen: torch.Generator, max_length: int):
     """Uniform window offsets: [n_cls] in [0, lengths), and one in
-    [0, bg_length) (None without a background)."""
+    [0, bg_length) (None without a background). max_length: the largest
+    of lengths, known on the host (reading it from lengths would wait on
+    the card)."""
     dev = lengths.device
-    u = torch.rand(lengths.shape[0], generator=gen, device=dev)
+    u = _uniform(lengths.shape[0], max_length, gen, dev)
     offs = torch.minimum((u * lengths).long(), lengths - 1)
     boff = None
     if bg_length is not None:
-        ub = torch.rand((), generator=gen, device=dev)
+        ub = _uniform((), bg_length, gen, dev)
         boff = torch.clamp((ub * bg_length).long(), max=bg_length - 1)
     return offs, boff
 
@@ -122,20 +139,22 @@ def draw_offsets(store: DeviceRayStore, gen: torch.Generator):
     """window_offsets of the store's buffers."""
     return window_offsets(
         store.lengths,
-        store.bg_length if store.bg_packed is not None else None, gen)
+        store.bg_length if store.bg_packed is not None else None, gen,
+        store.max_length)
 
 
 def draw_rows(lengths: torch.Tensor, bg_length: int | None, n_per_cls: int,
-              n_bg: int, gen: torch.Generator):
+              n_bg: int, gen: torch.Generator, max_length: int):
     """Uniform row indices with replacement (JAX's window=False draw):
     [n_cls, n_per_cls] each in [0, its length), and [n_bg] in
-    [0, bg_length) (None without a background)."""
+    [0, bg_length) (None without a background). max_length as in
+    window_offsets."""
     dev = lengths.device
-    u = torch.rand(lengths.shape[0], n_per_cls, generator=gen, device=dev)
+    u = _uniform((lengths.shape[0], n_per_cls), max_length, gen, dev)
     idx = torch.minimum((u * lengths[:, None]).long(), lengths[:, None] - 1)
     bidx = None
     if bg_length is not None:
-        ub = torch.rand(n_bg, generator=gen, device=dev)
+        ub = _uniform(n_bg, bg_length, gen, dev)
         bidx = torch.clamp((ub * bg_length).long(), max=bg_length - 1)
     return idx, bidx
 

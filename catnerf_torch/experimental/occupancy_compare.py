@@ -1,9 +1,10 @@
 """Kernels 3 and 4 (the background forward and backward of
-`csrc/occupancy.cu`) at the shipped width 128 of this checkout and of
-another, on the card, in one call: their outputs bitwise and their device
-times in turns.
+`csrc/occupancy.cu`) at a background width (the shipped 128 unless
+--width says another) of this checkout and of another, on the card, in
+one call: their outputs bitwise and their device times in turns.
 
-    python catnerf_torch/experimental/occupancy_compare.py --other DIR
+    python catnerf_torch/experimental/occupancy_compare.py --other DIR \
+        [--width H]
 
 DIR holds another checkout's `catnerf_torch` (unpack it with `git archive`
 under the ignored `build/`). Each side runs in a subprocess of its own
@@ -74,8 +75,9 @@ def _pieces(fn, n: int = 20) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def run_side(root: str, out_path: str) -> None:
-    """One checkout's outputs and times, saved to out_path."""
+def run_side(root: str, out_path: str, width: int) -> None:
+    """One checkout's outputs and times at background width `width`,
+    saved to out_path."""
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
@@ -85,7 +87,8 @@ def run_side(root: str, out_path: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
-    flat = ff.pack(ff._oc_modules(OccupancyMap.init(gen))).detach().cuda()
+    flat = ff.pack(ff._oc_modules(OccupancyMap.init(
+        gen, hidden_size=width))).detach().cuda()
     B = (UniDirsEmbed.init().B.detach()
          + 0.05 * torch.randn(21, 3, generator=gen)).cuda()
     outputs, times = {}, {}
@@ -94,10 +97,10 @@ def run_side(root: str, out_path: str) -> None:
         dout = torch.randn(n, 4, generator=gen).cuda()
 
         def fwd():
-            return ff.occupancy_fwd_cuda(flat, B, pts, 0.2)
+            return ff.occupancy_fwd_cuda(flat, B, pts, 0.2, width)
 
         def bwd():
-            return ff.occupancy_bwd_cuda(flat, B, pts, dout, 0.2)
+            return ff.occupancy_bwd_cuda(flat, B, pts, dout, 0.2, width)
 
         outputs[n] = [fwd().cpu()] + [x.cpu() for x in bwd()]
         if n == ROWS[0]:
@@ -110,11 +113,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
                     help="the other checkout's root")
+    ap.add_argument("--width", type=int, default=128,
+                    help="the background's hidden width")
     ap.add_argument("--side", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.side is not None:
-        run_side(args.side, args.out)
+        run_side(args.side, args.out, args.width)
         return 0
 
     import torch
@@ -133,8 +138,8 @@ def main(argv=None) -> int:
         for i, label in enumerate(("other", "this", "this", "other")):
             path = os.path.join(tmp, f"{i}.pt")
             subprocess.run([sys.executable, __file__, "--other", args.other,
-                            "--side", sides[label], "--out", path],
-                           check=True)
+                            "--width", str(args.width), "--side",
+                            sides[label], "--out", path], check=True)
             res = torch.load(path)
             runs.append((label, res))
             t = res["times"]
@@ -147,6 +152,7 @@ def main(argv=None) -> int:
                         zip(first["this"][n], first["other"][n])]
                for n in ROWS}
     print(json.dumps({
+        "width": args.width,
         "bitwise": bitwise,
         "fwd_ms": {k: [r["times"]["fwd_ms"] for lb, r in runs if lb == k]
                    for k in sides},

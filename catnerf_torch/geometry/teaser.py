@@ -98,3 +98,26 @@ def teaser_fpfh_icp(source_points: np.ndarray, target_points: np.ndarray,
                       and abs(np.linalg.det(T[:3, :3]) - 1.0) <= 0.1) else np.eye(4)
     return T_icp[:3, :3], T_icp[:3, 3:4]
 
+
+
+class BatchTeaser:
+    """Batch variant over multi-init targets (ref: TEASER_FPFH_ICP,
+    teaser_fpfh_icp.py:122-171): teaser_fpfh_icp of one source onto each
+    target in turn, one generator carried across the targets."""
+
+    def __init__(self, source_points: np.ndarray, voxel_size: float = 0.05,
+                 spc: bool = False, seed: int = 0):
+        self.source = np.asarray(source_points)
+        self.voxel_size = voxel_size
+        self.spc = spc
+        self.rng = np.random.default_rng(seed)
+
+    def forward(self, target_batch: list[np.ndarray]):
+        """(R [n, 3, 3], t [n, 3, 1]), one pair a target."""
+        Rs, ts = [], []
+        for tar in target_batch:
+            R, t = teaser_fpfh_icp(self.source, tar, self.voxel_size,
+                                   self.spc, self.rng)
+            Rs.append(R)
+            ts.append(t)
+        return np.stack(Rs), np.stack(ts)

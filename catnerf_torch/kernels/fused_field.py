@@ -48,7 +48,8 @@ designs:
   gradients per-chunk partials. The background's are instantiated at
   widths 32 (on the 128 x 32 tile), 64, 128 and 256 (`OC_WIDTHS`); any
   other width up to 256 runs on the next one with its extra units zero
-  (`pad_width`).
+  (`pad_width`), a wider one on the kernels' run-time width, padded to a
+  multiple of 32.
 
 A last launch adds the partials in a fixed order, so that two runs are
 bitwise equal (no atomics).
@@ -145,9 +146,9 @@ def oc_layers(hidden: int = 128):
 
 OC_LAYERS = oc_layers(128)
 # the widths csrc/occupancy.cu is instantiated at; any other width up to
-# the last runs through the next one, zero-padded (oc_kernel_width)
+# the last runs through the next one, zero-padded, a wider one on its
+# run-time width (oc_kernel_width)
 OC_WIDTHS = (32, 64, 128, 256)
-OC_MAX_HIDDEN = OC_WIDTHS[-1]
 
 
 def n_params(layers) -> int:
@@ -159,12 +160,15 @@ OC_P = n_params(OC_LAYERS)  # 94,340
 
 
 def oc_kernel_width(hidden: int) -> int:
-    """The instantiation of the background kernels a width runs on: the
-    smallest of OC_WIDTHS at least `hidden`; past the last, raises."""
-    if 1 <= hidden <= OC_MAX_HIDDEN:
+    """The width the background kernels run a hidden width at: the
+    smallest of OC_WIDTHS at least `hidden`; past the last, `hidden`
+    rounded up to a multiple of 32 (the kernels' run-time width)."""
+    if hidden < 1:
+        raise ValueError(f"the background kernels take positive hidden "
+                         f"widths, not {hidden}")
+    if hidden <= OC_WIDTHS[-1]:
         return next(width for width in OC_WIDTHS if hidden <= width)
-    raise ValueError(f"the background kernels take hidden widths 1 to "
-                     f"{OC_MAX_HIDDEN}, not {hidden}")
+    return -(-hidden // 32) * 32
 
 
 def _cn_modules(fc):
@@ -805,7 +809,7 @@ _SIGNATURES = {
         "packed_layout": [ctypes.POINTER(ctypes.c_int)],
     },
     "occupancy": {
-        # ...; N, hidden (an instantiated width); inv_scale; stream
+        # ...; N, hidden (oc_kernel_width's); inv_scale; stream
         "oc_fwd": [_P] * 5 + [_I, _I, _F, _P],
         "oc_bwd": [_P] * 8 + [_I, _I, _F, _P],
         "oc_gemm": [_I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I,
@@ -981,7 +985,7 @@ _OC_WIDTH_LAYOUT: dict[int, tuple[int, int, int, int]] = {}
 
 def _oc_width_layout(width: int) -> tuple[int, int, int, int]:
     """(P, partial row, backward and forward workspace floats a row) of
-    the background kernels' instantiation at `width`, read from the
+    the background kernels at `width` (oc_kernel_width's), read from the
     library once and held to n_params."""
     if width not in _OC_WIDTH_LAYOUT:
         out = (ctypes.c_int * 4)()
@@ -1010,8 +1014,8 @@ def _oc_args(flat, B, pts, hidden, more=None):
 def occupancy_fwd_cuda(flat, B, pts, inv_scale, hidden=128):
     """csrc/occupancy.cu: the PE and the five wide layers as tiled GEMMs,
     then a head kernel; the activations in a workspace of the width's
-    forward columns a row (rows rounded up to 4). A width that is not
-    instantiated runs on the next one, zero-padded (pad_width)."""
+    forward columns a row (rows rounded up to 4). A width runs at
+    oc_kernel_width's, zero-padded (pad_width)."""
     lib = _lib("occupancy")
     N = pts.shape[0]
     width, (_, _, _, fwd_cols), prm = _oc_args(flat, B, pts, hidden)
@@ -1033,8 +1037,8 @@ def occupancy_bwd_cuda(flat, B, pts, dout, inv_scale, hidden=128):
     tiled GEMMs and row kernels, its activations and deltas in a workspace
     of the width's backward columns a row (rows rounded up to 4), the
     weight gradients as `oc_chunks` per-chunk partials reduced in order.
-    A width that is not instantiated runs on the next one, zero-padded;
-    the padding's gradients are sliced off."""
+    A width runs at oc_kernel_width's, zero-padded; the padding's
+    gradients are sliced off."""
     lib = _lib("occupancy")
     N = pts.shape[0]
     width, (P, PP, ws_cols, _), prm = _oc_args(
@@ -1612,8 +1616,8 @@ def codenerf_fused_apply(fc, pe, pts, zs0, zc, zs1, zt0, *, scale: float):
 
 def occupancy_fused_apply(fc, pe, pts, *, scale: float):
     """Fused background forward (ref: occupancy_fused_apply :631):
-    pts [N, 3] -> (alpha [N], rgb [N, 3]); one hidden block of any width
-    1 to OC_MAX_HIDDEN, read from the weights as the JAX function does."""
+    pts [N, 3] -> (alpha [N], rgb [N, 3]); one hidden block of any
+    positive width, read from the weights as the JAX function does."""
     flat = pack(_oc_modules(fc))
     out = _OccupancyFused.apply(flat, pe.B.contiguous(), pts.contiguous(),
                                 1.0 / float(scale),

@@ -330,13 +330,14 @@ def make_sharded_superstep(cfg: Config, obj_mask: torch.Tensor, shard: Shard,
         categories[shard.c0:shard.c1], background if with_bg else None,
         window_pad=n_per_cls, bg_window_pad=n_bg, device=device)
     lengths = torch.tensor([c.buffer.n for c in categories], device=device)
+    max_length = max(c.buffer.n for c in categories)
     bg_length = store.bg_length if with_bg else None
     r, rb = shard.rays(n_per_cls), shard.rays(n_bg)
     n_loc, nb_loc = r.stop - r.start, rb.stop - rb.start
     cls = slice(shard.c0, shard.c1)
     if window:
         def draw(gen):
-            return window_offsets(lengths, bg_length, gen)
+            return window_offsets(lengths, bg_length, gen, max_length)
 
         def sample(offs, boff):
             return sample_batch(
@@ -344,7 +345,8 @@ def make_sharded_superstep(cfg: Config, obj_mask: torch.Tensor, shard: Shard,
                 None if boff is None else boff + rb.start)
     else:
         def draw(gen):
-            return draw_rows(lengths, bg_length, n_per_cls, n_bg, gen)
+            return draw_rows(lengths, bg_length, n_per_cls, n_bg, gen,
+                             max_length)
 
         def sample(idx, bidx):
             return sample_batch(

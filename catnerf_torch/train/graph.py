@@ -215,8 +215,8 @@ def make_superstep(step_fn: StepFn, store: DeviceRayStore, n_per_cls: int,
         sample = sample or (lambda offs, boff: sample_batch(
             store, n_per_cls, n_bg, offs, boff))
     else:
-        draw = draw or (lambda gen: draw_rows(store.lengths, bg_length,
-                                              n_per_cls, n_bg, gen))
+        draw = draw or (lambda gen: draw_rows(
+            store.lengths, bg_length, n_per_cls, n_bg, gen, store.max_length))
         sample = sample or (lambda idx, bidx: sample_batch(
             store, n_per_cls, n_bg, idx, bidx, window=False))
     if graph and store.packed.device.type != "cuda":

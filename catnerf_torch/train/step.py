@@ -100,13 +100,6 @@ def check_supported(cfg: Config) -> None:
             "so the reference does not run that combination either (set "
             "cfg.bf16_activations = False, or cfg.use_fused_kernels = False "
             "for the XLA path in bf16)")
-    if (fused_eligible(cfg)
-            and cfg.hidden_feature_size_bg > fused_field.OC_MAX_HIDDEN):
-        raise NotImplementedError(
-            f"the port's background kernels take hidden_feature_size_bg "
-            f"up to {fused_field.OC_MAX_HIDDEN} (the JAX kernel takes any "
-            f"width): ROADMAP.md Queue 1, item 1e (or set "
-            f"cfg.use_fused_kernels = False)")
 
 
 def draw_uniforms(cfg: Config, n_cls: int, n_rays: int, n_bg: int | None,

@@ -11,7 +11,8 @@ Phases, each printing one or more lines:
    each instantiation of the GEMM block in the two libraries that build it
    (`occupancy`, `codenerf_bwd`), of the forward chain kernel's tile
    body (`codenerf_fwd`: the three chain kernels, the twelve layers of
-   its test entry and its load entry) and of every
+   its test entry and its load entry), of occupancy.cu's head and narrow
+   kernels at each of its five instantiations, and of every
    kernel of the packed backward's library
    (`codenerf_packed`: the backward, its test entries' 13 input-gradient
    pieces and 11 weight gradients, the cosine, `reduce_tiles`); a stack
@@ -40,7 +41,9 @@ Phases, each printing one or more lines:
    128 beside `torch.matmul`, and 32 wide at C=8 x 3,600 x 32 x 32 beside
    `torch.bmm` (NN, bias + ReLU: a forward layer of each chain); then
    kernels 3 and 4 at the background widths OC_CHECK_WIDTHS (32, 64 and
-   256 instantiated, 100 zero-padded onto 128) at the step's 16,800 rows,
+   256 instantiated, 100 zero-padded onto 128; past the instantiations, on
+   the kernels' run-time width, 300 zero-padded onto 320, 512, and 600
+   onto 608) at the step's 16,800 rows,
    each against its plain version (the backward within grad_bound of its
    float64 plain version, rows near a ReLU kink given dout = 0), twice
    bitwise equal, timed beside its bound;
@@ -126,13 +129,17 @@ Phases, each printing one or more lines:
    LEAF_TOL of its largest entry, the incoming weights of units with a
    ReLU tie within TIED_LEAF_TOL), and each trained field's uncertainty
    count, card against CPU on the same uniforms, under the flip rule;
-12. on a thread beside phases 13 and 14 (the CLIs are host-bound
-   subprocesses, 13 and 14 mostly the card's; the seconds of all three
-   are read beside each other), the CLI on a dataset config: a layout of
+12. on a thread beside phases 10, 11, 13 and 14, started after phase
+   10's geometry library is built (the CLIs are host-bound subprocesses;
+   the seconds and rates of all five are read beside each other), the
+   CLI on a dataset config: a layout of
    CLI_SCENE (4 frames of
    600 x 340, half a side of room0's 1,200 x 680), room0's
-   config pointed at it (its camera, self-pretrained registration), and
-   `python -m catnerf_torch.train --config` as a subprocess: max_iter
+   config pointed at it (its camera, self-pretrained registration),
+   `python -m catnerf_torch.scripts.run_registration --config --force`
+   as a subprocess (the registration alone, cached under the layout), and
+   `python -m catnerf_torch.train --config` as a subprocess, reading that
+   cache (it must not register again): max_iter
    CLI_ITERS + 1, so CLI_ITERS steps (train.py's range) through the fast
    path, logged every CLI_LOG, a checkpoint at CLI_ITERS, then `--resume
    --mesh-only` at grid CLI_GRID; the stage seconds it reports, the
@@ -257,8 +264,18 @@ Phases, each printing one or more lines:
    adoption. In (a)'s process, the fused trainer's adopted session: the
    sharded superstep at 1 x 1 on NCCL PAR_STEPS graphed steps bitwise
    run_fast on the unsharded adopted session. Before phase 5, a fused
-   session with a background 64 wide: PAR_STEPS graphed steps bitwise the
-   eager loop's, kernels 3 and 4 once a step.
+   session with a background of each width of WIDTH_SESSION_HIDDENS (512,
+   and 600 zero-padded onto 608, both on the kernels' run-time width):
+   PAR_STEPS
+   graphed steps bitwise the eager loop's, kernels 1-4 once a step.
+
+18. beside phases 15 and 16, the room-scale run
+   (`python -m catnerf_torch.experimental.stress_scale`, the JAX package's
+   `scripts/stress_scale.py`) at STRESS_ARGS (4 frames of 300 x 170, 4
+   categories x 2, 200 steps as 2 calls of `run_fast(100)`, grid 64, 2
+   objects meshed) as a subprocess: its JSON line, the loss finite, the
+   peak device memory read, each cut listed under `reduced`. The full
+   room_0 scale runs alone, outside this script.
 
 Each main path (5, 7, 8, 9, 10, 11, 13, 14, 15, 16, 17) is driven with
 the launch counts set to 0 just before it and read just after. Then a
@@ -418,8 +435,8 @@ PAR_TIMED = 50
 PAR_EAGER = 3
 PAR_METRIC_RTOL = 1e-6
 # the background widths of kernels 3 and 4 checked beside the shipped 128
-OC_CHECK_WIDTHS = (32, 64, 100, 256)
-WIDTH_SESSION_HIDDEN = 64
+OC_CHECK_WIDTHS = (32, 64, 100, 256, 300, 512, 600)
+WIDTH_SESSION_HIDDENS = (512, 600)
 # torch.cuda.set_sync_debug_mode while run_fast runs: the steps must not
 # wait on the device, so that the host queues ahead of it
 SYNC_DEBUG = "error"
@@ -734,8 +751,9 @@ def ptxas_report(text: str) -> dict[str, tuple[int, int]]:
 # layout, epilogue> for each pair its chain (and its test entry) uses, and
 # the grouped weight-gradient kernel
 # occupancy: oc_gemm's 9 at the 128-wide tile, the 32-wide background's 3
-# at the 32-wide tile, a wgrad_kernel a width (32, 64, 128, 256)
-GEMM_LIBS = {"occupancy": 16, "codenerf_bwd": 8}
+# at the 32-wide tile, a wgrad_kernel a width (32, 64, 128, 256, and 0,
+# the run-time width)
+GEMM_LIBS = {"occupancy": 17, "codenerf_bwd": 8}
 
 
 def check_gemm_registers(lib: str, log_text: str, expected: int) -> None:
@@ -766,6 +784,32 @@ def check_gemm_registers(lib: str, log_text: str, expected: int) -> None:
         f"{lb} {r} registers, {fr}-byte stack frame" for lb, r, fr in found))
     if len(found) != expected or any(fr for _, _, fr in found):
         raise AssertionError(f"GEMM block of {lib}: {found}")
+
+
+# occupancy.cu's head and narrow kernels, one of each an instantiation:
+# 32, 64, 128, 256 and 0 (the run-time width)
+OC_ROW_KERNELS = ("fwd_head_rows", "head_rows", "narrow_kernel")
+OC_INSTANTIATIONS = 5
+
+
+def check_occupancy_rows(log_text: str) -> None:
+    """Log the registers and stack frame of occupancy.cu's head and narrow
+    kernels at each instantiation (a head lane holds H/32 columns, 8 at
+    256); fail on a stack frame or a count other than expected."""
+    if not log_text:
+        log("ptxas occupancy.cu: library built before this process; "
+            "registers not read")
+        return
+    pattern = r"(" + "|".join(OC_ROW_KERNELS) + r")ILi(\d+)E"
+    found = []
+    for name, (regs, frame) in sorted(ptxas_report(log_text).items()):
+        if m := re.search(pattern, name):
+            found.append((f"{m.group(1)}<{m.group(2)}>", regs, frame))
+    log("ptxas occupancy.cu, head and narrow kernels: " + "; ".join(
+        f"{lb} {r} registers, {fr}-byte stack frame" for lb, r, fr in found))
+    if (len(found) != len(OC_ROW_KERNELS) * OC_INSTANTIATIONS
+            or any(fr for _, _, fr in found)):
+        raise AssertionError(f"occupancy.cu row kernels: {found}")
 
 
 # the forward chain kernel's tile body in codenerf_fwd.cu: chain_kernel<PE,
@@ -963,8 +1007,10 @@ def check_widths(dev) -> None:
         macs = sum(i * o for _, i, o in layers)
         prm = ff.n_params(layers) + ff.B_SIZE
         width = ff.oc_kernel_width(h)
+        runtime = width > ff.OC_WIDTHS[-1]
         label = (f" (hidden {h}" + (f", zero-padded onto {width}"
                                     if width != h else "")
+                 + (", the run-time width" if runtime else "")
                  + f"; dout = 0 on {int(tied.sum())} rows)")
         check_and_time("occupancy_fwd", dict(
             kernel=lambda: (ff.occupancy_fwd_cuda(flat, B, pts, inv, h),),
@@ -984,36 +1030,40 @@ def check_widths(dev) -> None:
 
 
 def width_session(scene) -> None:
-    """A fused session with a background WIDTH_SESSION_HIDDEN wide on the
-    bench scene: PAR_STEPS steps of the graph bitwise the eager loop's
-    from the same state and draws (metrics and every parameter), kernels
-    3 and 4 (and 1 and 2) launched once a step."""
+    """For each width of WIDTH_SESSION_HIDDENS, a fused session with a
+    background that wide on the bench scene: PAR_STEPS steps of the graph
+    bitwise the eager loop's from the same state and draws (metrics and
+    every parameter), kernels 3 and 4 (and 1 and 2) launched once a
+    step."""
     from catnerf_torch.kernels import fused_field as ff
 
-    cfg = fused_config()
-    cfg.hidden_feature_size_bg = WIDTH_SESSION_HIDDEN
-    t0 = time.time()
-    eager = fast_session(scene, cfg, graph=False)
-    want = snapshot(eager, eager.run_fast(PAR_STEPS))
-    del eager
-    graph = fast_session(scene, cfg, graph=True)
-    ff.reset_launch_counts()
-    got = snapshot(graph, graph.run_fast(PAR_STEPS))
-    launches = {k: ff.LAUNCHES[k] for k in FUSED_KERNELS}
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    float(graph.run_fast(N_TIME).total)
-    rate = N_TIME / (time.perf_counter() - t1)
-    same = bitwise_equal(got, want)
-    log(f"width: fused session with a background {WIDTH_SESSION_HIDDEN} "
-        f"wide, {PAR_STEPS} graphed steps "
-        f"{'bitwise equal to' if same else 'DIFFERENT from'} the eager "
-        f"loop's (metrics and {len(want['params'])} parameters); launches "
-        f"{json.dumps(launches)}; graph {rate:.2f} steps/s over {N_TIME}; "
-        f"{time.time() - t0:.1f} s")
-    if not same or launches != {k: PAR_STEPS for k in FUSED_KERNELS}:
-        raise AssertionError("width: the width-64 session's graph left the "
-                             "eager loop or missed its kernels")
+    for hidden in WIDTH_SESSION_HIDDENS:
+        cfg = fused_config()
+        cfg.hidden_feature_size_bg = hidden
+        t0 = time.time()
+        eager = fast_session(scene, cfg, graph=False)
+        want = snapshot(eager, eager.run_fast(PAR_STEPS))
+        del eager
+        graph = fast_session(scene, cfg, graph=True)
+        ff.reset_launch_counts()
+        got = snapshot(graph, graph.run_fast(PAR_STEPS))
+        launches = {k: ff.LAUNCHES[k] for k in FUSED_KERNELS}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        float(graph.run_fast(N_TIME).total)
+        rate = N_TIME / (time.perf_counter() - t1)
+        same = bitwise_equal(got, want)
+        log(f"width: fused session with a background {hidden} wide (runs "
+            f"at {ff.oc_kernel_width(hidden)}), {PAR_STEPS} graphed steps "
+            f"{'bitwise equal to' if same else 'DIFFERENT from'} the eager "
+            f"loop's (metrics and {len(want['params'])} parameters); "
+            f"launches {json.dumps(launches)}; graph {rate:.2f} steps/s "
+            f"over {N_TIME}; {time.time() - t0:.1f} s")
+        if not same or launches != {k: PAR_STEPS for k in FUSED_KERNELS}:
+            raise AssertionError(f"width: the width-{hidden} session's graph "
+                                 f"left the eager loop or missed its "
+                                 f"kernels")
+        del graph
 
 
 def packed_inputs(dev, C, N, seed):
@@ -1895,11 +1945,9 @@ def _affine(R, t):
     return T
 
 
-def e2e_phase():
-    """Phase 10: the geometry library's build, then the quality gate's
-    training, meshing and scoring, checkpoints and slabs on the card.
-    Returns the trained session (phase 13 serves it)."""
-    from catnerf_torch.experimental import e2e_quality as e2e
+def geometry_library() -> None:
+    """Phase 10's first part: the C++ geometry library's build (g++, at
+    first use) and load, before phase 12's thread starts."""
     from catnerf_torch.native import lib as native
 
     t0 = time.time()
@@ -1908,6 +1956,15 @@ def e2e_phase():
         + (f"built with g++ in {native.BUILD_SECONDS:.1f} s"
            if native.BUILD_SECONDS is not None else "found already built")
         + f" ({time.time() - t0:.1f} s with the load)")
+
+
+def e2e_phase():
+    """Phase 10: the quality gate's training, meshing and scoring,
+    checkpoints and slabs on the card (the geometry library built first,
+    `geometry_library`). Returns the trained session (phase 13 serves
+    it)."""
+    from catnerf_torch.experimental import e2e_quality as e2e
+
     t0 = time.time()
     scene, sess = e2e.make_session(grid_dim=E2E_GRID)
     log(f"e2e: session on {sess.device} in {time.time() - t0:.2f} s, "
@@ -2055,6 +2112,15 @@ def cli_run(scene, root: str, scene_s: float) -> None:
     cfg_path = os.path.join(root, "room.json")
     with open(cfg_path, "w") as f:
         json.dump(raw, f)
+    # the registration alone (--force: none cached yet); the training
+    # CLI then reads its cache and aligns nothing again
+    out = cli_subprocess("registration", [
+        sys.executable, "-m", "catnerf_torch.scripts.run_registration",
+        "--config", cfg_path, "--force"])
+    for line in out.splitlines():
+        log(f"cli registration: {line}")
+    cache = os.path.join(data_dir, "inst_dict.pkl")
+    stamp = os.stat(cache).st_mtime_ns
     # <log_dir>/<scene>/scene_mesh, where the evaluation CLIs look
     logdir = os.path.join(root, "logs", "room")
     base = [sys.executable, "-m", "catnerf_torch.train", "--config",
@@ -2062,6 +2128,8 @@ def cli_run(scene, root: str, scene_s: float) -> None:
     cli_subprocess("train", base + [
         "--max-iter", str(CLI_ITERS + 1), "--log-iter", str(CLI_LOG),
         "--save-iter", str(CLI_ITERS)])
+    if os.stat(cache).st_mtime_ns != stamp:
+        raise AssertionError("cli: the training CLI registered again")
     # the parity trace shares nothing with the mesh and the evaluation
     # CLIs: it runs beside them, in the smoke's time limit
     trace_done = in_background(cli_trace, root)
@@ -2109,6 +2177,28 @@ def in_background(fn, *args):
             raise errors[0]
 
     return join
+
+
+# the room-scale run (experimental/stress_scale.py) at a small size
+STRESS_ARGS = ("--frames", "4", "--width", "300", "--height", "170",
+               "--categories", "4", "--iters", "200", "--grid-dim", "64",
+               "--mesh-objects", "2")
+
+
+def stress_phase() -> None:
+    """`python -m catnerf_torch.experimental.stress_scale` at STRESS_ARGS
+    as a subprocess: its JSON line, a finite loss, the objects meshed, the
+    peak device memory read and every cut listed under `reduced`."""
+    t0 = time.time()
+    out = cli_subprocess("stress", [
+        sys.executable, "-m", "catnerf_torch.experimental.stress_scale",
+        *STRESS_ARGS])
+    r = json.loads(out.strip().splitlines()[-1])
+    if not (math.isfinite(r["final_total"]) and r["n_meshed"] == 2
+            and r["peak_device_mb"] > 0 and len(r["reduced"]) == 7
+            and r["samples_per_step"] > 0):
+        raise AssertionError(f"stress: {r}")
+    log(f"stress: {json.dumps(r)}; {time.time() - t0:.1f} s")
 
 
 def cli_subprocess(what: str, argv: list) -> str:
@@ -3803,6 +3893,7 @@ def main() -> int:
             fh.write(build.build_log(name))
     for name, count in GEMM_LIBS.items():
         check_gemm_registers(name, build.build_log(name), count)
+    check_occupancy_rows(build.build_log("occupancy"))
     check_tile_registers(build.build_log("codenerf_fwd"))
     check_packed_registers(build.build_log("codenerf_packed"))
 
@@ -3815,6 +3906,8 @@ def main() -> int:
     check_step(dev, fused_config(), "fused")
     check_step(dev, strict_config(), "strict-parity")
     check_step(dev, default_config(), "default (bf16)")
+    log(f"phases 1-4 in {time.time() - t_start:.1f} s")
+    t59 = time.time()
     scene = make_scene(**SCENE)
     width_session(scene)
     rates, phases = {}, {}
@@ -3851,23 +3944,27 @@ def main() -> int:
             f"{phases[k]['graph']:.2f} steps/s (main path {r:.2f}), busy "
             f"eager {busy(phases[k]['eager_busy'])}, graph {busy(b)}"
             for k, (r, b) in rates.items()))
+    log(f"phases 5-9 in {time.time() - t59:.1f} s (the width sessions "
+        f"included)")
     t0 = time.time()
-    gate = e2e_phase()
-    log(f"e2e: phase 10 in {time.time() - t0:.1f} s")
-    t0 = time.time()
-    registered_phase()
-    log(f"registered: phase 11 in {time.time() - t0:.1f} s")
+    geometry_library()
     # phase 12 (CLI subprocesses, host-bound: the registration's alignment,
-    # the evaluation CLIs) runs beside phases 13 and 14 (the card's), in
-    # the smoke's time limit; its checks are joined before phase 15
+    # the evaluation CLIs) runs on a thread beside phases 10, 11, 13 and
+    # 14, in the smoke's time limit; its checks are joined before phase 15
     t12 = time.time()
 
     def phase12():
         cli_phase()
         log(f"cli: phase 12 in {time.time() - t12:.1f} s (beside phases "
-            f"13-14)")
+            f"10-11 and 13-14)")
 
     cli_done = in_background(phase12)
+    gate = e2e_phase()
+    log(f"e2e: phase 10 in {time.time() - t0:.1f} s (beside phase 12)")
+    t0 = time.time()
+    registered_phase()
+    log(f"registered: phase 11 in {time.time() - t0:.1f} s (beside phase "
+        f"12)")
     t0 = time.time()
     serving_phase(gate)
     log(f"serve: phase 13 in {time.time() - t0:.1f} s (beside phase 12)")
@@ -3876,12 +3973,22 @@ def main() -> int:
     fit_phase()
     log(f"fit: phase 14 in {time.time() - t0:.1f} s (beside phase 12)")
     cli_done()
+    # the small room-scale run, a subprocess, beside phases 15 and 16
+    t18 = time.time()
+
+    def phase18():
+        stress_phase()
+        log(f"stress: phase 18 in {time.time() - t18:.1f} s (beside "
+            f"phases 15-16)")
+
+    stress_done = in_background(phase18)
     t0 = time.time()
     staging_and_regfit_phase(scene)
-    log(f"phase 15 in {time.time() - t0:.1f} s")
+    log(f"phase 15 in {time.time() - t0:.1f} s (beside phase 18)")
     t0 = time.time()
     scannet_phase()
-    log(f"scannet: phase 16 in {time.time() - t0:.1f} s")
+    log(f"scannet: phase 16 in {time.time() - t0:.1f} s (beside phase 18)")
+    stress_done()
     t0 = time.time()
     parallel_phase(scene)
     log(f"parallel: phase 17 in {time.time() - t0:.1f} s")

@@ -140,10 +140,12 @@ def test_cuda_occupancy_kernel_matches_plain(cuda_device, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [77, 16801])
-@pytest.mark.parametrize("hidden", [32, 64, 100, 256])
+@pytest.mark.parametrize("hidden", [32, 64, 100, 256, 300, 512, 600, 1056])
 def test_cuda_occupancy_kernel_at_any_width(cuda_device, hidden, N):
     """Kernels 3 and 4 at a background width other than 128 (100 runs
-    zero-padded onto 128): the forward within FWD_TOL of the plain
+    zero-padded onto 128; past the instantiations, on the kernels'
+    run-time width, 300 zero-padded onto 320, 512 and 1056 as they are,
+    600 onto 608): the forward within FWD_TOL of the plain
     version, each gradient within grad_bound of the float64 plain version
     (rows near a ReLU kink given dout = 0), two runs bitwise equal, one
     launch each."""

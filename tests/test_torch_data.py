@@ -114,3 +114,78 @@ def test_window_offsets_stay_in_range(scenes):
         assert 0 <= int(boff) < store.bg_length
     with pytest.raises(ValueError, match="window_pad"):
         tdb.check_window_pad(store, 16)
+
+
+def _f32_window_offsets(lengths, bg_length, gen):
+    """The float32 draw every store below 2^24 rows takes."""
+    u = torch.rand(lengths.shape[0], generator=gen)
+    offs = torch.minimum((u * lengths).long(), lengths - 1)
+    ub = torch.rand((), generator=gen)
+    return offs, torch.clamp((ub * bg_length).long(), max=bg_length - 1)
+
+
+def _f32_draw_rows(lengths, bg_length, n_per_cls, n_bg, gen):
+    u = torch.rand(lengths.shape[0], n_per_cls, generator=gen)
+    idx = torch.minimum((u * lengths[:, None]).long(), lengths[:, None] - 1)
+    ub = torch.rand(n_bg, generator=gen)
+    return idx, torch.clamp((ub * bg_length).long(), max=bg_length - 1)
+
+
+@pytest.mark.parametrize("kind", ["window", "rows"])
+def test_draws_below_2_24_rows_are_the_float32_stream(kind):
+    lengths = torch.tensor([3_000_000, 1 << 24, 17])
+    bg_length = 1 << 24
+    for seed in range(3):
+        got_gen = torch.Generator().manual_seed(seed)
+        ref_gen = torch.Generator().manual_seed(seed)
+        for _ in range(3):
+            if kind == "window":
+                got = tdb.window_offsets(lengths, bg_length, got_gen,
+                                         1 << 24)
+                ref = _f32_window_offsets(lengths, bg_length, ref_gen)
+            else:
+                got = tdb.draw_rows(lengths, bg_length, 64, 32, got_gen,
+                                    1 << 24)
+                ref = _f32_draw_rows(lengths, bg_length, 64, 32, ref_gen)
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+
+
+def _spread(draws, length):
+    draws = draws.reshape(-1)
+    assert bool((draws >= 0).all() and (draws < length).all())
+    odd = float((draws % 2).double().mean())
+    eighth = float((draws % 8 == 0).double().mean())
+    return odd, eighth, int(draws.max())
+
+
+@pytest.mark.parametrize("kind", ["window", "rows"])
+def test_draws_past_2_24_rows_are_uniform_over_rows(kind):
+    """80M rows, a room's uncapped background: a float32 uniform gives
+    ~10% odd rows and ~55% multiples of 8."""
+    length, n = 80_000_000, 1 << 20
+    gen = torch.Generator().manual_seed(0)
+    if kind == "window":
+        offs, _ = tdb.window_offsets(torch.full((n,), length), None, gen,
+                                     length)
+        boff = torch.stack([tdb.window_offsets(torch.tensor([3]), length,
+                                               gen, 3)[1]
+                            for _ in range(4000)])
+        cat, bg = (offs, n), (boff, 4000)
+    else:
+        idx, bidx = tdb.draw_rows(torch.tensor([length, length]), length,
+                                  n // 2, n, gen, length)
+        cat, bg = (idx, n), (bidx, n)
+    for draws, count in (cat, bg):
+        odd, eighth, top = _spread(draws, length)
+        sigma = 0.5 / count ** 0.5
+        assert abs(odd - 0.5) < 5 * sigma, odd
+        assert abs(eighth - 0.125) < 5 * sigma, eighth
+        assert top > length * (1 - 20 / count)
+
+
+def test_the_store_knows_its_longest_buffer_on_the_host(scenes):
+    (_, _, _, _), (_, tcats, tbg, _) = scenes
+    store = tdb.build_device_store(tcats, tbg, window_pad=8, bg_window_pad=8,
+                                   device="cpu")
+    assert store.max_length == int(store.lengths.max())

@@ -155,8 +155,9 @@ def test_occupancy_input_grads_match_jax(oc_case):
 
 
 #: widths of the background other than the shipped 128: the instantiated
-#: 32, 64 and 256, and 100, which the kernels run zero-padded to 128
-WIDTHS = (32, 64, 100, 256)
+#: 32, 64 and 256, 100, which the kernels run zero-padded to 128, and 300,
+#: 512 and 600 past the instantiations (at 320, 512 and 608)
+WIDTHS = (32, 64, 100, 256, 300, 512, 600)
 RELU_TIE = 1e-5
 
 
@@ -233,11 +234,16 @@ def test_occupancy_backward_matches_jax_at_any_width(oc_width_case):
 
 @pytest.mark.parametrize("hidden,width", [(1, 32), (32, 32), (33, 64),
                                           (100, 128), (128, 128),
-                                          (129, 256), (256, 256)])
+                                          (129, 256), (256, 256),
+                                          (257, 288), (300, 320),
+                                          (512, 512), (513, 544),
+                                          (600, 608)])
 def test_each_width_runs_on_the_next_instantiation(hidden, width):
-    """A width runs on the smallest instantiated width at least as wide,
-    its extra units zero: padding and slicing back are exact inverses,
-    and the padded field's plain forward is the narrower one's."""
+    """A width runs on the smallest instantiated width at least as wide
+    (past the last, on the kernels' run-time width, the next multiple of
+    32), its extra units zero: padding and slicing back are exact
+    inverses, and the padded field's plain forward is the narrower
+    one's."""
     assert tff.oc_kernel_width(hidden) == width
     gen = torch.Generator().manual_seed(hidden)
     flat = tff.pack(tff._oc_modules(OccupancyMap.init(
@@ -254,10 +260,20 @@ def test_each_width_runs_on_the_next_instantiation(hidden, width):
         rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("hidden", [0, 257])
+@pytest.mark.parametrize("hidden", [0])
 def test_a_width_past_the_instantiations_raises(hidden):
-    with pytest.raises(ValueError, match="hidden widths 1 to 256"):
+    with pytest.raises(ValueError, match="positive hidden widths"):
         tff.oc_kernel_width(hidden)
+
+
+@pytest.mark.parametrize("hidden", [513, 1000, 1024, 1025, 2049, 4096])
+def test_every_width_past_the_instantiations_runs_at_a_multiple_of_32(
+        hidden):
+    """No positive width raises: past the last instantiation a width runs
+    on the kernels' run-time width, the next multiple of 32."""
+    width = tff.oc_kernel_width(hidden)
+    assert width % 32 == 0 and hidden <= width < hidden + 32
+    assert width > tff.OC_WIDTHS[-1]
 
 
 def test_plain_path_on_cpu_launches_no_kernel(cn_case):

@@ -73,7 +73,10 @@ def test_importing_every_module_loads_no_jax():
     "catnerf_torch.data.jpeg", "catnerf_torch.data.transforms",
     "catnerf_torch.data.scannet", "catnerf_torch.geometry.segmentation",
     "catnerf_torch.parallel.mesh", "catnerf_torch.parallel.sharding",
-    "catnerf_torch.parallel.grid_eval"])
+    "catnerf_torch.parallel.grid_eval", "catnerf_torch.geometry.teaser",
+    "catnerf_torch.scripts.run_registration",
+    "catnerf_torch.scripts.run_suite",
+    "catnerf_torch.experimental.stress_scale"])
 def test_packed_and_xla_path_modules_load_no_jax(module):
     """Each module of the packed kernels, the XLA-path fields, the kernel
     comparison, the geometry library, the mesher, the metrics, the
@@ -129,12 +132,18 @@ def test_source_walk_covers_the_new_modules():
             "catnerf_torch/metrics/eval_scene.py",
             "catnerf_torch/parallel/mesh.py",
             "catnerf_torch/parallel/sharding.py",
-            "catnerf_torch/parallel/grid_eval.py"} <= names
+            "catnerf_torch/parallel/grid_eval.py",
+            "catnerf_torch/geometry/teaser.py",
+            "catnerf_torch/scripts/run_registration.py",
+            "catnerf_torch/scripts/run_suite.py",
+            "catnerf_torch/experimental/stress_scale.py"} <= names
 
 
-@pytest.mark.parametrize("entry", ["catnerf_torch.metrics.eval_obj",
-                                   "catnerf_torch.metrics.eval_scene",
-                                   "catnerf_torch.train"])
+@pytest.mark.parametrize("entry", [
+    "catnerf_torch.metrics.eval_obj", "catnerf_torch.metrics.eval_scene",
+    "catnerf_torch.train", "catnerf_torch.scripts.run_registration",
+    "catnerf_torch.scripts.run_suite",
+    "catnerf_torch.experimental.stress_scale"])
 def test_the_cli_entry_points_load_no_jax(entry):
     """`python -m <entry> --help`, run as `-m` runs it in a fresh
     interpreter: it prints its usage and loads neither jax nor the JAX
@@ -225,6 +234,21 @@ def test_a_spawned_rank_loads_no_jax(tmp_path):
     assert [m for m in loaded if _forbidden(m)] == []
 
 
+@pytest.mark.parametrize("main,argv", [
+    ("catnerf_torch.scripts.run_registration", ["--config", "x.json"]),
+    ("catnerf_torch.experimental.stress_scale", ["--frames", "1"]),
+])
+def test_the_new_entry_points_without_device_raise_when_there_is_no_gpu(
+        monkeypatch, main, argv):
+    """Asked for no device, the registration CLI and the room-scale run
+    want the card; with none they raise before they load anything."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(main).main(argv)
+
+
 def test_session_without_device_raises_when_there_is_no_gpu(monkeypatch):
     """Asked for no device, the session wants a GPU; with none it raises
     instead of carrying on on the CPU."""
@@ -253,7 +277,6 @@ def test_the_fit_cli_without_device_raises_when_there_is_no_gpu(
 
 @pytest.mark.parametrize("change,match", [
     (dict(bf16_activations=True), "bf16_activations"),
-    (dict(hidden_feature_size_bg=257), "up to 256"),
 ])
 def test_unsupported_configuration_raises(change, match):
     cfg = Config()

@@ -373,7 +373,7 @@ def test_row_draw_stays_in_each_buffer():
     _, tstore = _stores()
     gen = torch.Generator().manual_seed(0)
     idx, bidx = tdb.draw_rows(tstore.lengths, tstore.bg_length, 500, 500,
-                              gen)
+                              gen, tstore.max_length)
     assert idx.shape == (tstore.lengths.shape[0], 500)
     assert bool((idx >= 0).all()) and bool(
         (idx < tstore.lengths[:, None]).all())

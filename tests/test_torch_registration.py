@@ -183,6 +183,23 @@ def test_obb_and_teaser_are_bitwise(loaded):
     assert treg.coverage_score(p1) == jreg.coverage_score(p1)
 
 
+@pytest.mark.parametrize("spc,vox", [(True, 0.1), (False, 0.08)],
+                         ids=["spc", "fpfh"])
+def test_batch_teaser_is_bitwise(loaded, spc, vox):
+    """BatchTeaser against the JAX class: one source onto three targets,
+    the generator carried across them (the spc route draws from it)."""
+    (_, _, p1), (_, _, p2) = _objects(loaded["tinst"])[:2]
+    rot = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    targets = [p2 / 0.3, p1 @ rot.T / 0.3, p2 / 0.3 + 0.05]
+    Rt, tt = tteaser.BatchTeaser(p1 / 0.3, voxel_size=vox, spc=spc,
+                                 seed=3).forward(targets)
+    Rj, tj = jteaser.BatchTeaser(p1 / 0.3, voxel_size=vox, spc=spc,
+                                 seed=3).forward(targets)
+    assert Rt.shape == (3, 3, 3) and tt.shape == (3, 3, 1)
+    np.testing.assert_array_equal(Rt, Rj)
+    np.testing.assert_array_equal(tt, tj)
+
+
 def _assert_registered_alike(tinst, jinst):
     assert sorted(tinst) == sorted(jinst)  # the same subcategory splits
     for c, jobjs in jinst.items():

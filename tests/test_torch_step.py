@@ -255,7 +255,8 @@ def test_adamw_update_matches_optax(one_step):
 def test_a_fused_background_runs_at_its_width(monkeypatch):
     """A fused session with a background 64 wide steps through the fused
     background function at width 64 (its plain version on the CPU, so no
-    kernel launch is counted); a width past the kernels' 256 raises."""
+    kernel launch is counted); a width past the widest instantiation
+    builds too (the kernels' run-time width)."""
     from catnerf_torch.kernels import fused_field
 
     _, tsess = _sessions(0, hidden_bg=64)
@@ -270,10 +271,12 @@ def test_a_fused_background_runs_at_its_width(monkeypatch):
     assert np.isfinite(float(tsess.step_once().total))
     tsess.release_prefetch()
     assert calls == [64] and fused_field.LAUNCHES == before
-    cfg = _configure(Config(), hidden_bg=fused_field.OC_MAX_HIDDEN + 1)
-    with pytest.raises(NotImplementedError, match="up to 256"):
-        TrainingSession(cfg, *(lambda s: (s.inst_dict, s.sample_dict))(
+    for hidden in (512, fused_field.OC_WIDTHS[-1] + 1):
+        cfg = _configure(Config(), hidden_bg=hidden)
+        tstep.check_supported(cfg)
+        sess = TrainingSession(cfg, *(lambda s: (s.inst_dict, s.sample_dict))(
             make_scene(**SCENE)), device="cpu")
+        assert sess.state.params.bg_fc.in_layer.w.shape[-1] == hidden
 
 
 @pytest.mark.parametrize("seed", SEEDS)
