@@ -1,0 +1,20 @@
+"""Host milliseconds a served view spends blocked in the tiles' `nonzero`
+and the image's copy-out (the spans render.sync), summed over the spans
+of each traced `GET /scene` (serve.request) and taken over their number
+(catnerf_torch.tracing)."""
+
+SPAN = "render.sync"
+
+
+def read(r):
+    try:
+        from catnerf_torch import tracing
+    except ImportError:
+        return None
+    spans = tracing.snapshot()["spans"]
+    views = {s.id for s in spans if s.name == "serve.request"
+             and s.attrs.get("path") == "/scene"}
+    if not views:
+        return None
+    ns = sum(s.ns for s in spans if s.name == SPAN and s.request in views)
+    return ns / len(views) / 1e6

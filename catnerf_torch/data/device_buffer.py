@@ -68,7 +68,7 @@ def build_device_store(categories: list[CategoryScene],
     """window_pad / bg_window_pad: rows past each buffer's end holding a
     cyclic repetition of its first rows, sized to the per-step batch."""
     max_len = max(c.buffer.n for c in categories) + window_pad
-    t0 = time.time()
+    t0 = time.perf_counter()
     packed = np.zeros((len(categories), max_len, _CAT_COLS), np.float32)
     for i, c in enumerate(categories):
         rows = _pack_rows(c.buffer.arrays, c.buffer.n, True,
@@ -82,7 +82,7 @@ def build_device_store(categories: list[CategoryScene],
         bg_rows = _pack_rows(b, bg_n, False)
         bg_rows = np.concatenate(
             [bg_rows, np.resize(bg_rows, (bg_window_pad, _BG_COLS))])
-    phase_add("fast_path", "store_pack", time.time() - t0)
+    phase_add("fast_path", "store_pack", time.perf_counter() - t0)
     return DeviceRayStore(
         packed=torch.from_numpy(packed).to(device),
         lengths=torch.tensor([c.buffer.n for c in categories],

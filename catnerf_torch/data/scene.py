@@ -124,7 +124,7 @@ def build_instance_ray_arrays(frame_info: list, sample_dict: dict, cam,
     Outputs are PREALLOCATED and filled per frame (bit-identical to a
     list+concatenate: slice assignment performs the same round-to-nearest
     downcasts) — concatenates would re-copy every array once."""
-    t0 = time.time()
+    t0 = time.perf_counter()
     bboxes = [tuple(int(v) for v in fi["bbox"]) for fi in frame_info]
     sizes = [(w1 - w0) * (h1 - h0) for w0, w1, h0, h1 in bboxes]
     n_total = int(sum(sizes))
@@ -146,7 +146,7 @@ def build_instance_ray_arrays(frame_info: list, sample_dict: dict, cam,
                                     this_id).reshape(-1)
         depth_a[sl] = sample["depth"][w0:w1, h0:h1].reshape(-1)
         off += n_px
-    phase_add("session", "ray_build", time.time() - t0)
+    phase_add("session", "ray_build", time.perf_counter() - t0)
     return {
         "origins": origins,
         "dirs": dirs_a,
@@ -236,7 +236,7 @@ class CategoryScene:
         cap = (self.cfg.max_store_rays_bg if self.is_background
                else self.cfg.max_store_rays_per_cat)
         n = arrays["depth"].shape[0]
-        t_sub = time.time()
+        t_sub = time.perf_counter()
         if cap and n > cap:
             # Stratified subsample per instance (config.py max_store_rays_*:
             # bounds the device/host ray store at large scene scale; 0 =
@@ -273,10 +273,11 @@ class CategoryScene:
                                         replace=False))
             sel = np.sort(np.concatenate(parts))
             arrays = {k: a[sel] for k, a in arrays.items()}
-            phase_add("session", "store_cap_subsample", time.time() - t_sub)
-        t_shuf = time.time()
+            phase_add("session", "store_cap_subsample",
+                      time.perf_counter() - t_sub)
+        t_shuf = time.perf_counter()
         buf = RayBuffer(arrays, rng)
-        phase_add("session", "buffer_shuffle", time.time() - t_shuf)
+        phase_add("session", "buffer_shuffle", time.perf_counter() - t_shuf)
         return buf
 
     def sample(self, n: int) -> dict[str, np.ndarray]:

@@ -38,6 +38,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from catnerf_torch import tracing
 from catnerf_torch.config import Config
 from catnerf_torch.data.device_buffer import (build_device_store, draw_rows,
                                               sample_batch, window_offsets)
@@ -358,11 +359,13 @@ def make_sharded_superstep(cfg: Config, obj_mask: torch.Tensor, shard: Shard,
     reduction = ShardedLoss(shard)
 
     def step_fn(cat, bg, draws):
-        if isinstance(draws, torch.Generator):
-            draws = step_mod.draw_uniforms(cfg, shard.n_cls, n_per_cls,
-                                           n_bg_step, draws, device)
-        return step_mod.update(state, cat, bg, shard.draws(draws), cfg,
-                               mask, reduction=reduction)
+        with tracing.span("step.batch"):
+            if isinstance(draws, torch.Generator):
+                draws = step_mod.draw_uniforms(cfg, shard.n_cls, n_per_cls,
+                                               n_bg_step, draws, device)
+            draws = shard.draws(draws)
+        return step_mod.update(state, cat, bg, draws, cfg, mask,
+                               reduction=reduction)
 
     return make_superstep(step_fn, store, n_per_cls, n_bg, n_inner,
                           graph=graph, window=window, draw=draw,

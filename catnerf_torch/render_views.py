@@ -35,6 +35,7 @@ import threading
 import numpy as np
 import torch
 
+from catnerf_torch import tracing
 from catnerf_torch.config import Config
 from catnerf_torch.data import png
 from catnerf_torch.data.camera import CameraInfo, ray_dirs_cache
@@ -172,7 +173,9 @@ def _render_rays(tile_fn, cam: CameraInfo, T, near: float, far: float,
     one process (every rank calls this) spreads the tiles over its
     processes (tile i to rank i mod their count, parallel/grid_eval.py)
     and gathers only the tiles' pixels; every rank gets the image, the
-    unsharded one bit for bit."""
+    unsharded one bit for bit. Tracing: each tile is the span render.tile
+    (the counters render.tiles, render.points), the copy-out render.sync
+    (render.syncs), after which the tiles' device reads settle."""
     T = _f32(T, device)
     dirs = _dirs(cam, device) @ T[:3, :3].T
     near, far = _f32(near, device), _f32(far, device)
@@ -187,19 +190,28 @@ def _render_rays(tile_fn, cam: CameraInfo, T, near: float, far: float,
     for i, d in enumerate(dirs.split(rays)):
         if sharded and i % n != r:
             continue
-        pts = T[:3, 3] + d[:, None, :] * z[None, :, None]
-        occ, rgb = tile_fn(pts.reshape(-1, 3))
-        term = render_ops.occupancy_to_termination(occ.reshape(-1, n_bins))
-        parts.append(((term[..., None] * rgb.reshape(-1, n_bins, 3)).sum(-2),
-                      (term * z).sum(-1), term.sum(-1)))
+        with tracing.span("render.tile"):
+            tracing.count("render.tiles")
+            tracing.count("render.points", d.shape[0] * n_bins)
+            pts = T[:3, 3] + d[:, None, :] * z[None, :, None]
+            occ, rgb = tile_fn(pts.reshape(-1, 3))
+            term = render_ops.occupancy_to_termination(
+                occ.reshape(-1, n_bins))
+            parts.append(((term[..., None]
+                           * rgb.reshape(-1, n_bins, 3)).sum(-2),
+                          (term * z).sum(-1), term.sum(-1)))
     shape = (cam.width, cam.height)
     if not sharded:
-        return tuple(torch.cat(x).reshape(*shape, *tail).cpu().numpy()
-                     for x, tail in zip(zip(*parts), ((3,), (), ())))
+        with tracing.span("render.sync"), tracing.settle():
+            tracing.count("render.syncs")
+            return tuple(torch.cat(x).reshape(*shape, *tail).cpu().numpy()
+                         for x, tail in zip(zip(*parts), ((3,), (), ())))
     from catnerf_torch.parallel.grid_eval import _in_order
 
-    tiles = _in_order([tuple(x.cpu().numpy() for x in p) for p in parts],
-                      device_mesh)
+    with tracing.span("render.sync"), tracing.settle():
+        tracing.count("render.syncs")
+        host = [tuple(x.cpu().numpy() for x in p) for p in parts]
+    tiles = _in_order(host, device_mesh)
     return tuple(np.concatenate(x).reshape(*shape, *tail)
                  for x, tail in zip(zip(*tiles), ((3,), (), ())))
 
@@ -357,33 +369,47 @@ def _scene_tile(staged: dict, bg_params: dict | None, cfg: Config,
     to its box, on the points inside at least one box only: elsewhere
     every object's masked occupancy is 0, which leaves the union's product
     at 1 and its sums at 0, as the JAX package's evaluation of every point
-    does. No [n_obj, n] tensor outlives the tile."""
-    x_m = p @ staged["Am"].transpose(1, 2) + staged["bm"][:, None]
-    mask = (x_m.abs() <= staged["half"][:, None]).all(-1)
-    inside = mask.any(0).nonzero().squeeze(1)
-    one_minus = torch.ones_like(p[:, 0])
-    csum = torch.zeros_like(p)
-    wsum = torch.zeros_like(p[:, 0])
-    if inside.numel():
-        q = p[inside]
-        x_e = q @ staged["A"].transpose(1, 2) + staged["b"][:, None]
-        emb = embedding.apply(staged["pe"], x_e, scale=cfg.obj_scale,
-                              max_deg=cfg.n_unidir_funcs)
-        sigma, rgbs = codenerf.apply(staged["fc"], emb, staged["sc"][:, None],
-                                     staged["tc"][:, None])
-        occs = (render_ops.occupancy_activation(sigma[..., 0])
-                * mask[:, inside].float())
-        one_minus[inside] = torch.prod(1.0 - occs, dim=0)
-        csum[inside] = (occs[..., None] * rgbs).sum(0)
-        wsum[inside] = occs.sum(0)
+    does. No [n_obj, n] tensor outlives the tile.
+
+    Tracing: the spans render.objects (the box test, its `nonzero`, the
+    span render.sync, and the ensemble) and render.background, each timed
+    on the device too; the counters render.syncs, render.object_evals
+    (objects x points inside some box) and render.object_hits (the box
+    mask's true entries, summed on the device)."""
+    with tracing.span("render.objects", device=p.device):
+        x_m = p @ staged["Am"].transpose(1, 2) + staged["bm"][:, None]
+        mask = (x_m.abs() <= staged["half"][:, None]).all(-1)
+        with tracing.span("render.sync"):
+            tracing.count("render.syncs")
+            inside = mask.any(0).nonzero().squeeze(1)
+        tracing.count("render.object_evals", mask.shape[0] * inside.numel())
+        if tracing.on():
+            tracing.count_device("render.object_hits", mask.sum())
+        one_minus = torch.ones_like(p[:, 0])
+        csum = torch.zeros_like(p)
+        wsum = torch.zeros_like(p[:, 0])
+        if inside.numel():
+            q = p[inside]
+            x_e = q @ staged["A"].transpose(1, 2) + staged["b"][:, None]
+            emb = embedding.apply(staged["pe"], x_e, scale=cfg.obj_scale,
+                                  max_deg=cfg.n_unidir_funcs)
+            sigma, rgbs = codenerf.apply(staged["fc"], emb,
+                                         staged["sc"][:, None],
+                                         staged["tc"][:, None])
+            occs = (render_ops.occupancy_activation(sigma[..., 0])
+                    * mask[:, inside].float())
+            one_minus[inside] = torch.prod(1.0 - occs, dim=0)
+            csum[inside] = (occs[..., None] * rgbs).sum(0)
+            wsum[inside] = occs.sum(0)
     if bg_params is not None:
-        emb = embedding.apply(bg_params["pe"], p, scale=cfg.bg_scale,
-                              max_deg=cfg.n_unidir_funcs)
-        sigma, rgb = occupancy.apply(bg_params["fc"], emb)
-        occb = render_ops.occupancy_activation(sigma[..., 0])
-        one_minus = one_minus * (1.0 - occb)
-        csum = csum + occb[:, None] * rgb
-        wsum = wsum + occb
+        with tracing.span("render.background", device=p.device):
+            emb = embedding.apply(bg_params["pe"], p, scale=cfg.bg_scale,
+                                  max_deg=cfg.n_unidir_funcs)
+            sigma, rgb = occupancy.apply(bg_params["fc"], emb)
+            occb = render_ops.occupancy_activation(sigma[..., 0])
+            one_minus = one_minus * (1.0 - occb)
+            csum = csum + occb[:, None] * rgb
+            wsum = wsum + occb
     return 1.0 - one_minus, csum / torch.clamp(wsum[:, None], min=1e-8)
 
 
@@ -413,7 +439,8 @@ def render_scene_view(session, T: np.ndarray, cam: CameraInfo, *,
         raise TypeError(f"device_mesh: a torch DeviceMesh "
                         f"(parallel.mesh.make_mesh), not {device_mesh!r}")
     cfg = session.cfg
-    staged = _stage_scene_fields(session, margin)
+    with tracing.span("render.stage"):
+        staged = _stage_scene_fields(session, margin)
 
     bg_params = session.background_params()
     if staged is None:  # no renderable objects: background-only view

@@ -61,6 +61,7 @@ the adoption step of /ingest (rank 0 registers, fits and saves alone).
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import io
 import json
@@ -73,6 +74,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from catnerf_torch import tracing
 from catnerf_torch.data import png
 from catnerf_torch.parallel import mesh as pmesh
 from catnerf_torch.render_views import (
@@ -90,10 +92,12 @@ from catnerf_torch.render_views import (
 )
 
 def _png(img: np.ndarray) -> bytes:
-    """(W, H, 3) float [0,1] -> PNG bytes (standard row-major layout)."""
-    bgr = (np.clip(img, 0, 1).transpose(1, 0, 2) * 255).astype(
-        np.uint8)[..., ::-1]
-    return png.imencode(bgr)
+    """(W, H, 3) float [0,1] -> PNG bytes (standard row-major layout); the
+    span serve.png."""
+    with tracing.span("serve.png"):
+        bgr = (np.clip(img, 0, 1).transpose(1, 0, 2) * 255).astype(
+            np.uint8)[..., ::-1]
+        return png.imencode(bgr)
 
 
 #: how long a follower waits for the next request: an idle server must
@@ -454,11 +458,24 @@ def make_handler(server: SceneServer):
             pass
 
         def _reply(self, code: int, body: bytes, ctype: str) -> None:
-            self.send_response(code)
-            self.send_header("Content-Type", ctype)
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+            with tracing.span("serve.write"):
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        @staticmethod
+        @contextlib.contextmanager
+        def _locked():
+            """server.lock held over the block; the wait for it is the
+            span serve.lock_wait."""
+            with tracing.span("serve.lock_wait"):
+                server.lock.acquire()
+            try:
+                yield
+            finally:
+                server.lock.release()
 
         def _json(self, code: int, obj) -> None:
             self._reply(code, json.dumps(obj).encode(), "application/json")
@@ -477,6 +494,10 @@ def make_handler(server: SceneServer):
 
         def do_GET(self):  # noqa: N802 (http.server API)
             u = urlparse(self.path)
+            with tracing.span("serve.request", path=u.path):
+                self._get(u)
+
+        def _get(self, u):
             q = {k: v[0] for k, v in parse_qs(u.query).items()}
             try:
                 if u.path in ("/", "/viewer"):
@@ -490,7 +511,7 @@ def make_handler(server: SceneServer):
                                      "objects": server.object_ids()})
                 elif u.path == "/object":
                     w, h, bins = self._size(q)
-                    with server.lock:
+                    with self._locked():
                         img = server.render_object(
                             int(q["id"]), float(q.get("az", 0.0)),
                             float(q.get("el", 25.0)),
@@ -499,7 +520,7 @@ def make_handler(server: SceneServer):
                     self._reply(200, _png(img), "image/png")
                 elif u.path == "/edit":
                     w, h, bins = self._size(q)
-                    with server.lock:
+                    with self._locked():
                         img = server.render_object_edit(
                             int(q["id"]), float(q.get("az", 0.0)),
                             float(q.get("el", 25.0)),
@@ -517,7 +538,7 @@ def make_handler(server: SceneServer):
                     self._reply(200, _png(img), "image/png")
                 elif u.path == "/scene":
                     w, h, bins = self._size(q)
-                    with server.lock:
+                    with self._locked():
                         if "frame" in q:
                             img = server.render_scene_frame(
                                 int(q["frame"]), w, h, bins)
@@ -532,7 +553,7 @@ def make_handler(server: SceneServer):
                                 w, h, bins)
                     self._reply(200, _png(img), "image/png")
                 elif u.path == "/mesh":
-                    with server.lock:
+                    with self._locked():
                         data = server.mesh_obj(int(q["id"]))
                     self._reply(200, data, "model/obj")
                 else:
@@ -568,6 +589,10 @@ def make_handler(server: SceneServer):
 
         def do_POST(self):  # noqa: N802 (http.server API)
             u = urlparse(self.path)
+            with tracing.span("serve.request", path=u.path):
+                self._post(u)
+
+        def _post(self, u):
             q = {k: v[0] for k, v in parse_qs(u.query).items()}
             try:
                 n = max(0, int(self.headers.get("Content-Length", 0) or 0))
@@ -587,7 +612,7 @@ def make_handler(server: SceneServer):
                                      f"{self._MAX_INGEST_BYTES})")
                 body = self.rfile.read(n)
                 body_read = True
-                with server.lock:  # ingest mutates the session
+                with self._locked():  # ingest mutates the session
                     out = server.ingest(body, q)
                 self._json(200, out)
             except (BrokenPipeError, ConnectionResetError):

@@ -27,11 +27,14 @@ step.
 from __future__ import annotations
 
 import ctypes
+import functools
+import gc
 import time
 from typing import Any, Callable, Sequence
 
 import torch
 
+from catnerf_torch import tracing
 from catnerf_torch.data.device_buffer import (DeviceRayStore, FastDraws,
                                               check_window_pad, draw_offsets,
                                               draw_rows, sample_batch)
@@ -40,6 +43,69 @@ from catnerf_torch.train.step import (BackgroundBatch, CategoryBatch,
                                       StepDraws, StepMetrics)
 
 N_WARMUP = 3
+#: CUgraphNodeType values of the nodes that run as device operations
+DEVICE_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+@functools.cache
+def _libcuda():
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int)]
+    # (stream, status, id, graph, dependencies, n dependencies)
+    lib.cuStreamGetCaptureInfo_v2.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]
+    for name in ("cuGraphGetNodes", "cuGraphNodeGetType",
+                 "cuStreamGetCaptureInfo_v2"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: error {err}")
+
+
+def graph_nodes(raw_graph: int) -> list[int]:
+    """The nodes of a CUDA graph (a CUgraph handle), by libcuda's
+    cuGraphGetNodes."""
+    lib = _libcuda()
+    n = ctypes.c_size_t(0)
+    _check(lib.cuGraphGetNodes(raw_graph, None, ctypes.byref(n)),
+           "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(lib.cuGraphGetNodes(raw_graph, nodes, ctypes.byref(n)),
+           "cuGraphGetNodes")
+    return list(nodes[:n.value])
+
+
+def node_kinds(raw_graph: int) -> dict[str, int]:
+    """A CUDA graph's nodes that run as device operations, by kind
+    (DEVICE_NODE_KINDS), and the others ("other": event, empty, host
+    nodes)."""
+    lib = _libcuda()
+    kinds = dict.fromkeys((*DEVICE_NODE_KINDS.values(), "other"), 0)
+    t = ctypes.c_int()
+    for node in graph_nodes(raw_graph):
+        _check(lib.cuGraphNodeGetType(node, ctypes.byref(t)),
+               "cuGraphNodeGetType")
+        kinds[DEVICE_NODE_KINDS.get(t.value, "other")] += 1
+    return kinds
+
+
+def capturing_graph(stream: torch.cuda.Stream) -> int:
+    """The graph `stream` is being captured into (a CUgraph handle), by
+    libcuda's cuStreamGetCaptureInfo."""
+    status, graph = ctypes.c_int(), ctypes.c_void_p()
+    _check(_libcuda().cuStreamGetCaptureInfo_v2(
+        stream.cuda_stream, ctypes.byref(status), None, ctypes.byref(graph),
+        None, None), "cuStreamGetCaptureInfo")
+    if status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise RuntimeError("the stream is not capturing")
+    return graph.value
 
 
 class CapturedStep:
@@ -49,7 +115,13 @@ class CapturedStep:
     them then captures one more `body()` on copies of its inputs, the
     graph's static inputs; every later call copies its inputs into those
     and replays the capture, and returns its static outputs.
-    `generators`: the CUDA generators `body` draws from."""
+    `generators`: the CUDA generators `body` draws from.
+
+    Tracing (tracing.py): the capture is the span graph.capture, always
+    recorded, with the graph's nodes (the counter graph.nodes) and its
+    phase map (`phase_map`); while the recorder is on, each replay adds to
+    the counters graph.replays and graph.launch_ns (the host's
+    nanoseconds in `replay()`)."""
 
     def __init__(self, body: Callable[..., Any], device: torch.device,
                  generators: tuple[torch.Generator, ...] = ()):
@@ -62,6 +134,7 @@ class CapturedStep:
         self.launches: dict[str, int] = {}  # kernel launches of a replay
         self.capture_s: float | None = None
         self.pool_bytes: int | None = None
+        self.phase_map: dict | None = None
         self.stream = torch.cuda.Stream(device)
 
     def __call__(self, *inputs: torch.Tensor | None):
@@ -72,7 +145,13 @@ class CapturedStep:
                                      "tensor is None, or the reverse")
                 if x is not None:
                     static.copy_(x)
-            self.graph.replay()
+            if tracing.on():
+                t0 = time.perf_counter_ns()
+                self.graph.replay()
+                tracing.count("graph.launch_ns", time.perf_counter_ns() - t0)
+                tracing.count("graph.replays")
+            else:
+                self.graph.replay()
             fused_field.count_replay(self.launches)
             return self.outputs
         current = torch.cuda.current_stream(self.stream.device)
@@ -96,30 +175,71 @@ class CapturedStep:
         for gen in self.generators:
             graph.register_generator_state(gen)
         self.inputs = tuple(None if x is None else x.clone() for x in inputs)
-        with fused_field.launches_captured() as launches, \
-                torch.cuda.graph(graph, stream=self.stream):
-            outputs = self.body(*self.inputs)
+        marks = []  # (phase, the device nodes captured when it closed)
+
+        def probe(name: str) -> None:
+            if name in tracing.STEP_PHASES:
+                marks.append((name, node_kinds(capturing_graph(self.stream))))
+
+        # a graph of a dead step that the collector frees while this one
+        # captures would end the capture (freeing a graph is not allowed
+        # then): nothing is collected until it is done
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with tracing.span("graph.capture", always=True), \
+                    tracing.capture_probe(probe), \
+                    fused_field.launches_captured() as launches, \
+                    torch.cuda.graph(graph, stream=self.stream):
+                outputs = self.body(*self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         graph.instantiate()
         self.pool_bytes = (torch.cuda.max_memory_allocated(self.stream.device)
                            - before)
         self.capture_s = time.perf_counter() - t0
         self.graph, self.outputs, self.launches = graph, outputs, launches
+        self.phase_map = phase_map(
+            marks, node_kinds(graph.raw_cuda_graph()),
+            sum(x is not None for x in self.inputs))
+        tracing.gauge("graph.nodes", self.node_count())
+        tracing.add_graph(self.phase_map)
 
     def node_count(self) -> int:
         """The captured graph's nodes (kernels, copies, memsets), read
         with libcuda's cuGraphGetNodes."""
         if self.graph is None:
             raise RuntimeError("nothing captured yet")
-        libcuda = ctypes.CDLL("libcuda.so.1")
-        libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                            ctypes.POINTER(ctypes.c_size_t)]
-        libcuda.cuGraphGetNodes.restype = ctypes.c_int
-        n = ctypes.c_size_t(0)
-        err = libcuda.cuGraphGetNodes(self.graph.raw_cuda_graph(), None,
-                                      ctypes.byref(n))
-        if err != 0:
-            raise RuntimeError(f"cuGraphGetNodes: error {err}")
-        return n.value
+        return len(graph_nodes(self.graph.raw_cuda_graph()))
+
+    def node_kinds(self) -> dict[str, int]:
+        """The captured graph's nodes by kind (`node_kinds`)."""
+        if self.graph is None:
+            raise RuntimeError("nothing captured yet")
+        return node_kinds(self.graph.raw_cuda_graph())
+
+
+def phase_map(marks: list[tuple[str, dict[str, int]]],
+              kinds: dict[str, int], copies: int) -> dict:
+    """A captured step's phase map: for each phase of tracing.STEP_PHASES
+    the graph's nodes that run as device operations, by kind. `marks`:
+    (phase, the nodes captured by its close), in capture order; a phase
+    owns the nodes captured since the mark before, the last phase those
+    after the last mark too. `kinds`: the whole graph's (`node_kinds`).
+    copies: the inputs `CapturedStep.__call__` copies in before each
+    replay."""
+    device = DEVICE_NODE_KINDS.values()
+    owned = {p: dict.fromkeys(device, 0) for p in tracing.STEP_PHASES}
+    prev = dict.fromkeys(device, 0)
+    for i, (name, now) in enumerate(marks):
+        upto = kinds if i == len(marks) - 1 else now
+        for k in device:
+            owned[name][k] += upto[k] - prev[k]
+        prev = upto
+    return {"nodes": sum(kinds.values()),
+            "device_nodes": sum(kinds[k] for k in device),
+            "copies": copies, "phases": owned}
 
 
 # step_fn(cat, bg, draws) -> the step's metrics; `draws` is the step's
@@ -156,8 +276,15 @@ class Superstep:
         self.captured: dict[str, CapturedStep] = {}  # "generator"|"injected"
 
     def _step(self, offs, boff, draws):
-        cat, bg = self.sample(offs, boff)
+        with tracing.span("step.batch"):
+            cat, bg = self.sample(offs, boff)
         return self.step_fn(cat, bg, draws), (offs, boff)
+
+    def _drawn_step(self, gen: torch.Generator):
+        with tracing.span("step.batch"):
+            offs, boff = self.draw(gen)
+            cat, bg = self.sample(offs, boff)
+        return self.step_fn(cat, bg, gen), (offs, boff)
 
     def _injected_step(self, offs, boff, u_cat, u_bg):
         return self._step(offs, boff, StepDraws(u_cat, u_bg))
@@ -184,9 +311,8 @@ class Superstep:
         for i in range(n_steps):
             if drawn:
                 metrics, self.offsets = self._run(
-                    "generator",
-                    lambda: self._step(*self.draw(draws), draws),
-                    (), (draws,))
+                    "generator", lambda: self._drawn_step(draws), (),
+                    (draws,))
             else:
                 d = draws[i]
                 metrics, self.offsets = self._run(

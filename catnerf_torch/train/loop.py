@@ -14,6 +14,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from catnerf_torch import tracing
 from catnerf_torch.config import Config
 from catnerf_torch.data.camera import CameraInfo
 from catnerf_torch.data.device_buffer import FastDraws, build_device_store
@@ -151,11 +152,12 @@ class TrainingSession:
         `self.staging` says. `draws` injects the sampling uniforms; by
         default they come from the session's generator, on the calling
         thread."""
-        if self.staging == "packed":
-            cat, bg = self._packed_batch()
-        else:
-            cat, bg = self._device_batch()
-        draws = draws if draws is not None else self._draws()
+        with tracing.span("step.batch"):
+            if self.staging == "packed":
+                cat, bg = self._packed_batch()
+            else:
+                cat, bg = self._device_batch()
+            draws = draws if draws is not None else self._draws()
         if self.shard is None:
             metrics = step_mod.train_step(self.state, cat, bg, draws,
                                           self.cfg, self.obj_mask)
@@ -262,7 +264,8 @@ class TrainingSession:
 
         def step_fn(cat, bg, draws):
             if isinstance(draws, torch.Generator):
-                draws = self._draws(draws)
+                with tracing.span("step.batch"):
+                    draws = self._draws(draws)
             return step_mod.update(state, cat, bg, draws, self.cfg,
                                    self.obj_mask)
 
@@ -306,12 +309,13 @@ class TrainingSession:
         self.settle_prefetch()
         metrics = None
         n_inner = self._superstep.n_inner
-        for s in range(0, n_steps, n_inner):
-            k = min(n_inner, n_steps - s)
-            metrics = self._superstep(
-                self.draw_gen if draws is None else draws[s:s + k], k)
-            self.iteration += k
-            self.state.step += k
+        with tracing.span("train.run_fast", steps=n_steps):
+            for s in range(0, n_steps, n_inner):
+                k = min(n_inner, n_steps - s)
+                metrics = self._superstep(
+                    self.draw_gen if draws is None else draws[s:s + k], k)
+                self.iteration += k
+                self.state.step += k
         if metrics is None:
             return None
         return StepMetrics(*(m.clone() for m in metrics))

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from catnerf_torch import tracing
 from catnerf_torch.config import Config
 from catnerf_torch.kernels import fused_field
 from catnerf_torch.models import codenerf, embedding, occupancy
@@ -278,14 +279,20 @@ def update(state: TrainState, cat_batch: CategoryBatch,
     """`train_step`'s work on the device, without the host's step count:
     the body that a CUDA graph captures (train/graph.py). With a
     `reduction` (a sharded step's, see loss_fn) the gradients are summed
-    over the ranks that share each parameter before AdamW."""
+    over the ranks that share each parameter before AdamW. Recorded as the
+    spans step.forward, step.backward and step.optimizer (tracing.py)."""
+    # drops the gradients and queues no device work, so it lies outside
+    # the phases (the graph's phase map counts none of its nodes)
     state.optimizer.zero_grad(set_to_none=True)
-    total, metrics = loss_fn(state.params, cat_batch, bg_batch, draws, cfg,
-                             obj_mask, reduction=reduction)
-    total.backward()
-    if reduction is not None:
-        reduction.gradients(state.params)
-    state.optimizer.step()
+    with tracing.span("step.forward"):
+        total, metrics = loss_fn(state.params, cat_batch, bg_batch, draws,
+                                 cfg, obj_mask, reduction=reduction)
+    with tracing.span("step.backward"):
+        total.backward()
+        if reduction is not None:
+            reduction.gradients(state.params)
+    with tracing.span("step.optimizer"):
+        state.optimizer.step()
     return StepMetrics(*(m.detach() for m in metrics))
 
 

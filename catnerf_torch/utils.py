@@ -1,6 +1,6 @@
-"""Small shared utilities: the named phase-timing registry (a copy of
-`phase_add`/`phase_timer` from the JAX package's utils.py, ref:
-src/scene_cateogries.py:10-22), device resolution, `device_trace`, and
+"""Small shared utilities: the named phase timings (the JAX package's
+`phase_add`/`phase_timer` API, ref: src/scene_cateogries.py:10-22, kept
+by the recorder in tracing.py), device resolution, `device_trace`, and
 the reference's misc helpers (`performance_measure`, `to8b`,
 `load_matrix_from_txt`, `importance_sampling_coords`, ref:
 src/utils.py:322-327, 493-526)."""
@@ -9,51 +9,39 @@ from __future__ import annotations
 
 import contextlib
 import os
-import threading
 import time
 
 import numpy as np
 import torch
 
-_PHASE_TIMINGS: dict[str, dict[str, float]] = {}
-_PHASE_LOCK = threading.Lock()
-
+from catnerf_torch import tracing
 
 def phase_add(group: str, phase: str, dt: float) -> None:
-    with _PHASE_LOCK:
-        g = _PHASE_TIMINGS.setdefault(group, {})
-        g[phase] = g.get(phase, 0.0) + dt
+    """Add dt seconds to `phase` of `group` (tracing.phase_add)."""
+    tracing.phase_add(group, phase, dt)
 
 
 def phase_timings(group: str) -> dict[str, float]:
     """Seconds spent so far in each phase of `group`."""
-    with _PHASE_LOCK:
-        return dict(sorted(_PHASE_TIMINGS.get(group, {}).items()))
+    return tracing.phases(group)
 
 
 def phase_reset(group: str) -> None:
     """Forget the seconds recorded so far in `group`."""
-    with _PHASE_LOCK:
-        _PHASE_TIMINGS.pop(group, None)
+    tracing.reset_phases(group)
 
 
 def reset_phase_timings(group: str | None = None) -> None:
     """The JAX package's name: phase_reset(group), or every group when
     `group` is None."""
-    if group is not None:
-        phase_reset(group)
-        return
-    with _PHASE_LOCK:
-        _PHASE_TIMINGS.clear()
+    tracing.reset_phases(group)
 
 
-@contextlib.contextmanager
 def phase_timer(group: str, phase: str):
-    t0 = time.time()
-    try:
-        yield
-    finally:
-        phase_add(group, phase, time.time() - t0)
+    """The block's seconds on the monotonic clock added to `phase` of
+    `group`, and the block recorded as the span `group.phase`
+    (tracing.phase)."""
+    return tracing.phase(group, phase)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -78,17 +66,21 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 @contextlib.contextmanager
 def device_trace(log_dir: str, device: str | torch.device = "cpu"):
     """A torch.profiler capture of the block (the port's counterpart of the
-    JAX package's `device_trace`): the host's activities, and the card's
-    on a CUDA `device`. The device is synchronised inside the capture
-    before it stops, so that the work the block queued is in the trace;
-    then a Chrome trace is written under `log_dir` (`trace_<pid>_<ns>.json`,
-    for chrome://tracing or Perfetto). Yields the profiler."""
+    JAX package's `device_trace`): the host's activities on every thread
+    (a server's handler threads too) with the recorder's spans
+    (tracing.py) among them, and the card's on a CUDA `device`. The
+    device is synchronised inside the capture before it stops, so that the
+    work the block queued is in the trace; then a Chrome trace is written
+    under `log_dir` (`trace_<pid>_<ns>.json`, for chrome://tracing or
+    Perfetto). Yields the profiler."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, experimental_config=(
+            _ExperimentalConfig(profile_all_threads=True))) as prof:
         try:
             yield prof
         finally:
