@@ -17,7 +17,9 @@ The points are built and evaluated a tile of whole rays at a time (about
 `chunk` points) and each tile is composited at once, so no tensor of the
 whole view's points lives on the device: the pixels are those of the JAX
 package's padded point tiles, since the fields are pointwise and the
-composite runs along each ray.
+composite runs along each ray. In the whole-scene composite each object
+field runs on the points inside its own box only, and on a CUDA device
+that part of a tile replays a CUDA graph (`_scene_tile`).
 
 CLI: python -m catnerf_torch.render_views --logdir <dir> [--synthetic |
 --config <json>] [--out <dir>] [--n-views 8] [--width 320 --height 240]
@@ -29,6 +31,8 @@ poses when available; --scene adds composited whole-scene views.
 
 from __future__ import annotations
 
+import functools
+import gc
 import os
 import threading
 
@@ -360,47 +364,226 @@ def render_session_orbits(session, out_dir: str, *, n_views: int = 8,
 # The whole-scene composite
 # ---------------------------------------------------------------------------
 
+#: Rows of one slot of the scene composite's object ensemble (`_scene_tile`):
+#: a slot holds one object's points, so a tile runs each object on its own
+#: box's points and at most SLOT_ROWS - 1 pad rows. Timed on the H100
+#: against other sizes (PERF.md, section 6).
+SLOT_ROWS = 128
+
+
+def _fc_rows(fc: CodeNeRF, idx: torch.Tensor, skip: str = "") -> CodeNeRF:
+    """The rows `idx` of the stacked CodeNeRF layers of fc, leaving out
+    the layers whose name holds `skip` (when given)."""
+    def rows(layer):
+        return Linear(layer.w.detach()[idx], layer.b.detach()[idx])
+
+    return CodeNeRF({
+        name: ([rows(m) for m in layer]
+               if isinstance(layer, torch.nn.ModuleList) else rows(layer))
+        for name, layer in fc.named_children()
+        if not (skip and skip in name)})
+
+
+def _slot_fields(fields: dict, owner: torch.Tensor):
+    """(A, b, pe, fc, shape_inj, texture_inj) of each slot's object, with
+    a leading slot axis: the staged rows gathered by `owner` [S]. The
+    codes are projected on the objects first (project-then-gather,
+    codenerf.project_codes), so the latent layers are not gathered."""
+    shape_inj, texture_inj = codenerf.project_codes(
+        fields["fc"], fields["sc"][:, None], fields["tc"][:, None])
+    return (fields["A"][owner], fields["b"][owner],
+            UniDirsEmbed(fields["pe"].B.detach()[owner]),
+            _fc_rows(fields["fc"], owner, skip="latent"),
+            shape_inj[owner], texture_inj[owner])
+
+
+def _object_union(fields: dict, cfg: Config, n_slots: int, p: torch.Tensor,
+                  mask: torch.Tensor, counts: torch.Tensor):
+    """(prod(1 - occ_f) [n], sum(occ_f rgb_f) [n, 3], sum(occ_f) [n]) over
+    the staged objects (`fields`: the staging's A, b, pe, fc, sc and tc)
+    at points p [n, 3], each object field run only on the points its box
+    mask [n_obj, n] holds (`counts` [n_obj] of them), in `n_slots`
+    object-major slots of SLOT_ROWS rows: ceil(count / SLOT_ROWS) an
+    object, in object order, then empty ones. A slot's rows are its
+    object's points in point order; pad rows point at point 0 and are
+    dropped. The slots run as one ensemble, each over its object's frame,
+    parameters and codes (`_slot_fields`). Each hit's result goes to its
+    own place of an [n_obj, n] buffer, zero elsewhere, over which the
+    union reduces in object order, so two calls agree bit for bit. Sized
+    on the host by `n_slots` alone: nothing here syncs, so a CUDA graph
+    can hold it."""
+    R = SLOT_ROWS
+    n_obj, n = mask.shape
+    dev = p.device
+    per = (counts + R - 1) // R
+    ends = torch.cumsum(per, 0)
+    first = ends - per
+    slot = torch.arange(n_slots, device=dev)
+    owner = torch.searchsorted(ends, slot, right=True).clamp_(max=n_obj - 1)
+    # a hit's row of the table: its object's first slot, then its rank
+    # among the object's hits; every miss goes to one spare row at the end
+    place = torch.where(mask, first[:, None] * R + mask.cumsum(1) - 1,
+                        n_slots * R)
+    rows = torch.zeros(n_slots * R + 1, dtype=torch.long, device=dev)
+    rows.index_put_((place,), torch.arange(n, device=dev).expand(n_obj, n))
+    rows = rows[:-1].view(n_slots, R)
+    rank = ((slot - first[owner])[:, None] * R
+            + torch.arange(R, device=dev))
+    valid = rank < counts[owner][:, None]
+
+    A, b, pe, fc, shape_inj, texture_inj = _slot_fields(fields, owner)
+    x_e = p[rows] @ A.transpose(1, 2) + b[:, None]
+    emb = embedding.apply(pe, x_e, scale=cfg.obj_scale,
+                          max_deg=cfg.n_unidir_funcs)
+    sigma, rgbs = codenerf.apply_with_injections(fc, emb, shape_inj,
+                                                 texture_inj)
+    occs = render_ops.occupancy_activation(sigma[..., 0])
+    place = torch.where(valid, owner[:, None] * n + rows, n_obj * n)
+    buf = torch.zeros(n_obj * n + 1, 4, device=dev)
+    buf.index_put_((place,),
+                   torch.cat([occs[..., None], occs[..., None] * rgbs], -1))
+    buf = buf[:-1].view(n_obj, n, 4)
+    return (torch.prod(1.0 - buf[..., 0], dim=0), buf[..., 1:].sum(0),
+            buf[..., 0].sum(0))
+
+
+class _Graphed:
+    """`body()` (a tuple of tensors out) as a CUDA graph in the memory
+    pool `pool`: the first call runs it eagerly on `stream`, then captures
+    it there; every later call replays the capture on the current stream.
+    Its inputs are the tensors that body reads, which the caller fills
+    before each call. The outputs are static tensors that each replay
+    overwrites, and that another graph of the pool may overwrite."""
+
+    def __init__(self, body, stream: torch.cuda.Stream, pool):
+        self.body = body
+        self.stream = stream
+        self.pool = pool
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.outputs: tuple = ()
+
+    def __call__(self):
+        if self.graph is not None:
+            self.graph.replay()
+            return self.outputs
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        # the collector must not free another graph during the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(self.stream):
+                outputs = self.body()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    self.outputs = self.body()
+        finally:
+            if collecting:
+                gc.enable()
+        current.wait_stream(self.stream)
+        self.graph = graph
+        return outputs
+
+
+def _slot_bucket(n_slots: int) -> int:
+    """n_slots rounded up to four steps an octave: at most a quarter more
+    slots, and a few sizes (graphs) a view."""
+    step = 1 << max(0, (n_slots - 1).bit_length() - 3)
+    return -(-n_slots // step) * step
+
+
+class _UnionGraphs:
+    """One staging's CUDA graphs of `_object_union`, one per (tile size,
+    bucket of slots, embedding), over one set of input tensors a tile
+    size: captured on one side stream, in one memory pool, which holds
+    about the largest graph since every replay runs on the stream after
+    the one before. Kept in the staging (its key "graphs"), so they go
+    with it. A staging whose fields were replaced (a copy of the dict)
+    starts anew; a lock keeps two threads rendering one staging from
+    replaying into each other's inputs and outputs."""
+
+    FIELDS = ("A", "b", "pe", "fc", "sc", "tc")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.stream = self.pool = None
+        self.fields: tuple = ()
+        self.inputs: dict = {}
+        self.graphs: dict = {}
+
+    def __call__(self, staged: dict, cfg: Config, n_slots: int,
+                 p: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor):
+        """_object_union's three sums (copies of the graph's outputs), and
+        the slots run: n_slots rounded up by `_slot_bucket` (the extra
+        ones run pad rows)."""
+        n_slots = _slot_bucket(n_slots)
+        key = (p.shape[0], n_slots, SLOT_ROWS, cfg.obj_scale,
+               cfg.n_unidir_funcs)
+        fields = tuple(staged[k] for k in self.FIELDS)
+        with self.lock:
+            if (len(fields) != len(self.fields)
+                    or any(a is not b for a, b in zip(fields, self.fields))):
+                self.fields, self.inputs, self.graphs = fields, {}, {}
+            if self.stream is None:
+                self.stream = torch.cuda.Stream(p.device)
+                self.pool = torch.cuda.graph_pool_handle()
+            inputs = self.inputs.get(p.shape[0])
+            if inputs is None:
+                inputs = self.inputs[p.shape[0]] = tuple(
+                    torch.empty_like(x) for x in (p, mask, counts))
+            for static, x in zip(inputs, (p, mask, counts)):
+                static.copy_(x)
+            graph = self.graphs.get(key)
+            if graph is None:
+                graph = self.graphs[key] = _Graphed(functools.partial(
+                    _object_union, dict(zip(self.FIELDS, fields)), cfg,
+                    n_slots, *inputs), self.stream, self.pool)
+            return tuple(x.clone() for x in graph()), n_slots
+
+
 def _scene_tile(staged: dict, bg_params: dict | None, cfg: Config,
                 p: torch.Tensor):
     """(occ [n], rgb [n, 3]) of the union of every staged object field and
     the background at world points p [n, 3]: occ = 1 - prod(1 - occ_f),
-    rgb = sum(occ_f rgb_f) / sum(occ_f). The object fields run as one
-    n_obj-wide ensemble, each over its own frame of the points and masked
-    to its box, on the points inside at least one box only: elsewhere
-    every object's masked occupancy is 0, which leaves the union's product
-    at 1 and its sums at 0, as the JAX package's evaluation of every point
-    does. No [n_obj, n] tensor outlives the tile.
+    rgb = sum(occ_f rgb_f) / sum(occ_f). Each object field runs only on
+    the points inside its own box, in object-major slots
+    (`_object_union`); every other pair of object and point has a masked
+    occupancy of 0, which leaves the union's product at 1 and its sums at
+    0, as the JAX package's evaluation of every point does. The
+    per-object hit counts are the tile's one host read; the slots are
+    sized from them. On a CUDA device the objects' work after that read
+    runs as a replayed CUDA graph of the staging (`_UnionGraphs`):
+    launched one by one, its ~100 operations would set the tile's pace on
+    the host.
 
-    Tracing: the spans render.objects (the box test, its `nonzero`, the
-    span render.sync, and the ensemble) and render.background, each timed
-    on the device too; the counters render.syncs, render.object_evals
-    (objects x points inside some box) and render.object_hits (the box
-    mask's true entries, summed on the device)."""
+    Tracing: the spans render.objects (the box test, the span render.sync,
+    the slots and the ensemble) and render.background, each timed on the
+    device too; the counters render.syncs, render.object_hits (the box
+    mask's true entries), render.object_slots (the slots run) and
+    render.object_evals (the rows the ensemble runs: slots x
+    SLOT_ROWS)."""
+    one_minus = torch.ones_like(p[:, 0])
+    csum = torch.zeros_like(p)
+    wsum = torch.zeros_like(p[:, 0])
     with tracing.span("render.objects", device=p.device):
         x_m = p @ staged["Am"].transpose(1, 2) + staged["bm"][:, None]
         mask = (x_m.abs() <= staged["half"][:, None]).all(-1)
+        counts = mask.sum(1)
         with tracing.span("render.sync"):
             tracing.count("render.syncs")
-            inside = mask.any(0).nonzero().squeeze(1)
-        tracing.count("render.object_evals", mask.shape[0] * inside.numel())
-        if tracing.on():
-            tracing.count_device("render.object_hits", mask.sum())
-        one_minus = torch.ones_like(p[:, 0])
-        csum = torch.zeros_like(p)
-        wsum = torch.zeros_like(p[:, 0])
-        if inside.numel():
-            q = p[inside]
-            x_e = q @ staged["A"].transpose(1, 2) + staged["b"][:, None]
-            emb = embedding.apply(staged["pe"], x_e, scale=cfg.obj_scale,
-                                  max_deg=cfg.n_unidir_funcs)
-            sigma, rgbs = codenerf.apply(staged["fc"], emb,
-                                         staged["sc"][:, None],
-                                         staged["tc"][:, None])
-            occs = (render_ops.occupancy_activation(sigma[..., 0])
-                    * mask[:, inside].float())
-            one_minus[inside] = torch.prod(1.0 - occs, dim=0)
-            csum[inside] = (occs[..., None] * rgbs).sum(0)
-            wsum[inside] = occs.sum(0)
+            hits = counts.tolist()
+        n_slots = sum(-(-h // SLOT_ROWS) for h in hits)
+        if n_slots and p.is_cuda:
+            (one_minus, csum, wsum), n_slots = staged["graphs"](
+                staged, cfg, n_slots, p, mask, counts)
+        elif n_slots:
+            one_minus, csum, wsum = _object_union(staged, cfg, n_slots, p,
+                                                  mask, counts)
+        tracing.count("render.object_hits", sum(hits))
+        tracing.count("render.object_slots", n_slots)
+        tracing.count("render.object_evals", n_slots * SLOT_ROWS)
     if bg_params is not None:
         with tracing.span("render.background", device=p.device):
             emb = embedding.apply(bg_params["pe"], p, scale=cfg.bg_scale,
@@ -428,8 +611,8 @@ def render_scene_view(session, T: np.ndarray, cam: CameraInfo, *,
     inverse sim(3) for multi-instance categories, world otherwise) and
     masked to their OBB/extent box (fields are untrained garbage outside
     the region the mesh grid would evaluate); inside each tile every
-    object field runs as one stacked ensemble on the points inside some
-    object's box (`_scene_tile`).
+    object field runs on the points inside its own box only, the objects
+    as one ensemble over object-major slots (`_scene_tile`).
     device_mesh: a DeviceMesh of more than one process (every rank calls
     this; the JAX package's sharded composite): each rank composites its
     own tiles of whole rays and only their pixels are gathered; every rank
@@ -465,7 +648,8 @@ def _stage_scene_fields(session, margin: float):
     attribute — a global id(session)-keyed dict could alias a new session
     allocated at a dead one's address and would pin dead sessions'
     tensors.) Returns None when no object is renderable; else a dict of
-    tensors with "n_obj"."""
+    tensors with "n_obj" and "graphs", the staging's CUDA graphs of the
+    object union (`_UnionGraphs`, empty until a CUDA render)."""
     # (step, adopted-count) covers every mutation path: training bumps
     # step (run_fast by k at once), adoption grows the adopted list (same
     # key rule as serve.py's /mesh cache); object ids are never reused
@@ -514,24 +698,18 @@ def _stage_scene_fields(session, margin: float):
         ci = torch.tensor(cls_idx, device=dev)
         ki = torch.tensor(inst_idx, device=dev)
 
-        def rows(layer):
-            return Linear(layer.w.detach()[ci], layer.b.detach()[ci])
-
         def stack(xs):
             return torch.as_tensor(np.stack(xs), device=dev)
 
         staged = {
             "n_obj": len(cls_idx),
             "pe": UniDirsEmbed(p.cat_pe.B.detach()[ci]),
-            "fc": CodeNeRF({
-                name: ([rows(m) for m in layer]
-                       if isinstance(layer, torch.nn.ModuleList)
-                       else rows(layer))
-                for name, layer in p.cat_fc.named_children()}),
+            "fc": _fc_rows(p.cat_fc, ci),
             "sc": p.codes.shape.detach()[ci, ki],
             "tc": p.codes.texture.detach()[ci, ki],
             "A": stack(As), "b": stack(bs), "Am": stack(Ams),
-            "bm": stack(bms), "half": stack(halfs)}
+            "bm": stack(bms), "half": stack(halfs),
+            "graphs": _UnionGraphs()}
     session._scene_staging_cache = (version, staged)
     return staged
 

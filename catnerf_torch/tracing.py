@@ -30,8 +30,10 @@ Names in use (PERF.md lists the metric each feeds):
   serve.request, serve.lock_wait, serve.png, serve.write (serve.py);
   render.stage, render.tile, render.objects, render.background,
   render.sync and the counters render.tiles, render.syncs,
-  render.points, render.object_evals, render.object_hits,
-  render.objects.device_ns, render.background.device_ns
+  render.points, render.object_hits (the objects' box masks' true
+  entries), render.object_slots (the slots of SLOT_ROWS rows the object
+  ensemble runs), render.object_evals (the rows it runs: slots x
+  SLOT_ROWS), render.objects.device_ns, render.background.device_ns
   (render_views.py);
   train.run_fast, step.batch, step.forward, step.backward,
   step.optimizer (train/loop.py, train/graph.py, train/step.py);

@@ -2412,9 +2412,10 @@ def render_card_vs_cpu(sess):
     log(f"serve: card vs CPU in {time.time() - t0:.1f} s")
 
 
-def inside_points(sess, fn) -> int:
-    """The points of a scene composite `fn()` that lie inside some
-    object's box (where `_scene_tile` runs the object fields)."""
+def box_hits(sess, fn) -> int:
+    """The pairs of object and point of a scene composite `fn()` where
+    the point lies inside the object's box (where `_scene_tile` runs that
+    object's field)."""
     from catnerf_torch import render_views as rv
 
     tile, count = rv._scene_tile, []
@@ -2422,7 +2423,7 @@ def inside_points(sess, fn) -> int:
     def counted(staged, bg_params, cfg, p):
         x_m = p @ staged["Am"].transpose(1, 2) + staged["bm"][:, None]
         count.append(int((x_m.abs() <= staged["half"][:, None]).all(-1)
-                         .any(0).sum()))
+                         .sum()))
         return tile(staged, bg_params, cfg, p)
 
     rv._scene_tile = counted
@@ -2438,8 +2439,8 @@ def time_renders(sess) -> None:
     called directly (median of SERVE_TIMED after one warm-up, the host's
     clock around a call that ends in its download): ms a view, points/s,
     beside the bound of the field evaluation (its operations over the
-    card's float32 peak: the scene's background at every point, its
-    object fields at the points inside some object's box)."""
+    card's float32 peak: the scene's background at every point, each
+    object field at the points inside its own box)."""
     import numpy as np
 
     from catnerf_torch import render_views as rv
@@ -2457,7 +2458,6 @@ def time_renders(sess) -> None:
     points = width * height * bins
     cn = field_flops(p["fc"], False)
     bg = field_flops(sess.state.params.bg_fc, True)
-    n_obj = sum(c.n_obj for c in sess.categories)
     cases = {
         "object": (lambda: rv.render_view(
             p, sess.cfg, T_obj, cam, near=near, far=far,
@@ -2468,11 +2468,11 @@ def time_renders(sess) -> None:
             sess, T_scene, cam, near=0.05, far=rv.scene_far(sess),
             n_bins=bins), None),
     }
-    inside = inside_points(sess, cases["scene"][0])
-    cases["scene"] = (cases["scene"][0],
-                      bg + n_obj * cn * inside / points)
-    log(f"serve: render_scene's samples inside an object's box: {inside} "
-        f"of {points} ({100.0 * inside / points:.2f}%)")
+    hits = box_hits(sess, cases["scene"][0])
+    cases["scene"] = (cases["scene"][0], bg + cn * hits / points)
+    log(f"serve: render_scene's object fields on their boxes' samples: "
+        f"{hits} evaluations for {points} samples "
+        f"({100.0 * hits / points:.2f}%)")
     for what, (fn, flops) in cases.items():
         fn()
         times = []

@@ -10,7 +10,9 @@ numpy composite) agree within 1e-6; the renders (rgb, depth, alpha) within
 
 from __future__ import annotations
 
+import copy
 import os
+import sys
 import threading
 
 import cv2
@@ -25,6 +27,9 @@ from catnerf_torch.config import Config
 from catnerf_torch.data import png
 from catnerf_torch.data.camera import CameraInfo
 from catnerf_torch.data.synthetic import make_scene
+from catnerf_torch.models import codenerf as tcodenerf
+from catnerf_torch.models import embedding as tembedding
+from catnerf_torch.models import occupancy as toccupancy
 from catnerf_torch.train.loop import TrainingSession
 from catnerf_torch.train.state import make_train_state
 from catnerf_tpu import render_views as jrv
@@ -258,6 +263,179 @@ def test_a_scene_without_renderable_objects_renders_the_background(
     _close(got, jrv.render_scene_view(jsess, T, cam, **kw))
     _close(got, rv.render_view(tsess.background_params(), tsess.cfg, T, cam,
                                is_background=True, **kw), tol=0.0)
+
+
+def _dense_tile(staged, bg_params, cfg, p):
+    """The dense tile that the slotted `_scene_tile` replaced, as a plain
+    reference: every object field on every point inside some box, masked
+    to its own box afterwards."""
+    x_m = p @ staged["Am"].transpose(1, 2) + staged["bm"][:, None]
+    mask = (x_m.abs() <= staged["half"][:, None]).all(-1)
+    inside = mask.any(0).nonzero().squeeze(1)
+    one_minus = torch.ones_like(p[:, 0])
+    csum = torch.zeros_like(p)
+    wsum = torch.zeros_like(p[:, 0])
+    if inside.numel():
+        x_e = p[inside] @ staged["A"].transpose(1, 2) + staged["b"][:, None]
+        emb = tembedding.apply(staged["pe"], x_e, scale=cfg.obj_scale,
+                               max_deg=cfg.n_unidir_funcs)
+        sigma, rgbs = tcodenerf.apply(staged["fc"], emb,
+                                      staged["sc"][:, None],
+                                      staged["tc"][:, None])
+        occs = torch.sigmoid(sigma[..., 0]) * mask[:, inside].float()
+        one_minus[inside] = torch.prod(1.0 - occs, dim=0)
+        csum[inside] = (occs[..., None] * rgbs).sum(0)
+        wsum[inside] = occs.sum(0)
+    emb = tembedding.apply(bg_params["pe"], p, scale=cfg.bg_scale,
+                           max_deg=cfg.n_unidir_funcs)
+    sigma, rgb = toccupancy.apply(bg_params["fc"], emb)
+    occb = torch.sigmoid(sigma[..., 0])
+    one_minus = one_minus * (1.0 - occb)
+    csum = csum + occb[:, None] * rgb
+    wsum = wsum + occb
+    return 1.0 - one_minus, csum / torch.clamp(wsum[:, None], min=1e-8)
+
+
+def _on(tree: dict, device) -> dict:
+    """A copy of a dict of tensors and modules on `device`."""
+    return {k: (copy.deepcopy(v).to(device) if isinstance(v, torch.nn.Module)
+                else v.to(device) if isinstance(v, torch.Tensor) else v)
+            for k, v in tree.items()}
+
+
+def _tile_case(case: str, n_obj: int):
+    """(Am, bm, half [n_obj, ...] world-frame boxes, points p [n, 3]) of
+    one handmade tile."""
+    gen = torch.Generator().manual_seed(7)
+    Am = torch.eye(3).expand(n_obj, 3, 3).clone()
+    centers = torch.tensor([[0.0, 0.0, 0.0], [0.3, 0.0, 0.0],
+                            [0.0, 0.3, 0.1], [2.0, 2.0, 2.0]])[:n_obj]
+    half = torch.full((n_obj, 3), 0.4)
+    if case == "many":  # object 0 holds more points than a slot
+        half[0] = 1.0
+        p = torch.rand(4 * rv.SLOT_ROWS, 3, generator=gen) * 2.4 - 1.2
+    elif case == "empty":  # no point inside any box
+        p = torch.rand(300, 3, generator=gen) + 5.0
+    else:
+        p = torch.rand(600, 3, generator=gen) * 3.0 - 0.5
+        p[0] = torch.tensor([0.15, 0.15, 0.05])  # inside boxes 0, 1 and 2
+    if case == "dropped":
+        half = torch.full_like(half, -1.0)
+    return Am, -centers, half, p
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("case", ["overlap", "empty", "many", "dropped",
+                                  "replay"])
+def test_the_slotted_scene_tile_equals_the_dense_one(pair, case, device):
+    """_scene_tile runs each object only on its own box's points, in
+    object-major slots; the union equals the dense evaluation's within
+    1e-6, and two calls agree bit for bit. Cases: a point inside three
+    overlapping boxes, a tile with no point in any box, an object with
+    more inside points than a slot holds, the boxes dropped (half = -1:
+    the background alone), and a second tile of the same size and slot
+    count, its points in reverse order (on a CUDA device it replays the
+    first tile's graph on new inputs)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    tsess, _ = pair
+    staged = rv._stage_scene_fields(tsess, 1.3)
+    Am, bm, half, p = _tile_case(case, staged["n_obj"])
+    staged = _on({**staged, "Am": Am, "bm": bm, "half": half}, device)
+    bg = _on(tsess.background_params(), device)
+    p = p.to(device)
+    counts = ((p @ staged["Am"].transpose(1, 2) + staged["bm"][:, None])
+              .abs() <= staged["half"][:, None]).all(-1).sum(1).tolist()
+    if case in ("overlap", "replay"):
+        inside = ((p[0] + staged["bm"]).abs() <= staged["half"]).all(-1)
+        assert inside.tolist()[:3] == [True, True, True]
+        assert 0 < sum(counts) < p.shape[0]
+    elif case == "many":
+        assert counts[0] > rv.SLOT_ROWS
+    else:
+        assert sum(counts) == 0
+    with torch.inference_mode():
+        got = rv._scene_tile(staged, bg, tsess.cfg, p)
+        again = rv._scene_tile(staged, bg, tsess.cfg, p)
+        want = _dense_tile(staged, bg, tsess.cfg, p)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=0, atol=1e-6)
+    if case == "dropped":  # the background alone, as with no box at all
+        empty = {**staged, "half": torch.zeros_like(staged["half"]),
+                 "bm": staged["bm"] + 100.0}
+        with torch.inference_mode():
+            alone = rv._scene_tile(empty, bg, tsess.cfg, p)
+        for g, a in zip(got, alone):
+            assert torch.equal(g, a)
+    if case == "replay":
+        q = p.flip(0)
+        with torch.inference_mode():
+            got = rv._scene_tile(staged, bg, tsess.cfg, q)
+            want = _dense_tile(staged, bg, tsess.cfg, q)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=0, atol=1e-6)
+        if device == "cuda":  # one graph, captured once and replayed
+            assert len(staged["graphs"].graphs) == 1
+
+
+@pytest.mark.cuda
+def test_threads_sharing_a_stagings_graphs_get_their_own_tiles(pair):
+    """Threads rendering tiles of one staging at once on a CUDA device
+    replay its shared graphs: each gets its own tile's union, bitwise the
+    eager one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    tsess, _ = pair
+    cfg = tsess.cfg
+    staged = rv._stage_scene_fields(tsess, 1.3)
+    Am, bm, half, p = _tile_case("overlap", staged["n_obj"])
+    staged = _on({**staged, "Am": Am, "bm": bm, "half": half}, "cuda")
+    tiles, wants = [], []
+    with torch.inference_mode():
+        for k in range(16):  # the same counts, so one graph for all
+            q = p.roll(37 * k, 0).cuda()
+            mask = ((q @ staged["Am"].transpose(1, 2)
+                     + staged["bm"][:, None]).abs()
+                    <= staged["half"][:, None]).all(-1)
+            counts = mask.sum(1)
+            n_slots = rv._slot_bucket(sum(-(-h // rv.SLOT_ROWS)
+                                          for h in counts.tolist()))
+            tiles.append((q, mask, counts, n_slots))
+            wants.append(rv._object_union(staged, cfg, n_slots, q, mask,
+                                          counts))
+    failures = []
+
+    def work(k):
+        q, mask, counts, n_slots = tiles[k]
+        try:
+            with torch.inference_mode():
+                for _ in range(10):
+                    got, _ = staged["graphs"](staged, cfg, n_slots, q, mask,
+                                              counts)
+                    if not all(torch.equal(g, w)
+                               for g, w in zip(got, wants[k])):
+                        failures.append(k)
+        except Exception as e:  # a thread's error fails the test below
+            failures.append(repr(e))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(len(tiles))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert failures == []
+    assert len(staged["graphs"].graphs) == 1
 
 
 @pytest.mark.parametrize("how", ["step_once", "run_fast"])
